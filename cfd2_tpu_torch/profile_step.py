@@ -1,0 +1,159 @@
+"""Where one main-path step's time goes on the GPU.
+
+Builds the main path as ``chip_smoke.py`` does (the 996,558-cell channel
+mesh, structured multigrid, the developed state from
+``bench_developed_1m.npz``, 3 untimed healing steps), then traces
+``--steps`` steps with ``torch.profiler`` and prints:
+
+* per step: wall time, outer and FGMRES iterations, host reads, launches;
+* device busy time (the union of kernel intervals) against wall time, i.e.
+  the device's idle share;
+* device time per kernel name, largest first, grouped by what issues it.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python -m cfd2_tpu_torch.profile_step [--steps 2]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from dataclasses import replace
+from pathlib import Path
+
+import torch
+
+from . import ChannelWithObstacle, CoupledSolver, generate_cut_cell_mesh
+from .convert import load_developed_state
+from .ops import stencil_kernels as sk
+from .runtime import host_reads
+
+ROOT = Path(__file__).resolve().parent.parent
+MIN_CELL = 0.0017   # the main path's mesh: 996,558 cells on 589x1765
+
+# Kernel-name fragments -> the code that issues them.
+_GROUPS = (
+    ("rbgs_leg_kernel", "rbgs_leg (CUDA, V-cycle smoother)"),
+    ("rbgs_half_sweep", "rbgs_half_sweep (CUDA)"),
+    ("gemv", "Gram-Schmidt / solution update (gemv)"),
+    ("gemm", "Gram-Schmidt / solution update (gemm)"),
+    ("dot_kernel", "Gram-Schmidt / solution update (gemv)"),
+    ("CatArrayBatchedCopy", "edge-clamped shifts (torch.cat)"),
+    ("reduce_kernel", "reductions (norms, max-diffs, slot sums)"),
+    ("getrs", "coarsest dense LU solve"),
+    ("getrf", "coarsest dense LU factor"),
+    ("trsm", "coarsest dense LU solve"),
+    ("laswp", "coarsest dense LU solve"),
+    ("elementwise", "elementwise stencil arithmetic"),
+    ("copy", "copies"),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for frag, label in _GROUPS:
+        if frag.lower() in low:
+            return label
+    return "other"
+
+
+def _busy_us(events) -> float:
+    """Union length of [start, end) device intervals, in microseconds."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in iv:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    print(torch.cuda.get_device_name(0), flush=True)
+
+    geo = ChannelWithObstacle(length=3.0, height=1.0,
+                              obstacle_center=(1.0, 0.5), obstacle_radius=0.2)
+    mesh = generate_cut_cell_mesh(geo, MIN_CELL, MIN_CELL, 1.2, (3.0, 1.0))
+    s = CoupledSolver(mesh)
+    s.set_dt(min(0.002, 0.4 * MIN_CELL))
+    s.set_viscosity(0.01)
+    s.set_precond_type(1)
+    s.config = replace(s.config, fgmres_max_restarts=5)
+    load_developed_state(s, ROOT / "bench_developed_1m.npz")
+    for _ in range(3):
+        s.step()
+    torch.cuda.synchronize()
+
+    n = mesh.num_cells
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    rows = []
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            host_reads.reset()
+            sk.reset_launches()
+            t = time.perf_counter()
+            s.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            rows.append(dict(wall_s=wall,
+                             outer_iters=int(s.state.outer_iters),
+                             linear_iters_total=int(
+                                 s.state.linear_iters_total),
+                             host_reads=host_reads.COUNT["reads"],
+                             launches=dict(sk.LAUNCHES)))
+        window = time.perf_counter() - t0
+    for i, r in enumerate(rows):
+        r["cell_updates_per_s"] = n / r["wall_s"]
+        print(f"step {i}: {json.dumps(r)}", flush=True)
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels) * 1e-6
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    by_group = defaultdict(lambda: [0.0, 0])
+    for name, (us, cnt) in by_name.items():
+        g = by_group[_group(name)]
+        g[0] += us
+        g[1] += cnt
+    n_lin = sum(r["linear_iters_total"] for r in rows)
+    print(f"window {window:.4f} s over {args.steps} steps, "
+          f"{len(kernels)} kernels ({len(kernels) / max(n_lin, 1):.1f} per "
+          f"FGMRES iteration), device busy {busy:.4f} s, idle share "
+          f"{1 - busy / window:.4f}", flush=True)
+    print("device time by group (ms, launches):")
+    for label, (us, cnt) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / 1e3:10.3f} ms {cnt:8d}  {label}")
+    print("top kernels (ms, launches, mean us):")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    for name, (us, cnt) in top:
+        print(f"  {us / 1e3:10.3f} ms {cnt:8d} {us / cnt:9.2f}  {name[:110]}")
+    summary = dict(window_s=window, device_busy_s=busy,
+                   idle_share=1 - busy / window, kernels=len(kernels),
+                   steps=rows, cells=n,
+                   device=torch.cuda.get_device_name(0))
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,118 @@
+"""The RB-GS kernels' plain versions (what the wrappers run for CPU tensors)
+against the JAX package's Pallas kernels in interpret mode, on the cases of
+tests/test_pallas.py.  Tolerance 1e-5 max-abs on O(1) random data, as there.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by chip_smoke.py (and tests/test_torch_cuda.py where a GPU exists)."""
+
+import numpy as np
+import pytest
+import torch
+
+from cfd2_tpu.ops.pallas_stencil import fused_rbgs2, rbgs_half_sweep
+from cfd2_tpu_torch.ops import _build
+from cfd2_tpu_torch.ops import stencil_kernels as sk
+
+torch.set_num_threads(1)
+TOL = 1e-5
+
+
+def _grid_system(ny, nx, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(1, 2, (ny, nx)).astype(np.float32),
+            (rng.standard_normal((4, ny, nx)) * 0.1).astype(np.float32),
+            rng.standard_normal((ny, nx)).astype(np.float32),
+            rng.standard_normal((ny, nx)).astype(np.float32))
+
+
+def _flat_system(ny, nx, seed):
+    rng = np.random.default_rng(seed)
+    n = ny * nx
+    return (rng.uniform(1, 2, n).astype(np.float32),
+            (rng.standard_normal((n, 4)) * 0.1).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+T = torch.as_tensor
+
+
+@pytest.mark.parametrize("ny,nx,sweeps,seed", [
+    (37, 53, 1, 0), (37, 53, 2, 1), (16, 24, 1, 2), (300, 128, 1, 3)])
+def test_leg_matches_pallas_fused(ny, nx, sweeps, seed):
+    diag2, off2, x, b = _grid_system(ny, nx, seed)
+    jx, jr = fused_rbgs2(x, diag2, off2, b, (ny, nx), sweeps=sweeps,
+                         residual=True, interpret=True)
+    tx, tr = sk.rbgs_leg_ref(T(x), T(diag2), T(off2), T(b), sweeps, True)
+    assert float(np.abs(tx.numpy() - np.asarray(jx)).max()) < TOL
+    assert float(np.abs(tr.numpy() - np.asarray(jr)).max()) < TOL
+    tx2 = sk.rbgs_leg_ref(T(x), T(diag2), T(off2), T(b), sweeps, False)
+    assert torch.equal(tx2, tx)
+
+
+@pytest.mark.parametrize("ny,nx,seed", [(37, 53, 0), (16, 24, 1),
+                                        (300, 128, 2)])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_half_sweep_matches_pallas(ny, nx, seed, parity):
+    diag, off, x, b = _flat_system(ny, nx, seed)
+    ref = rbgs_half_sweep(x, diag, off, b, parity, (ny, nx), interpret=True)
+    got = sk.rbgs_half_sweep_ref(T(x), T(diag), T(off), T(b), parity,
+                                 (ny, nx))
+    assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < TOL
+    # Only the active colour moves.
+    j, i = np.divmod(np.arange(ny * nx), nx)
+    other = (j + i + parity) % 2 == 1
+    np.testing.assert_array_equal(got.numpy()[other], x[other])
+    assert not np.allclose(got.numpy()[~other], x[~other])
+
+
+def test_half_sweep_pairs_equal_leg():
+    """Two half-sweeps (parity 0 then 1) are one leg without residual."""
+    ny, nx = 37, 53
+    diag2, off2, x, b = _grid_system(ny, nx, 5)
+    leg = sk.rbgs_leg_ref(T(x), T(diag2), T(off2), T(b), 2)
+    flat = sk.smooth_rbgs_half_sweeps(
+        (ny, nx), T(diag2).reshape(-1), T(off2).reshape(4, -1).T,
+        T(x).reshape(-1), T(b).reshape(-1), sweeps=2)
+    assert float((flat.reshape(ny, nx) - leg).abs().max()) < TOL
+
+
+def test_wrappers_on_cpu_run_plain_version_without_build(monkeypatch):
+    """A CPU tensor never reaches the build or the launch counter."""
+    def no_build(name):
+        raise AssertionError("the CUDA build was touched for CPU tensors")
+    monkeypatch.setattr(_build, "load", no_build)
+    before = dict(sk.LAUNCHES)
+    diag2, off2, x, b = (T(a) for a in _grid_system(16, 24, 3))
+    gx, gr = sk.rbgs_leg(x, diag2, off2, b, 1, residual=True)
+    rx, rr = sk.rbgs_leg_ref(x, diag2, off2, b, 1, residual=True)
+    assert torch.equal(gx, rx) and torch.equal(gr, rr)
+    d, o, xf, bf = (T(a) for a in _flat_system(16, 24, 4))
+    assert torch.equal(sk.rbgs_half_sweep(xf, d, o, bf, 1, (16, 24)),
+                       sk.rbgs_half_sweep_ref(xf, d, o, bf, 1, (16, 24)))
+    assert sk.LAUNCHES == before
+
+
+def test_wrapper_rejects_other_devices():
+    x = torch.zeros((4, 4), device="meta")
+    with pytest.raises(ValueError):
+        sk.rbgs_leg(x, x, torch.zeros((4, 4, 4), device="meta"), x)
+
+
+@pytest.mark.parametrize("raw,level", [(None, 2), ("", 2), ("2", 2),
+                                       ("1", 1), ("0", 0)])
+def test_smoother_level_on_cpu(monkeypatch, raw, level):
+    if raw is None:
+        monkeypatch.delenv("CFD2_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("CFD2_PALLAS", raw)
+    assert sk.smoother_level(torch.device("cpu")) == level
+
+
+@pytest.mark.parametrize("raw", ["0", "3", "on"])
+def test_smoother_level_refusals_on_cuda(monkeypatch, raw):
+    """CFD2_PALLAS=0 (plain stencils) never runs on the card; values other
+    than 0/1/2 are refused everywhere."""
+    monkeypatch.setenv("CFD2_PALLAS", raw)
+    with pytest.raises(ValueError):
+        sk.smoother_level(torch.device("cuda"))
