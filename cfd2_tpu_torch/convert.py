@@ -44,7 +44,8 @@ def _missing(arrays, names):
 
 def state_from_arrays(arrays: dict, device) -> SolverState:
     """SolverState on ``device`` from a dict of every SolverState field as a
-    numpy array (device cell order, the structured grid layout)."""
+    numpy array, in device cell order (both packages lay a mesh out
+    identically: the (ny, nx) grid, or the generic band order)."""
     _missing(arrays, STATE_FIELDS)
     return SolverState(**{f: _as_tensor(f, arrays[f], device)
                           for f in STATE_FIELDS})

@@ -1,10 +1,9 @@
 """Host-side unstructured polygonal mesh container (SoA, NumPy float64).
 
 Capability parity with the reference ``Mesh`` struct and its methods
-(reference: src/solver/mesh/structs.rs:13-354).  All geometry recomputation
-and skewness metrics are vectorized NumPy (the reference uses rayon +
-hand-rolled loops).  Laplacian smoothing (``Mesh.smooth``, backed by the
-native C++ library in the JAX package) is not part of this package yet.
+(reference: src/solver/mesh/structs.rs:13-354).  All geometry recomputation,
+Laplacian smoothing with SDF projection, and skewness metrics are vectorized
+NumPy (the reference uses rayon + hand-rolled loops).
 
 Boundary codes (BoundaryType):
     0 = internal face, 1 = Inlet, 2 = Outlet, 3 = Wall
@@ -151,6 +150,92 @@ class Mesh:
         dot = np.abs((dx * self.face_nx + dy * self.face_ny) / safe)
         skew = np.where(ok, 1.0 - dot, 1.0)
         return float(skew.max()) if len(skew) else 0.0
+
+    # ------------------------------------------------------------------
+
+    def _vertex_adjacency(self):
+        """CSR adjacency (vertex -> neighboring vertices) from face edges."""
+        n = self.num_vertices
+        src = np.concatenate([self.face_v1, self.face_v2])
+        dst = np.concatenate([self.face_v2, self.face_v1])
+        order = np.argsort(src, kind="stable")
+        src, dst = src[order], dst[order]
+        counts = np.bincount(src, minlength=n)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return offsets, dst, counts
+
+    def smooth(self, geo, target_skew: float, max_iterations: int) -> None:
+        """Laplacian smoothing with SDF re-projection of boundary vertices and
+        domain-box pinning (reference structs.rs:159-292).  Uses the native
+        C++/OpenMP kernel when available (batches of iterations between
+        skewness checks), else the vectorized NumPy path."""
+        n = self.num_vertices
+        if n == 0:
+            return
+        offsets, adj, counts = self._vertex_adjacency()
+        seg_ids = np.repeat(np.arange(n), counts)
+
+        min_x, max_x = self.vx.min(), self.vx.max()
+        min_y, max_y = self.vy.min(), self.vy.max()
+        eps = 1e-6
+        on_box = (
+            (np.abs(self.vx - min_x) < eps) | (np.abs(self.vx - max_x) < eps)
+            | (np.abs(self.vy - min_y) < eps) | (np.abs(self.vy - max_y) < eps)
+        )
+        movable = (~on_box) & (counts > 0)
+        alpha = 0.5  # relaxation (structs.rs:243)
+
+        from . import native
+        if native.available(geo):
+            batch = 5
+            done = 0
+            vx = np.ascontiguousarray(self.vx, dtype=np.float64)
+            vy = np.ascontiguousarray(self.vy, dtype=np.float64)
+            while done < max_iterations:
+                self.vx, self.vy = vx, vy
+                self.recalculate_geometry()
+                if self.calculate_max_skewness() < target_skew:
+                    return
+                native.smooth(geo, vx, vy, offsets, adj, self.v_fixed,
+                              on_box, min(batch, max_iterations - done),
+                              alpha)
+                done += batch
+            self.vx, self.vy = vx, vy
+            self.recalculate_geometry()
+            return
+
+        for it in range(max_iterations):
+            self.recalculate_geometry()
+            if self.calculate_max_skewness() < target_skew:
+                return
+            sum_x = np.bincount(seg_ids, weights=self.vx[adj], minlength=n)
+            sum_y = np.bincount(seg_ids, weights=self.vy[adj], minlength=n)
+            cnt = np.maximum(counts, 1)
+            avg_x = sum_x / cnt
+            avg_y = sum_y / cnt
+            new_x = np.where(movable, self.vx + (avg_x - self.vx) * alpha, self.vx)
+            new_y = np.where(movable, self.vy + (avg_y - self.vy) * alpha, self.vy)
+
+            # Project fixed (surface) vertices back onto the SDF zero level.
+            proj = movable & self.v_fixed
+            if proj.any():
+                px, py = new_x[proj], new_y[proj]
+                d = geo.sdf(px, py)
+                nvec = geo.normal(px, py)
+                new_x[proj] = px - nvec[:, 0] * d
+                new_y[proj] = py - nvec[:, 1] * d
+
+            # Reject moves that collapse an edge (structs.rs:266-281).
+            d2 = (new_x[seg_ids] - self.vx[adj]) ** 2 + (new_y[seg_ids] - self.vy[adj]) ** 2
+            bad_edge = d2 < 1e-8
+            bad = np.zeros(n, dtype=bool)
+            np.logical_or.at(bad, seg_ids, bad_edge)
+            keep = ~bad
+            self.vx = np.where(keep, new_x, self.vx)
+            self.vy = np.where(keep, new_y, self.vy)
+
+        self.recalculate_geometry()
 
     # ------------------------------------------------------------------
 

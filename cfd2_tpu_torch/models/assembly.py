@@ -1,8 +1,10 @@
 """Finite-volume kernels: prepare (fluxes, d_p, gradients) and the coupled
-assembly in stencil form.
+assembly, in stencil form (structured meshes) or scalar-coefficient ELL form
+(banded unstructured meshes).
 
-Port of ``cfd2_tpu.models.assembly`` for the structured grid layout, as plain
-PyTorch on float32 tensors.  The expressions keep the JAX package's order of
+Port of ``cfd2_tpu.models.assembly`` as plain PyTorch on float32 tensors;
+neighbor values come from ``DeviceMesh.gather`` (grid shifts, or the banded
+gather kernel on unstructured meshes).  The expressions keep the JAX package's order of
 operations so that both give the same values to f32 roundoff:
 
 * :func:`prepare` — Rhie–Chow face mass fluxes in slot layout, the
@@ -10,6 +12,8 @@ operations so that both give the same values to f32 roundoff:
   p, u, v (reference shaders/prepare_coupled.wgsl:63-348);
 * :func:`assemble_stencil` — the coupled (u, v, p) system as 2D stencil
   planes (reference shaders/coupled_assembly_merged.wgsl:70-463);
+* :func:`assemble_ell` — the same coefficients as (N, K) planes for the
+  banded path (see ops/ellsys.py);
 * :func:`assemble_pressure` — the scalar pressure (Schur) matrix alone.
 
 Boundary codes: 1=Inlet (ramped u_bc), 2=Outlet (p=0, backflow guard),
@@ -114,6 +118,50 @@ def compute_slot_fluxes(mesh: DeviceMesh, state: SolverState,
     return torch.stack(cols, dim=1)
 
 
+def compute_banded_slot_fluxes(mesh: DeviceMesh, state: SolverState,
+                               params: SolverParams, time: torch.Tensor):
+    """Generic-banded-path fluxes in slot layout (N, K), outward-positive,
+    from ONE shared multi-component neighbor gather (u, p, d_p, grad_p).
+
+    Every slot evaluates the internal Rhie–Chow formula directly; per-face
+    antisymmetry is *bitwise exact* without a pair scatter because the
+    symmetric interpolation uses the partner entry's own lambda
+    (``ck_lam_other``, bitwise equal to what the other side computes) and
+    every remaining term is an exact f32 negation across the pair (normals
+    are exact negations, area/dist_proj are bitwise shared, and f32
+    negation/commutativity are exact).  The order of operations below is
+    part of that property.
+
+    Returns ``(flux, p_other, u_other)`` so prepare's Green–Gauss gradients
+    reuse the gathered planes.
+    """
+    packed = torch.cat(
+        [state.u, state.p[:, None], state.d_p[:, None], state.grad_p],
+        dim=1)                                         # (N, 6)
+    g = mesh.gather(packed)                            # (N, K, 6)
+    u_n = g[..., 0:2]
+    p_n = g[..., 2]
+    dp_n = g[..., 3]
+    gp_n = g[..., 4:6]
+
+    lam = mesh.ck_lam
+    lam_o = mesh.ck_lam_other
+    u_face = lam[..., None] * state.u[:, None, :] + lam_o[..., None] * u_n
+    dp_face = lam * state.d_p[:, None] + lam_o * dp_n
+    gp_face = lam[..., None] * state.grad_p[:, None, :] \
+        + lam_o[..., None] * gp_n
+
+    gpn = gp_face[..., 0] * mesh.ck_nx + gp_face[..., 1] * mesh.ck_ny
+    p_grad = (p_n - state.p[:, None]) / mesh.ck_dist_proj
+    rc = dp_face * mesh.ck_area * (gpn - p_grad)
+    un_face = u_face[..., 0] * mesh.ck_nx + u_face[..., 1] * mesh.ck_ny
+    fl_int = params.density * (un_face * mesh.ck_area + rc)
+
+    fl_bdry = _boundary_slot_fluxes(mesh, state, params, time)
+    flux = torch.where(mesh.ck_is_boundary > 0, fl_bdry, fl_int) * mesh.ck_mask
+    return flux, p_n, u_n
+
+
 def prepare(mesh: DeviceMesh, state: SolverState, params: SolverParams,
             config: SolverConfig) -> SolverState:
     """Fused pre-pass: fluxes, d_p, grad_p, grad_u, grad_v.
@@ -121,7 +169,16 @@ def prepare(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     Uses the *incoming* state's d_p/grad_p in the Rhie–Chow flux (like the
     reference, which reads them before overwriting).
     """
-    flux = compute_slot_fluxes(mesh, state, params, state.time)
+    p_other = u_other = None
+    if mesh.structured:
+        flux = compute_slot_fluxes(mesh, state, params, state.time)
+    elif mesh.banded:
+        flux, p_other, u_other = compute_banded_slot_fluxes(
+            mesh, state, params, state.time)
+    else:
+        raise NotImplementedError(
+            "the face-parallel flux path of generic meshes without a banded "
+            "index map is not ported")
 
     mask = mesh.ck_mask
     is_b = mesh.ck_is_boundary
@@ -137,7 +194,8 @@ def prepare(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     # --- Green-Gauss gradients (prepare_coupled.wgsl:256-347) ---
     lam = mesh.ck_lam
     p_this = state.p[:, None]
-    p_other = mesh.gather(state.p)
+    if p_other is None:
+        p_other = mesh.gather(state.p)
     pf_internal = lam * p_this + (1.0 - lam) * p_other
     pf_bdry = torch.where(bdry == 2, 0.0, p_this)            # outlet: p = 0
     p_face = torch.where(is_b > 0, pf_bdry, pf_internal) * mask
@@ -148,7 +206,8 @@ def prepare(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     ], dim=1)
 
     u_bc = _inlet_bc(mesh, params, state.time)
-    u_other = mesh.gather(state.u)                           # (N, K, 2)
+    if u_other is None:
+        u_other = mesh.gather(state.u)                       # (N, K, 2)
     for_comp = []
     for comp in (0, 1):
         v_this = state.u[:, comp][:, None]
@@ -171,9 +230,16 @@ def _deferred_correction(mesh, state, flux, config):
     (coupled_assembly_merged.wgsl:229-293).  Returns (corr_u, corr_v) summed
     over internal slots, to be subtracted from the RHS."""
     upwind_own = flux > 0.0
-    u_other2 = mesh.gather(state.u)      # (N, K, 2)
-    gu_other = mesh.gather(state.grad_u)
-    gv_other = mesh.gather(state.grad_v)
+    if mesh.structured:
+        u_other2 = mesh.gather(state.u)      # (N, K, 2)
+        gu_other = mesh.gather(state.grad_u)
+        gv_other = mesh.gather(state.grad_v)
+    else:
+        # One shared multi-component gather (the kernel loads each index
+        # once for all six components).
+        packed = torch.cat([state.u, state.grad_u, state.grad_v], dim=1)
+        g = mesh.gather(packed)              # (N, K, 6)
+        u_other2, gu_other, gv_other = g[..., 0:2], g[..., 2:4], g[..., 4:6]
     u_this = state.u[:, 0][:, None]
     v_this = state.u[:, 1][:, None]
     u_other = u_other2[..., 0]
@@ -387,5 +453,27 @@ def assemble_stencil(mesh: DeviceMesh, state: SolverState,
         P_diag2=d2(c["P_diag"]),
         diag_u_inv2=d2(_safe_inv(c["diag_u"])),
         diag_p_inv2=d2(_safe_inv(c["P_diag"])),
+        rhs=c["rhs"],
+    )
+
+
+def assemble_ell(mesh: DeviceMesh, state: SolverState,
+                 params: SolverParams, config: SolverConfig):
+    """Assemble the coupled system in scalar-coefficient ELL form for the
+    banded (unstructured) path (ops/ellsys.py) — the unstructured twin of
+    :func:`assemble_stencil`: (N, K) coefficient planes over
+    ``mesh.ck_neighbor``."""
+    from ..ops.ellsys import EllSystem
+
+    c = _assemble_parts(mesh, state, params, config)
+    return EllSystem(
+        off_mom=c["off_mom"], off_up=c["off_up"], off_vp=c["off_vp"],
+        off_pu=c["off_pu"], off_pv=c["off_pv"], off_pp=c["off_pp"],
+        P_off=c["P_off"],
+        diag_u=c["diag_u"], diag_up=c["diag_up"], diag_vp=c["diag_vp"],
+        diag_pu=c["diag_pu"], diag_pv=c["diag_pv"], diag_pp=c["diag_pp"],
+        P_diag=c["P_diag"],
+        diag_u_inv=_safe_inv(c["diag_u"]),
+        diag_p_inv=_safe_inv(c["P_diag"]),
         rhs=c["rhs"],
     )

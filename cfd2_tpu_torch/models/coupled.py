@@ -1,6 +1,7 @@
 """Coupled (u,v,p) timestep driver.
 
-Port of ``cfd2_tpu.models.coupled`` on the structured stencil path:
+Port of ``cfd2_tpu.models.coupled`` on the structured stencil path and the
+banded unstructured path:
 
 * :func:`step` = prepare -> [assemble -> FGMRES -> relaxed update] outer
   correctors as a Python loop, with the same convergence, stagnation and
@@ -12,9 +13,18 @@ Port of ``cfd2_tpu.models.coupled`` on the structured stencil path:
 * :class:`CoupledSolver` is the host-side façade with the reference's
   headless API (GpuSolver::new -> set_* -> step -> get_u/get_p).
 
-Only the structured stencil path is ported: uniform cut-cell meshes with the
-Schur preconditioner, whose pressure block is the structured multigrid
-(``precond_type=1``) or the Chebyshev relaxation (``precond_type=0``).
+Two solve paths are ported, both with the Schur preconditioner
+(``precond_type=1``: multigrid pressure block; ``precond_type=0``: Chebyshev
+relaxation):
+
+* uniform cut-cell meshes on the stencil system with the structured
+  multigrid (ops/stencil_system.py);
+* Delaunay / Voronoi meshes with a banded index map on the
+  scalar-coefficient ELL system with the aggregation AMG (ops/ellsys.py),
+  whose neighbor access runs on the kernels of ops/banded_kernels.py.
+
+A generic mesh without a banded map, block-Jacobi preconditioning
+(``precond_type=2``) and the multilevel layout raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +34,9 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from ..ops import ellsys as el
 from ..ops import stencil_system as st
+from ..ops.amg import AmgHierarchy, coarse_level_values, make_pressure_solve
 from ..ops.fgmres import fgmres_solve
 from ..runtime.device_mesh import DeviceMesh, encode_mesh, resolve_device
 from ..runtime.host_reads import read
@@ -37,7 +49,8 @@ from ..runtime.state import (
     SolverState,
     initial_state,
 )
-from .assembly import assemble_pressure, assemble_stencil, prepare
+from .assembly import (assemble_ell, assemble_pressure, assemble_stencil,
+                       prepare)
 
 _F32_MAX = float(np.finfo(np.float32).max)
 
@@ -57,16 +70,50 @@ def _check_ported(mesh: DeviceMesh, config: SolverConfig) -> None:
     if on:
         raise NotImplementedError(
             f"SolverConfig options not ported yet: {', '.join(on)}")
-    if not mesh.structured or config.precond_type == PRECOND_BLOCK_JACOBI:
+    if config.precond_type == PRECOND_BLOCK_JACOBI:
         raise NotImplementedError(
-            "only the structured stencil path with the Schur preconditioner "
-            "is ported (no block-ELL / block-Jacobi path)")
+            "block-Jacobi preconditioning (precond_type=2) runs on the "
+            "block-ELL path, which is not ported")
+    if not mesh.structured and not mesh.banded:
+        raise NotImplementedError(
+            "this generic mesh admits no banded index map; the block-ELL "
+            "path it takes in the JAX package is not ported")
+
+
+def _solve_banded(mesh, state, params, config, amg, n_sweeps, frozen_amg):
+    """Banded (unstructured) path: scalar-coefficient ELL system, banded
+    kernels, Schur preconditioner with the aggregation AMG, FGMRES on
+    component-major (3, N) vectors (one transpose each way per solve)."""
+    es = assemble_ell(mesh, state, params, config)
+    ps = (make_pressure_solve(amg, mesh, es, cycle_opts=config.cycle_opts(),
+                              frozen=frozen_amg)
+          if config.precond_type == PRECOND_AMG and amg is not None else None)
+    # Momentum depth 8 on this path (the JAX package's choice: a sweep is
+    # one fused dot, and the halved iteration count wins).
+    ms = config.precond_mom_sweeps if config.precond_mom_sweeps > 0 else 8
+    x0 = torch.cat([state.u, state.p[:, None]], dim=1)
+    result = fgmres_solve(
+        lambda x: el.spmv(es, mesh, x),
+        lambda r: el.schur_precond(es, mesh, r, config.precond_omega,
+                                   n_sweeps, pressure_solve=ps,
+                                   mom_sweeps=ms),
+        es.rhs.T.contiguous(), x0.T.contiguous(),
+        restart=config.fgmres_restart,
+        max_restarts=config.fgmres_max_restarts,
+        tol=config.fgmres_tol, abstol=config.fgmres_abstol,
+        stagnation_tol=config.fgmres_stagnation_tol,
+        stagnation_limit=config.fgmres_stagnation_limit)
+    return replace(result, x=result.x.T)
 
 
 def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
                         frozen_amg=None):
-    """Assemble the coupled system in stencil form and run one
-    Schur-preconditioned FGMRES solve on (3, ny, nx) component planes."""
+    """Assemble the coupled system and run one Schur-preconditioned FGMRES
+    solve: in stencil form on (3, ny, nx) component planes on structured
+    meshes, in ELL form on (3, N) vectors on banded ones."""
+    if not mesh.structured:
+        return _solve_banded(mesh, state, params, config, amg, n_sweeps,
+                             frozen_amg)
     ss = assemble_stencil(mesh, state, params, config)
     ps = (st.make_pressure_solve2(
               amg, ss, n_cycles=config.pressure_vcycles(mesh.num_cells),
@@ -144,10 +191,13 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
          config: SolverConfig, amg=None) -> SolverState:
     """Advance one timestep (reference GpuSolver::step -> step_coupled).
 
-    ``amg``: the StructuredAmgHierarchy used when
-    ``config.precond_type == PRECOND_AMG``."""
+    ``amg``: the hierarchy used when ``config.precond_type == PRECOND_AMG``
+    (StructuredAmgHierarchy on structured meshes, AmgHierarchy on banded
+    ones; a banded mesh too small for a hierarchy takes the Chebyshev
+    pressure relaxation, as in the JAX package)."""
     _check_ported(mesh, config)
-    if config.precond_type == PRECOND_AMG and amg is None:
+    if config.precond_type == PRECOND_AMG and amg is None \
+            and mesh.structured:
         raise NotImplementedError(
             "precond_type=1 needs the structured multigrid, which this mesh "
             "is too small for; the block-ELL fallback is not ported")
@@ -164,10 +214,13 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     if (config.amg_freeze_coarse and amg is not None
             and config.precond_type == PRECOND_AMG):
         P_diag, P_off = assemble_pressure(mesh, state, params)
-        ny, nx = mesh.grid_shape
-        frozen_amg = st.coarse_level_values2_planes(
-            amg, P_diag.reshape(ny, nx),
-            P_off[:, :4].T.reshape(4, ny, nx).contiguous())
+        if mesh.structured:
+            ny, nx = mesh.grid_shape
+            frozen_amg = st.coarse_level_values2_planes(
+                amg, P_diag.reshape(ny, nx),
+                P_off[:, :4].T.reshape(4, ny, nx).contiguous())
+        elif isinstance(amg, AmgHierarchy):
+            frozen_amg = coarse_level_values(amg, P_diag, P_off)
 
     max_iters = max(config.n_outer_correctors, 10)
     prev_du = prev_dp = dp_ref = _F32_MAX

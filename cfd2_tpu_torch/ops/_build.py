@@ -33,6 +33,18 @@ SIGNATURES = {
         "rbgs_half_sweep": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "rbgs_error_string": ([_I], ctypes.c_char_p),
     },
+    "banded": {
+        # x, idx, out, M, K, C, stream
+        "banded_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        # xs, n_x, offs, n_off, outs, n_out, pair_off, pair_x, pair_start,
+        # idx, M, K, stream
+        "banded_dot": ([_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+                       _I),
+        # rs, C, dinv, off, idx, za, zb, n, K, k_cap, sweeps, stream
+        "banded_jacobi_sweeps": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P], _I),
+        "banded_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

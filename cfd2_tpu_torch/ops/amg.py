@@ -1,16 +1,28 @@
-"""Structured geometric multigrid for the scalar pressure (Schur) system.
+"""Multigrid for the scalar pressure (Schur) system.
 
-Port of the structured part of ``cfd2_tpu.ops.amg``: repeated 2x2 block
-coarsening of the (ny, nx) grid, piecewise-constant transfers and the
-Galerkin product, so that every level keeps the 5-point stencil.  The
-hierarchy's index maps are built once on the host in NumPy (the same code as
-the JAX package); level values are recomputed per assembly as 2D stencil sums,
-and the V(1,1) cycle smooths each level with red-black Gauss-Seidel through
-the kernels of :mod:`.stencil_kernels`, with a regularized dense LU at the
-coarsest level.
+Port of ``cfd2_tpu.ops.amg``, in two parts.
 
-The aggregation AMG of unstructured meshes and the multilevel (quadtree)
-embedding are not ported yet.
+**Structured geometric multigrid**: repeated 2x2 block coarsening of the
+(ny, nx) grid, piecewise-constant transfers and the Galerkin product, so that
+every level keeps the 5-point stencil.  Level values are recomputed per
+assembly as 2D stencil sums, and the V(1,1) cycle smooths each level with
+red-black Gauss-Seidel through the kernels of :mod:`.stencil_kernels`.
+
+**Aggregation AMG** (unstructured meshes): greedy aggregation over the
+pressure sparsity pattern in device cell order (one or two passes per level),
+piecewise-constant prolongation, and the *structure* of each Galerkin coarse
+operator as an index map (``rap_target``), all built once on the host in
+NumPy with the same code as the JAX package.  Level values are one sum per
+coarse slot over the finer values that ``rap_target`` routes to it (the JAX
+package's ``segment_sum``), taken in a fixed order so that a run repeats bit
+for bit.  The V-cycle (damped Jacobi or
+Chebyshev smoothing) takes every neighbor sum, the restriction (a dot over
+the aggregate member lists) and the prolongation (a K = 1 gather through the
+aggregate map) through the CUDA kernels of :mod:`.banded_kernels`, on every
+level.
+
+Both end in a regularized dense LU at the coarsest level.  The multilevel
+(quadtree) embedding is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,8 +33,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import banded_kernels as bk
 from . import stencil_kernels as sk
 
+_OMEGA = 0.8
 _MIN_COARSE = 100
 _MAX_LEVELS = 20
 _NULL_SHIFT = 1e-3  # shifted-Laplacian regularization (see below)
@@ -51,8 +65,211 @@ class StructuredAmgHierarchy:
     internal2: torch.Tensor | None = None
 
 
+@dataclass(frozen=True)
+class AmgLevel:
+    """One coarse level of the aggregation hierarchy (level 0 is the fine
+    pressure system itself).  Index tensors are int32 and contiguous: they
+    are the (M, K) maps the banded kernels take."""
+    n: int                       # size
+    k: int                       # max neighbors in ELL
+    ell_neighbor: torch.Tensor   # (n, k) int32; pad slots repeat a neighbor
+    rap_target: torch.Tensor     # flattened finer values -> this level's slots
+    # The same map sorted by target, for a Galerkin sum that adds in a fixed
+    # order: the (n_flat, 1) permutation that groups the finer values by
+    # slot, and the number of values per slot (dump slot last).
+    rap_order: torch.Tensor      # (n_flat, 1) int32
+    rap_lengths: torch.Tensor    # (n * (k + 1) + 1,) int64
+    agg: torch.Tensor            # (n_fine, 1) int32 aggregate id (prolongation)
+    members: torch.Tensor        # (n, m) int32 fine members (restriction)
+    members_mask: torch.Tensor   # (n, m) f32
+
+
+@dataclass(frozen=True)
+class AmgHierarchy:
+    levels: tuple  # of AmgLevel, coarsest last; empty if mesh too small
+
+
 # ----------------------------------------------------------------------
 # Host-side setup
+
+
+def _aggregate_ell(ngh: np.ndarray, mask: np.ndarray) -> tuple[np.ndarray, int]:
+    """Greedy aggregation over an ELL adjacency (reference amg.rs:84-116):
+    each unaggregated cell seeds an aggregate and absorbs its unaggregated
+    neighbors.  Uses the native C++ kernel when available (the scan is
+    inherently sequential)."""
+    from ..mesh import native
+    res = native.amg_aggregate(ngh, mask)
+    if res is not None:
+        return res
+    n, k = ngh.shape
+    agg = np.full(n, -1, dtype=np.int64)
+    num = 0
+    for i in range(n):
+        if agg[i] >= 0:
+            continue
+        agg[i] = num
+        for s in range(k):
+            j = ngh[i, s]
+            if mask[i, s] and j != i and agg[j] < 0:
+                agg[j] = num
+        num += 1
+    return agg, num
+
+
+def _coarse_graph_from_agg(ngh: np.ndarray, mask: np.ndarray,
+                           agg: np.ndarray, nc: int):
+    """Aggregate-graph adjacency (ELL) induced by fine edges."""
+    n, kf = ngh.shape
+    fi = np.repeat(np.arange(n), kf)
+    fj = ngh.ravel()
+    fv = mask.ravel()
+    a_i = agg[fi]
+    a_j = agg[fj]
+    cross = fv & (a_i != a_j)
+    pair = np.unique(a_i[cross] * nc + a_j[cross])
+    pci = pair // nc
+    pcj = pair % nc
+    counts = np.bincount(pci, minlength=nc)
+    kc = max(int(counts.max()) if len(pair) else 0, 1)
+    row_start = np.zeros(nc + 1, np.int64)
+    np.cumsum(counts, out=row_start[1:])
+    slot = np.arange(len(pair)) - row_start[pci]
+    cn = np.tile(np.arange(nc, dtype=np.int64)[:, None], (1, kc))
+    cm = np.zeros((nc, kc), bool)
+    cn[pci, slot] = pcj
+    cm[pci, slot] = True
+    return cn, cm
+
+
+def build_hierarchy(ck_neighbor: np.ndarray, ck_mask: np.ndarray,
+                    c_valid: np.ndarray | None = None,
+                    agg_passes: int = 1, device="cpu") -> AmgHierarchy:
+    """Build the static AMG hierarchy from the fine pressure sparsity pattern
+    (the mesh's cell adjacency).  Fully vectorized except the (native) greedy
+    scan; scales to multi-million-cell meshes.
+
+    Masked solid cells of the structured layout (``c_valid == 0``) are inert
+    identity rows; they are pooled into one decoupled aggregate at the first
+    coarsening so they do not pollute the hierarchy.
+    """
+    levels: list[AmgLevel] = []
+    ngh = np.asarray(ck_neighbor, dtype=np.int64)
+    n = ngh.shape[0]
+    mask = (np.asarray(ck_mask) > 0) & (ngh != np.arange(n)[:, None])
+    invalid = (np.asarray(c_valid) <= 0) if c_valid is not None else None
+
+    for _level in range(_MAX_LEVELS):
+        n, kf = ngh.shape
+        if n <= _MIN_COARSE:
+            break
+        agg, nc = _aggregate_ell(ngh, mask)
+        # Multi-pass aggregation (pairwise-squared, Notay-style): compose a
+        # second greedy pass over the aggregate graph for ~3x fewer levels
+        # (a shallower hierarchy means fewer launches per V-cycle).
+        for _ in range(agg_passes - 1):
+            if nc <= _MIN_COARSE:
+                break
+            cn, cm = _coarse_graph_from_agg(ngh, mask, agg, nc)
+            agg2, nc2 = _aggregate_ell(cn, cm)
+            agg = agg2[agg]
+            nc = nc2
+        trash = -1
+        if invalid is not None and invalid.any():
+            # Remap all solid cells into a single trash aggregate.  It gets
+            # no restriction members (solid identity-row residuals are zero by
+            # construction) so the padded members matrix stays small.
+            keep = np.unique(agg[~invalid])
+            remap = np.full(nc, len(keep), dtype=np.int64)
+            remap[keep] = np.arange(len(keep))
+            agg = remap[agg]
+            trash = len(keep)
+            agg[invalid] = trash
+            nc = len(keep) + 1
+        invalid = None  # only relevant at the first coarsening
+        if nc >= n:
+            break
+
+        # Coarse adjacency from fine edges (vectorized).
+        fi = np.repeat(np.arange(n), kf)
+        fj = ngh.ravel()
+        fv = mask.ravel()
+        a_i = agg[fi]
+        a_j = agg[fj]
+        cross = fv & (a_i != a_j)
+        pair = a_i[cross] * nc + a_j[cross]
+        uniq_pairs = np.unique(pair)
+        pci = uniq_pairs // nc
+        pcj = uniq_pairs % nc
+        counts_row = np.bincount(pci, minlength=nc)
+        kc = max(int(counts_row.max()) if len(uniq_pairs) else 0, 1)
+        row_start = np.zeros(nc + 1, dtype=np.int64)
+        np.cumsum(counts_row, out=row_start[1:])
+        slot = np.arange(len(uniq_pairs)) - row_start[pci]
+        coarse_ngh = np.tile(np.arange(nc, dtype=np.int64)[:, None], (1, kc))
+        coarse_mask = np.zeros((nc, kc), dtype=bool)
+        coarse_ngh[pci, slot] = pcj
+        coarse_mask[pci, slot] = True
+        # Rows are ascending (uniq_pairs is sorted and slots fill 0..deg-1);
+        # repeat the last real neighbor into pad slots, as the JAX package
+        # does.  Pad coefficients are zero (RAP never writes them) and the
+        # next level's aggregation reads coarse_mask, so values at pads are
+        # free.
+        ffil = np.maximum.accumulate(
+            np.where(coarse_mask, np.arange(kc)[None, :], 0), axis=1)
+        coarse_ngh = np.take_along_axis(coarse_ngh, ffil, axis=1)
+
+        # RAP index map: flattened fine values [diag(n); off(n*kf)] -> coarse
+        # flattened slots [c*(kc+1) + 0 (diag) | 1+slot]; dump slot at end.
+        dump = nc * (kc + 1)
+        targets = np.full(n + n * kf, dump, dtype=np.int64)
+        targets[:n] = agg * (kc + 1)
+        flat_idx = np.arange(n * kf) + n
+        vsame = fv & (a_i == a_j)
+        targets[flat_idx[vsame]] = a_i[vsame] * (kc + 1)
+        pos = np.searchsorted(uniq_pairs, a_i[cross] * nc + a_j[cross])
+        targets[flat_idx[cross]] = a_i[cross] * (kc + 1) + 1 + slot[pos]
+
+        # Restriction member lists (piecewise-constant R = P^T), vectorized.
+        # The trash aggregate (solid cells) is excluded: padding the matrix
+        # to its size would be enormous and its residuals are identically 0.
+        member_cells = (np.nonzero(agg != trash)[0] if trash >= 0
+                        else np.arange(n))
+        magg = agg[member_cells]
+        order = member_cells[np.argsort(magg, kind="stable")]
+        counts_m = np.bincount(agg[order], minlength=nc)
+        m = max(int(counts_m.max()), 1)
+        mem_start = np.zeros(nc + 1, dtype=np.int64)
+        np.cumsum(counts_m, out=mem_start[1:])
+        within = np.arange(len(order)) - mem_start[agg[order]]
+        members = np.zeros((nc, m), dtype=np.int64)
+        members_mask = np.zeros((nc, m), dtype=np.float64)
+        members[agg[order], within] = order
+        members_mask[agg[order], within] = 1.0
+
+        def as_i(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=device)
+
+        levels.append(AmgLevel(
+            n=nc, k=kc,
+            ell_neighbor=as_i(coarse_ngh),
+            rap_target=as_i(targets),
+            rap_order=as_i(np.argsort(targets, kind="stable")[:, None]),
+            rap_lengths=torch.as_tensor(
+                np.bincount(targets, minlength=dump + 1), device=device),
+            agg=as_i(agg[:, None]),
+            # Masked member entries hold index 0 with a zero coefficient.
+            members=as_i(members),
+            members_mask=torch.as_tensor(
+                np.ascontiguousarray(members_mask, np.float32),
+                device=device),
+        ))
+
+        ngh = coarse_ngh
+        mask = coarse_mask
+
+    return AmgHierarchy(levels=tuple(levels))
 
 
 def _host(mesh, name: str) -> np.ndarray:
@@ -151,12 +368,17 @@ def build_structured_hierarchy(mesh, min_coarse=_MIN_COARSE
 
 def build_hierarchy_for_mesh(mesh, agg_passes: int = 0):
     """The pressure hierarchy of a DeviceMesh: the geometric 2x2 multigrid on
-    structured meshes.  None if the mesh is too small."""
-    if not mesh.structured:
-        raise NotImplementedError(
-            "only the structured multigrid is ported; the aggregation AMG "
-            "of unstructured meshes is later work")
-    return build_structured_hierarchy(mesh)
+    structured meshes, the greedy aggregation AMG on generic ones.  None if
+    the mesh is too small.
+
+    ``agg_passes=0`` (auto) resolves to 2 on the generic path, as in the JAX
+    package (the shallower double-pass hierarchy)."""
+    if mesh.structured:
+        return build_structured_hierarchy(mesh)
+    hier = build_hierarchy(_host(mesh, "ck_neighbor"), _host(mesh, "ck_mask"),
+                           _host(mesh, "c_valid"),
+                           agg_passes=agg_passes or 2, device=mesh.device)
+    return hier if hier.levels else None
 
 
 # ----------------------------------------------------------------------
@@ -341,3 +563,192 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
         x = xs[i] + ops[i].prolong2(grids[i + 1], xs[i + 1])
         xs[i] = smooth(i, x, bs[i])
     return xs[0].reshape(-1)
+
+
+# ----------------------------------------------------------------------
+# Aggregation AMG: per-solve values and the V-cycle
+
+
+_ONE_DOT = (((0, 0),),)
+
+
+def compute_level_values(hier: AmgHierarchy, P_diag: torch.Tensor,
+                         P_off: torch.Tensor):
+    """Galerkin-coarsen the current pressure values down the hierarchy:
+    every coarse entry is a plain sum of fine entries, routed by
+    ``rap_target``.
+
+    Unlike the structured path, the fine diagonal is NOT ``_NULL_SHIFT``
+    regularized here (as in the JAX package): the regularized coarsest LU
+    bounds the near-null constant mode well enough for FGMRES."""
+    vals = [(P_diag, P_off)]
+    for lvl in hier.levels:
+        fd, fo = vals[-1]
+        flat = torch.cat([fd, fo.reshape(-1)])
+        # Group the finer values by coarse slot (one gather through the
+        # sorted map) and add each group in order: the same bits on every
+        # run and on both devices, where index_add_ over ``rap_target``
+        # would add with atomics in an order that changes from run to run.
+        grouped = bk.banded_gather(flat, lvl.rap_order)[:, 0]
+        seg = torch.segment_reduce(grouped, "sum", lengths=lvl.rap_lengths,
+                                   unsafe=True)
+        seg = seg[:-1].reshape(lvl.n, lvl.k + 1)
+        vals.append((seg[:, 0].contiguous(), seg[:, 1:].contiguous()))
+    return vals
+
+
+def _ell_spmv(diag, off, dot, x):
+    return diag * x + dot(off, x)
+
+
+def _smooth(diag, off, dot, x, b, sweeps=1):
+    dinv = torch.where(torch.abs(diag) > 1e-30, 1.0 / diag, 0.0)
+    for _ in range(sweeps):
+        x = x + _OMEGA * dinv * (b - _ell_spmv(diag, off, dot, x))
+    return x
+
+
+def _gershgorin_lmax(diag, off):
+    """Per-level upper bound on lambda_max(D^-1 A) from row sums, so that
+    Chebyshev smoothing never runs with modes outside its interval (the
+    pressure M-matrix's interior rows reach exactly 2.0)."""
+    ad = torch.abs(diag)
+    row_abs = torch.sum(torch.abs(off), dim=1)
+    ratio = (ad + row_abs) / torch.clamp(ad, min=1e-30)
+    return torch.max(torch.where(ad > 1e-30, ratio, 1.0))
+
+
+def _smooth_cheb(diag, off, dot, x, b, degree=2, lmax=2.0):
+    """Chebyshev polynomial smoother on the Jacobi-preconditioned operator
+    D^-1 A, targeting [lmax/4, lmax].  Each application costs ``degree``
+    operator dots.  ``lmax`` may be a 0-d tensor
+    (see :func:`_gershgorin_lmax`)."""
+    dinv = torch.where(torch.abs(diag) > 1e-30, 1.0 / diag, 0.0)
+    lmin = lmax / 4.0
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    r = b - _ell_spmv(diag, off, dot, x)
+    d = dinv * r / theta
+    x = x + d
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        r = b - _ell_spmv(diag, off, dot, x)
+        d = rho_new * rho * d + 2.0 * rho_new / delta * (dinv * r)
+        rho = rho_new
+        x = x + d
+    return x
+
+
+def _coarsest_cols(hier: AmgHierarchy, n: int, device):
+    if hier.levels:
+        return hier.levels[-1].ell_neighbor
+    return torch.zeros((n, 1), dtype=torch.int32, device=device)
+
+
+def v_cycle(hier: AmgHierarchy, level_values, mesh,
+            b0: torch.Tensor, x0: torch.Tensor,
+            coarse_factors=None, smoother: str = "jacobi",
+            smooth_arg: int = 1, overcorrect: float = 1.0) -> torch.Tensor:
+    """One V-cycle of the aggregation hierarchy.
+
+    Per-level neighbor sums are fused banded dots over the level's ELL map
+    (level 0: the mesh's), restriction is a dot over the member lists with
+    ``members_mask`` as coefficients, prolongation a K = 1 gather through
+    the aggregate map; all on :mod:`.banded_kernels`.
+
+    ``smoother``: "jacobi" (damped, ``smooth_arg`` sweeps) or "cheb"
+    (Chebyshev of degree ``smooth_arg``).  ``overcorrect``: scale on the
+    prolongated coarse correction (the classic plain-aggregation fix).
+    """
+    def _ell_dot(idx):
+        return lambda off, x: bk.banded_dot((x,), (off,), idx, _ONE_DOT)[0]
+
+    def _dot0(off, x):
+        return mesh.banded_dot((x,), (off,), _ONE_DOT)[0]
+
+    L = len(hier.levels)
+    dots = [_dot0] + [_ell_dot(lvl.ell_neighbor) for lvl in hier.levels]
+
+    if smoother == "cheb":
+        def smooth(diag, off, dot, x, b):
+            return _smooth_cheb(diag, off, dot, x, b, degree=smooth_arg,
+                                lmax=_gershgorin_lmax(diag, off))
+    else:
+        def smooth(diag, off, dot, x, b):
+            return _smooth(diag, off, dot, x, b, sweeps=smooth_arg)
+
+    xs = [x0]
+    bs = [b0]
+    # Downward
+    for i in range(L):
+        diag, off = level_values[i]
+        lvl = hier.levels[i]
+        x = smooth(diag, off, dots[i], xs[i], bs[i])
+        r = bs[i] - _ell_spmv(diag, off, dots[i], x)
+        (b_c,) = bk.banded_dot((r,), (lvl.members_mask,), lvl.members,
+                               _ONE_DOT)
+        xs[i] = x
+        bs.append(b_c)
+        xs.append(torch.zeros((lvl.n,), dtype=x.dtype, device=x.device))
+
+    # Coarsest solve: exact dense solve (see _dense_factor).
+    diag, off = level_values[L]
+    if coarse_factors is None:
+        coarse_factors = _dense_factor(
+            diag, off, _coarsest_cols(hier, diag.shape[0], diag.device))
+    xs[L] = _dense_solve_factored(coarse_factors, bs[L])
+
+    # Upward
+    for i in reversed(range(L)):
+        lvl = hier.levels[i]
+        diag, off = level_values[i]
+        prol = bk.banded_gather(xs[i + 1], lvl.agg)[:, 0]
+        x = xs[i] + overcorrect * prol
+        xs[i] = smooth(diag, off, dots[i], x, bs[i])
+
+    return xs[0]
+
+
+def coarse_level_values(hier: AmgHierarchy, P_diag, P_off):
+    """Galerkin-coarsen once and return ``(coarse_vals, factors)`` for
+    :func:`make_pressure_solve`'s ``frozen=`` argument: the level-1+
+    (diag, off) pairs plus the coarsest-level dense factorization.  The
+    step re-coarsens once per TIMESTEP instead of once per outer corrector
+    (SolverConfig.amg_freeze_coarse)."""
+    level_values = compute_level_values(hier, P_diag, P_off)
+    dc, oc = level_values[-1]
+    factors = _dense_factor(dc, oc,
+                            _coarsest_cols(hier, dc.shape[0], dc.device))
+    return tuple(level_values[1:]), factors
+
+
+def make_pressure_solve(hier: AmgHierarchy, mesh, sys, cycle_opts=None,
+                        frozen=None):
+    """pressure_solve(rhs_p) closure for the Schur preconditioner on the
+    aggregation hierarchy.  ``sys`` carries ``P_diag``, ``P_off`` and
+    ``diag_p_inv`` (an :class:`.ellsys.EllSystem`).
+
+    ``cycle_opts``: extra kwargs for :func:`v_cycle` (smoother and
+    overcorrection variants).  ``frozen``: ``(coarse_vals, factors)`` from
+    :func:`coarse_level_values` — skip the per-call Galerkin re-coarsening
+    and use these level-1+ operators instead (level 0 stays current;
+    FGMRES is flexible, so the staleness never touches the solve contract).
+    """
+    if frozen is not None:
+        coarse_vals, factors = frozen
+        level_values = [(sys.P_diag, sys.P_off)] + list(coarse_vals)
+    else:
+        level_values = compute_level_values(hier, sys.P_diag, sys.P_off)
+        dc, oc = level_values[-1]
+        factors = _dense_factor(
+            dc, oc, _coarsest_cols(hier, dc.shape[0], dc.device))
+    opts = dict(cycle_opts or {})
+
+    def pressure_solve(rhs_p):
+        x0 = sys.diag_p_inv * rhs_p          # Jacobi seed, like p_sol init
+        return v_cycle(hier, level_values, mesh, rhs_p, x0,
+                       coarse_factors=factors, **opts)
+
+    return pressure_solve

@@ -1,9 +1,12 @@
 """Where one main-path step's time goes on the GPU.
 
-Builds the main path as ``chip_smoke.py`` does (the 996,558-cell channel
-mesh, structured multigrid, the developed state from
-``bench_developed_1m.npz``, 3 untimed healing steps), then traces
-``--steps`` steps with ``torch.profiler`` and prints:
+Builds a main path as ``chip_smoke.py`` does, then traces ``--steps`` steps
+with ``torch.profiler``.  ``--mesh cutcell`` (default): the 996,558-cell
+channel mesh, structured multigrid, the developed state from
+``bench_developed_1m.npz``, 3 untimed healing steps.  ``--mesh delaunay`` /
+``--mesh voronoi``: the unstructured banded path from rest at ``--min-cell``
+(default 0.003: the 403,491-cell Delaunay mesh), aggregation AMG, 2 untimed
+warm-up steps.  Prints:
 
 * per step: wall time, outer and FGMRES iterations, host reads, launches;
 * device busy time (the union of kernel intervals) against wall time, i.e.
@@ -13,6 +16,7 @@ mesh, structured multigrid, the developed state from
 Run from the repository root on a machine with a CUDA device:
 
     python -m cfd2_tpu_torch.profile_step [--steps 2]
+    python -m cfd2_tpu_torch.profile_step --mesh delaunay --min-cell 0.003
 """
 
 from __future__ import annotations
@@ -25,10 +29,13 @@ from collections import defaultdict
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from . import ChannelWithObstacle, CoupledSolver, generate_cut_cell_mesh
+from . import (ChannelWithObstacle, CoupledSolver, generate_cut_cell_mesh,
+               generate_delaunay_mesh, generate_voronoi_mesh)
 from .convert import load_developed_state
+from .ops import banded_kernels as bk
 from .ops import stencil_kernels as sk
 from .runtime import host_reads
 
@@ -39,6 +46,11 @@ MIN_CELL = 0.0017   # the main path's mesh: 996,558 cells on 589x1765
 _GROUPS = (
     ("rbgs_leg_kernel", "rbgs_leg (CUDA, V-cycle smoother)"),
     ("rbgs_half_sweep", "rbgs_half_sweep (CUDA)"),
+    ("banded_gather_kernel", "banded_gather (CUDA)"),
+    ("banded_dot_kernel", "banded_dot (CUDA)"),
+    ("jacobi_seed_kernel", "banded_jacobi_sweeps (CUDA, seed + sweeps)"),
+    ("jacobi_sweep_kernel", "banded_jacobi_sweeps (CUDA, seed + sweeps)"),
+    ("index", "indexing (field IO in host order, views)"),
     ("gemv", "Gram-Schmidt / solution update (gemv)"),
     ("gemm", "Gram-Schmidt / solution update (gemm)"),
     ("dot_kernel", "Gram-Schmidt / solution update (gemv)"),
@@ -77,9 +89,37 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _structured_main_path(geo):
+    mesh = generate_cut_cell_mesh(geo, MIN_CELL, MIN_CELL, 1.2, (3.0, 1.0))
+    s = CoupledSolver(mesh)
+    s.set_dt(min(0.002, 0.4 * MIN_CELL))
+    s.set_viscosity(0.01)
+    s.set_precond_type(1)
+    s.config = replace(s.config, fgmres_max_restarts=5)
+    load_developed_state(s, ROOT / "bench_developed_1m.npz")
+    return mesh, s, 3
+
+
+def _unstructured_main_path(geo, kind, min_cell):
+    gen = {"delaunay": generate_delaunay_mesh,
+           "voronoi": generate_voronoi_mesh}[kind]
+    mesh = gen(geo, min_cell, min_cell, 1.2, (3.0, 1.0))
+    s = CoupledSolver(mesh)
+    s.set_dt(min(0.002, 0.4 * min_cell))
+    s.set_precond_type(1)
+    u0 = np.zeros((mesh.num_cells, 2))
+    u0[mesh.cell_cx < min_cell * 2, 0] = 1.0
+    s.set_u(u0)
+    return mesh, s, 2
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--mesh", choices=("cutcell", "delaunay", "voronoi"),
+                    default="cutcell")
+    ap.add_argument("--min-cell", type=float, default=0.003,
+                    help="cell size of the unstructured meshes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -88,14 +128,13 @@ def main(argv=None) -> int:
 
     geo = ChannelWithObstacle(length=3.0, height=1.0,
                               obstacle_center=(1.0, 0.5), obstacle_radius=0.2)
-    mesh = generate_cut_cell_mesh(geo, MIN_CELL, MIN_CELL, 1.2, (3.0, 1.0))
-    s = CoupledSolver(mesh)
-    s.set_dt(min(0.002, 0.4 * MIN_CELL))
-    s.set_viscosity(0.01)
-    s.set_precond_type(1)
-    s.config = replace(s.config, fgmres_max_restarts=5)
-    load_developed_state(s, ROOT / "bench_developed_1m.npz")
-    for _ in range(3):
+    if args.mesh == "cutcell":
+        mesh, s, warm = _structured_main_path(geo)
+    else:
+        mesh, s, warm = _unstructured_main_path(geo, args.mesh, args.min_cell)
+    print(f"{args.mesh}: {mesh.num_cells} cells, N_dev {s.mesh.num_cells}, "
+          f"K {s.mesh.max_faces}", flush=True)
+    for _ in range(warm):
         s.step()
     torch.cuda.synchronize()
 
@@ -108,6 +147,7 @@ def main(argv=None) -> int:
         for _ in range(args.steps):
             host_reads.reset()
             sk.reset_launches()
+            bk.reset_launches()
             t = time.perf_counter()
             s.step()
             torch.cuda.synchronize()
@@ -117,7 +157,7 @@ def main(argv=None) -> int:
                              linear_iters_total=int(
                                  s.state.linear_iters_total),
                              host_reads=host_reads.COUNT["reads"],
-                             launches=dict(sk.LAUNCHES)))
+                             launches={**sk.LAUNCHES, **bk.LAUNCHES}))
         window = time.perf_counter() - t0
     for i, r in enumerate(rows):
         r["cell_updates_per_s"] = n / r["wall_s"]
