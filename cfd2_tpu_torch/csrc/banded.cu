@@ -32,12 +32,38 @@
 // What the design does about it:
 //   * gather runs one thread per output element, so stores are fully coalesced
 //     and the C components of one neighbour are read from adjacent addresses;
-//   * dot runs one thread per row, loads idx[i, k] once per slot, gathers each
-//     operand once per slot into registers, accumulates every output in an f32
-//     register and writes n_out values per row: the gathered (M, K) values
-//     never reach device memory.  Operand reads of neighbouring rows hit
-//     nearby addresses because cells are ordered so that neighbours fall in
-//     narrow index bands;
+//   * dot.  With one thread per row a warp reads idx and every plane at a
+//     stride of 4*K bytes, so each 128-byte line is requested K times per
+//     stream and the load/store units, not device memory, set the pace.  So
+//     a block owns 256 rows, which are 256*K contiguous elements of idx and
+//     of each (M, K) plane, and its threads read them element-parallel:
+//     thread t takes the elements t, t + 256, ..., a warp reading 128
+//     contiguous bytes per stream and instruction (plain 4-byte loads: 16-byte
+//     loads would need every plane's base 16-byte aligned, which views of
+//     stacked level values are not, and would not change the bytes moved).
+//     The thread gathers its element's operands through the read-only path,
+//     forms the element's products and puts one partial per output into
+//     shared memory; after a barrier thread t adds row t's K partials in
+//     ascending k and writes the outputs.  That is the summation order of
+//     the plain version (products of one slot first, slots in order last), so
+//     the results do not depend on the block shape.  The gathered (M, K)
+//     values never reach device memory.  Operand reads of neighbouring rows
+//     hit nearby addresses because cells are ordered so that neighbours fall
+//     in narrow index bands.
+//     The product list is compile-time: each of the solver's five forms
+//     (scalar, mom2, schur_rhs, grad, spmv) is an instantiation with its
+//     products written out and its pointers read from the parameter space at
+//     constant offsets; any other list takes the generic instantiation, which
+//     indexes the list at run time.  K = 3 (triangles) and K = 9 (polygons,
+//     coarse levels) are compile-time too, so the element loop unrolls and a
+//     thread has all its loads in flight at once.  Other K (coarse levels of
+//     10-13 slots, restriction lists up to 26 wide) are run-time values: a
+//     block then owns 64 rows and a thread takes its elements four at a
+//     time, the four index loads and the gathers behind them in flight
+//     together.  (One dependent index-gather pair after another costs a
+//     level of a hundred rows ten microseconds, three times its launch.)
+//     Levels of a few thousand rows are bound by launch latency whatever the
+//     body does;
 //   * sweeps: on the TPU the grid runs in order, so phase s can follow phase
 //     s-1 inside one kernel with the iterate in VMEM scratch.  Blocks on a GPU
 //     run in no order, so phase s must not start before phase s-1 is complete
@@ -65,10 +91,12 @@ constexpr int MAX_RHS = 4;     // right-hand sides of one sweeps call
 struct DotArgs {
     const float* x[MAX_X];
     const float* off[MAX_OFF];
-    float* out[MAX_OUT];
+    float* out;                // (n_out, M)
+    // The generic form's product list (unused by the named forms).
     int pair_off[MAX_PAIRS];   // coefficient plane of product p
     int pair_x[MAX_PAIRS];     // operand of product p
     int pair_start[MAX_OUT + 1];   // products of output j: [start[j], start[j+1])
+    int n_x;
     int n_out;
 };
 
@@ -87,40 +115,203 @@ __global__ void banded_gather_kernel(const float* __restrict__ x,
     out[e] = x[(long long)idx[slot] * C + c];
 }
 
-template <int NX>
-__global__ void banded_dot_kernel(DotArgs a, const int* __restrict__ idx,
-                                  int M, int K) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= M) return;
-    float acc[MAX_OUT];
+// The product forms of banded_dot (ops/banded_kernels.py names them the
+// same): prods of
+//   scalar     (((0,0),),)                         1 operand, 1 plane
+//   mom2       (((0,0),), ((0,1),))                2 operands, 1 plane
+//   schur_rhs  (((0,0), (1,1)),)                   2 operands, 2 planes
+//   grad       (((0,0),), ((1,0),))                1 operand, 2 planes
+//   spmv       (((0,0), (1,2)), ((0,1), (2,2)),
+//               ((3,0), (4,1), (5,2)))             3 operands, 6 planes
+constexpr int F_GENERIC = 0;
+constexpr int F_SCALAR = 1;
+constexpr int F_MOM2 = 2;
+constexpr int F_SCHUR_RHS = 3;
+constexpr int F_GRAD = 4;
+constexpr int F_SPMV = 5;
+
+template <int FORM>
+__device__ __forceinline__ int form_n_out(const DotArgs& a) {
+    if constexpr (FORM == F_SCALAR || FORM == F_SCHUR_RHS) return 1;
+    else if constexpr (FORM == F_MOM2 || FORM == F_GRAD) return 2;
+    else if constexpr (FORM == F_SPMV) return 3;
+    else return a.n_out;
+}
+
+// The products of element e (slot k of a row) whose source row is src: one
+// partial per output, the products of a slot added in list order from zero.
+template <int FORM>
+__device__ __forceinline__ void slot_products(const DotArgs& a, long long e,
+                                              int src, float (&s)[MAX_OUT]) {
+    if constexpr (FORM == F_SCALAR) {
+        s[0] = 0.0f;
+        s[0] += __ldg(a.off[0] + e) * __ldg(a.x[0] + src);
+    } else if constexpr (FORM == F_MOM2) {
+        const float o = __ldg(a.off[0] + e);
+        s[0] = 0.0f;
+        s[0] += o * __ldg(a.x[0] + src);
+        s[1] = 0.0f;
+        s[1] += o * __ldg(a.x[1] + src);
+    } else if constexpr (FORM == F_SCHUR_RHS) {
+        s[0] = 0.0f;
+        s[0] += __ldg(a.off[0] + e) * __ldg(a.x[0] + src);
+        s[0] += __ldg(a.off[1] + e) * __ldg(a.x[1] + src);
+    } else if constexpr (FORM == F_GRAD) {
+        const float x0 = __ldg(a.x[0] + src);
+        s[0] = 0.0f;
+        s[0] += __ldg(a.off[0] + e) * x0;
+        s[1] = 0.0f;
+        s[1] += __ldg(a.off[1] + e) * x0;
+    } else if constexpr (FORM == F_SPMV) {
+        const float x0 = __ldg(a.x[0] + src);
+        const float x1 = __ldg(a.x[1] + src);
+        const float x2 = __ldg(a.x[2] + src);
+        const float o_mom = __ldg(a.off[0] + e);
+        s[0] = 0.0f;
+        s[0] += o_mom * x0;
+        s[0] += __ldg(a.off[1] + e) * x2;
+        s[1] = 0.0f;
+        s[1] += o_mom * x1;
+        s[1] += __ldg(a.off[2] + e) * x2;
+        s[2] = 0.0f;
+        s[2] += __ldg(a.off[3] + e) * x0;
+        s[2] += __ldg(a.off[4] + e) * x1;
+        s[2] += __ldg(a.off[5] + e) * x2;
+    } else {
+        float xv[MAX_X];
 #pragma unroll
-    for (int j = 0; j < MAX_OUT; ++j) acc[j] = 0.0f;
-    const long long row = (long long)i * K;
-    for (int k = 0; k < K; ++k) {
-        const long long e = row + k;
-        const int src = idx[e];
-        float xv[NX];
-#pragma unroll
-        for (int c = 0; c < NX; ++c) xv[c] = a.x[c][src];
+        for (int c = 0; c < MAX_X; ++c)
+            xv[c] = c < a.n_x ? __ldg(a.x[c] + src) : 0.0f;
 #pragma unroll
         for (int j = 0; j < MAX_OUT; ++j) {
+            s[j] = 0.0f;
             if (j < a.n_out) {
-                float s = 0.0f;
                 for (int p = a.pair_start[j]; p < a.pair_start[j + 1]; ++p) {
                     const int px = a.pair_x[p];
-                    float v = xv[0];
-                    if (NX > 1 && px == 1) v = xv[NX > 1 ? 1 : 0];
-                    if (NX > 2 && px == 2) v = xv[NX > 2 ? 2 : 0];
-                    s += a.off[a.pair_off[p]][e] * v;
+                    const float v = px == 0 ? xv[0] : (px == 1 ? xv[1] : xv[2]);
+                    s[j] += __ldg(a.off[a.pair_off[p]] + e) * v;
                 }
-                acc[j] += s;
             }
         }
     }
+}
+
+// A block owns RB rows = RB*K contiguous elements.  KT > 0: K is the
+// compile-time KT; KT == 0: K is k_rt.  Shared memory: one partial per output
+// and element, a row's partials KP floats apart: KP = K made odd, so that the
+// threads of a warp, each adding its own row, fall on 32 different banks
+// (n_out * RB * KP floats).
+template <int FORM, int KT, int RB>
+__global__ void __launch_bounds__(THREADS)
+banded_dot_kernel(DotArgs a, const int* __restrict__ idx, int M, int k_rt) {
+    static_assert(KT == 0 || RB == THREADS, "one element per thread and k");
+    extern __shared__ float s_part[];
+    const int K = KT > 0 ? KT : k_rt;
+    const int KP = K | 1;
+    const int n_out = form_n_out<FORM>(a);
+    const int span = RB * K;
+    const int plane = RB * KP;
+    const long long e0 = (long long)blockIdx.x * span;
+    const long long n_el = (long long)M * K;
+    if (KT > 0) {
+#pragma unroll
+        for (int i = 0; i < (KT > 0 ? KT : 1); ++i) {
+            const int le = threadIdx.x + i * THREADS;
+            const long long e = e0 + le;
+            if (e < n_el) {
+                float s[MAX_OUT];
+                slot_products<FORM>(a, e, __ldg(idx + e), s);
+#pragma unroll
+                for (int j = 0; j < MAX_OUT; ++j)
+                    if (j < n_out) s_part[j * plane + le] = s[j];
+            }
+        }
+    } else {
+        // Batches of UNROLL elements per thread.  Every load of a batch is
+        // unconditional (an element past the end reads the last one, and its
+        // products are dropped), so the UNROLL index loads, and then the
+        // gathers behind them, are in flight together instead of one
+        // dependent pair after another.
+        constexpr int UNROLL = 4;
+        for (int base = threadIdx.x; base < span; base += UNROLL * THREADS) {
+            int src[UNROLL];
+            long long el[UNROLL];
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                const long long e = e0 + base + u * THREADS;
+                el[u] = e < n_el ? e : n_el - 1;
+                src[u] = __ldg(idx + el[u]);
+            }
+            float s[UNROLL][MAX_OUT];
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u)
+                slot_products<FORM>(a, el[u], src[u], s[u]);
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                const int le = base + u * THREADS;
+                if (le < span && e0 + le < n_el) {
+                    const int row = le / K;
+                    const int at = row * KP + (le - row * K);
+#pragma unroll
+                    for (int j = 0; j < MAX_OUT; ++j)
+                        if (j < n_out) s_part[j * plane + at] = s[u][j];
+                }
+            }
+        }
+    }
+    __syncthreads();
+    const int row = blockIdx.x * RB + threadIdx.x;
+    if (threadIdx.x >= RB || row >= M) return;
 #pragma unroll
     for (int j = 0; j < MAX_OUT; ++j) {
-        if (j < a.n_out) a.out[j][i] = acc[j];
+        if (j < n_out) {
+            const float* part = s_part + j * plane + threadIdx.x * KP;
+            float acc = 0.0f;
+            if (KT > 0) {
+#pragma unroll
+                for (int k = 0; k < (KT > 0 ? KT : 1); ++k) acc += part[k];
+            } else {
+                for (int k = 0; k < K; ++k) acc += part[k];
+            }
+            a.out[(long long)j * M + row] = acc;
+        }
     }
+}
+
+// Rows per block where K is a run-time value: the restriction lists and the
+// coarse levels, a few thousand rows or fewer but for the first.  Small
+// blocks of rows spread them over the card's SMs and leave each thread one
+// or two batches.
+constexpr int ROWS_RT = 64;
+
+// One launch with K compile-time (KC = K) or run-time (KC = 0) and ROWS rows
+// per block.
+template <int FORM, int KC, int ROWS>
+cudaError_t launch_dot_rows(const DotArgs& a, const int* idx, int M, int K,
+                            int n_out, cudaStream_t stream) {
+    const unsigned blocks = (unsigned)((M + ROWS - 1) / ROWS);
+    const size_t smem = (size_t)n_out * ROWS * (K | 1) * sizeof(float);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            banded_dot_kernel<FORM, KC, ROWS>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    banded_dot_kernel<FORM, KC, ROWS><<<blocks, THREADS, smem, stream>>>(
+        a, idx, M, K);
+    return cudaGetLastError();
+}
+
+template <int FORM>
+cudaError_t launch_dot(const DotArgs& a, const int* idx, int M, int K,
+                       int n_out, cudaStream_t stream) {
+    if (K < 1) return cudaErrorInvalidValue;
+    if (M == 0) return cudaSuccess;
+    if (K == 3)
+        return launch_dot_rows<FORM, 3, THREADS>(a, idx, M, K, n_out, stream);
+    if (K == 9)
+        return launch_dot_rows<FORM, 9, THREADS>(a, idx, M, K, n_out, stream);
+    return launch_dot_rows<FORM, 0, ROWS_RT>(a, idx, M, K, n_out, stream);
 }
 
 template <int C>
@@ -194,14 +385,67 @@ int banded_gather(const float* x, const int* idx, float* out, int M, int K,
     return (int)cudaGetLastError();
 }
 
-// xs: n_x pointers to (n_src,) float32 operands; offs: n_off pointers to
-// (M, K) float32 coefficient planes; outs: n_out pointers to (M,) float32;
-// idx: (M, K) int32.  Output j sums the products p in
+// The named forms of banded_dot, one entry point each, so that a call passes
+// just that form's pointers.  x*: (n_src,) float32 operands; o*: (M, K)
+// float32 coefficient planes; out: (n_out, M) float32; idx: (M, K) int32.
+// Each returns a cudaError_t.
+int banded_dot_scalar(const float* x0, const float* o0, float* out,
+                      const int* idx, int M, int K, void* stream) {
+    DotArgs a = {};
+    a.x[0] = x0;
+    a.off[0] = o0;
+    a.out = out;
+    return (int)launch_dot<F_SCALAR>(a, idx, M, K, 1, (cudaStream_t)stream);
+}
+
+int banded_dot_mom2(const float* x0, const float* x1, const float* o0,
+                    float* out, const int* idx, int M, int K, void* stream) {
+    DotArgs a = {};
+    a.x[0] = x0; a.x[1] = x1;
+    a.off[0] = o0;
+    a.out = out;
+    return (int)launch_dot<F_MOM2>(a, idx, M, K, 2, (cudaStream_t)stream);
+}
+
+int banded_dot_schur_rhs(const float* x0, const float* x1, const float* o0,
+                         const float* o1, float* out, const int* idx, int M,
+                         int K, void* stream) {
+    DotArgs a = {};
+    a.x[0] = x0; a.x[1] = x1;
+    a.off[0] = o0; a.off[1] = o1;
+    a.out = out;
+    return (int)launch_dot<F_SCHUR_RHS>(a, idx, M, K, 1, (cudaStream_t)stream);
+}
+
+int banded_dot_grad(const float* x0, const float* o0, const float* o1,
+                    float* out, const int* idx, int M, int K, void* stream) {
+    DotArgs a = {};
+    a.x[0] = x0;
+    a.off[0] = o0; a.off[1] = o1;
+    a.out = out;
+    return (int)launch_dot<F_GRAD>(a, idx, M, K, 2, (cudaStream_t)stream);
+}
+
+int banded_dot_spmv(const float* x0, const float* x1, const float* x2,
+                    const float* o0, const float* o1, const float* o2,
+                    const float* o3, const float* o4, const float* o5,
+                    float* out, const int* idx, int M, int K, void* stream) {
+    DotArgs a = {};
+    a.x[0] = x0; a.x[1] = x1; a.x[2] = x2;
+    a.off[0] = o0; a.off[1] = o1; a.off[2] = o2;
+    a.off[3] = o3; a.off[4] = o4; a.off[5] = o5;
+    a.out = out;
+    return (int)launch_dot<F_SPMV>(a, idx, M, K, 3, (cudaStream_t)stream);
+}
+
+// Any other product list.  xs: n_x pointers to (n_src,) float32 operands;
+// offs: n_off pointers to (M, K) float32 coefficient planes; out: (n_out, M)
+// float32; idx: (M, K) int32.  Output j sums the products p in
 // [pair_start[j], pair_start[j+1]): offs[pair_off[p]][i, k] *
 // xs[pair_x[p]][idx[i, k]] over k.  Returns a cudaError_t, or
 // cudaErrorInvalidValue when a count exceeds the kernel's limits.
 int banded_dot(const float* const* xs, int n_x, const float* const* offs,
-               int n_off, float* const* outs, int n_out, const int* pair_off,
+               int n_off, float* out, int n_out, const int* pair_off,
                const int* pair_x, const int* pair_start, const int* idx,
                int M, int K, void* stream) {
     if (n_x < 1 || n_x > MAX_X || n_off < 1 || n_off > MAX_OFF || n_out < 1
@@ -210,7 +454,7 @@ int banded_dot(const float* const* xs, int n_x, const float* const* offs,
     DotArgs a = {};
     for (int c = 0; c < n_x; ++c) a.x[c] = xs[c];
     for (int p = 0; p < n_off; ++p) a.off[p] = offs[p];
-    for (int j = 0; j < n_out; ++j) a.out[j] = outs[j];
+    a.out = out;
     for (int j = 0; j <= n_out; ++j) a.pair_start[j] = pair_start[j];
     for (int p = 0; p < pair_start[n_out]; ++p) {
         if (pair_off[p] < 0 || pair_off[p] >= n_off || pair_x[p] < 0
@@ -219,16 +463,10 @@ int banded_dot(const float* const* xs, int n_x, const float* const* offs,
         a.pair_off[p] = pair_off[p];
         a.pair_x[p] = pair_x[p];
     }
+    a.n_x = n_x;
     a.n_out = n_out;
-    if (M == 0) return (int)cudaSuccess;
-    const unsigned blocks = (unsigned)((M + THREADS - 1) / THREADS);
-    const cudaStream_t st = (cudaStream_t)stream;
-    switch (n_x) {
-        case 1: banded_dot_kernel<1><<<blocks, THREADS, 0, st>>>(a, idx, M, K); break;
-        case 2: banded_dot_kernel<2><<<blocks, THREADS, 0, st>>>(a, idx, M, K); break;
-        default: banded_dot_kernel<3><<<blocks, THREADS, 0, st>>>(a, idx, M, K); break;
-    }
-    return (int)cudaGetLastError();
+    return (int)launch_dot<F_GENERIC>(a, idx, M, K, n_out,
+                                      (cudaStream_t)stream);
 }
 
 // rs: C pointers to (n,) float32 right-hand sides; dinv: (n,) float32;

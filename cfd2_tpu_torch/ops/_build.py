@@ -27,8 +27,8 @@ _I = ctypes.c_int
 # C signature of every exported function, by source: (argtypes, restype).
 SIGNATURES = {
     "rbgs": {
-        # x, diag, off, b, x_out, r_out, ny, nx, sweeps, stream
-        "rbgs_leg": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        # x, diag, off, b, x_coarse, x_out, r_out, ny, nx, sweeps, mode, stream
+        "rbgs_leg": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         # x, diag, off, b, x_out, ny, nx, parity, stream
         "rbgs_half_sweep": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "rbgs_error_string": ([_I], ctypes.c_char_p),
@@ -36,7 +36,14 @@ SIGNATURES = {
     "banded": {
         # x, idx, out, M, K, C, stream
         "banded_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
-        # xs, n_x, offs, n_off, outs, n_out, pair_off, pair_x, pair_start,
+        # The named product forms: their operands, their planes, out, idx, M,
+        # K, stream.
+        "banded_dot_scalar": ([_P] * 4 + [_I, _I, _P], _I),
+        "banded_dot_mom2": ([_P] * 5 + [_I, _I, _P], _I),
+        "banded_dot_schur_rhs": ([_P] * 6 + [_I, _I, _P], _I),
+        "banded_dot_grad": ([_P] * 5 + [_I, _I, _P], _I),
+        "banded_dot_spmv": ([_P] * 11 + [_I, _I, _P], _I),
+        # xs, n_x, offs, n_off, out, n_out, pair_off, pair_x, pair_start,
         # idx, M, K, stream
         "banded_dot": ([_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
                        _I),

@@ -31,7 +31,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import banded_kernels as bk
 from . import stencil_kernels as sk
@@ -440,14 +439,11 @@ class _GridOps:
 
     def restrict2(self, coarse_grid, rg):
         """2x2 block sums (zero-padded to an even grid)."""
-        nyc, nxc = coarse_grid
-        rg = F.pad(rg, (0, 2 * nxc - self.nx, 0, 2 * nyc - self.ny))
-        return rg.reshape(nyc, 2, nxc, 2).sum(dim=(1, 3))
+        return sk.restrict2(rg, coarse_grid)
 
     def prolong2(self, coarse_grid, xcg):
         """Piecewise-constant 2x upsample, cropped to this level's grid."""
-        full = xcg.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
-        return full[:self.ny, :self.nx]
+        return sk.prolong2(xcg, (self.ny, self.nx))
 
 
 def compute_structured_level_values2(hier: StructuredAmgHierarchy,
@@ -518,14 +514,18 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
 
     The smoother follows :func:`.stencil_kernels.smoother_level`: at level 2
     each level's down leg is one :func:`~.stencil_kernels.rbgs_leg` launch
-    with the residual and its up leg one without (2 launches per level); at
-    level 1 each half-sweep is one :func:`~.stencil_kernels.rbgs_half_sweep`
-    launch on the flat layout; level 0 (CPU only) runs the plain stencils."""
+    that returns the restricted residual, and its up leg one that adds the
+    prolongated correction before it smooths (2 launches per level, and no
+    launch for the grid transfers; with ``sweeps > 1`` the legs are unfused
+    and the transfers plain); at level 1 each half-sweep is one
+    :func:`~.stencil_kernels.rbgs_half_sweep` launch on the flat layout;
+    level 0 (CPU only) runs the plain stencils."""
     L = len(hier.levels)
     grids = [hier.levels[0].fine_grid] + [lvl.grid for lvl in hier.levels]
     ops = [_GridOps(g) for g in grids]
     lv2 = structured_level_values_2d(hier, level_values)
     level = sk.smoother_level(b0.device)
+    fused = level == 2 and sweeps == 1
 
     def smooth(i, xg, bg):
         diag2, off2 = lv2[i]
@@ -544,14 +544,19 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
     bs = [b0.reshape(grids[0])]
     for i in range(L):
         diag2, off2 = lv2[i]
-        if level == 2:
-            x, r = sk.rbgs_leg(xs[i], diag2, off2, bs[i], sweeps=sweeps,
-                               residual=True)
+        if fused:
+            x, b_coarse = sk.rbgs_leg(xs[i], diag2, off2, bs[i],
+                                      restrict_to=grids[i + 1])
         else:
-            x = smooth(i, xs[i], bs[i])
-            r = bs[i] - ops[i].spmv2(diag2, off2, x)
+            if level == 2:
+                x, r = sk.rbgs_leg(xs[i], diag2, off2, bs[i], sweeps=sweeps,
+                                   residual=True)
+            else:
+                x = smooth(i, xs[i], bs[i])
+                r = bs[i] - ops[i].spmv2(diag2, off2, x)
+            b_coarse = ops[i].restrict2(grids[i + 1], r)
         xs[i] = x
-        bs.append(ops[i].restrict2(grids[i + 1], r))
+        bs.append(b_coarse)
         xs.append(torch.zeros(grids[i + 1], dtype=x0.dtype, device=x0.device))
 
     if coarse_factors is None:
@@ -560,8 +565,13 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
         coarse_factors, bs[L].reshape(-1)).reshape(grids[L])
 
     for i in reversed(range(L)):
-        x = xs[i] + ops[i].prolong2(grids[i + 1], xs[i + 1])
-        xs[i] = smooth(i, x, bs[i])
+        if fused:
+            diag2, off2 = lv2[i]
+            xs[i] = sk.rbgs_leg(xs[i], diag2, off2, bs[i],
+                                add_prolong=xs[i + 1])
+        else:
+            x = xs[i] + ops[i].prolong2(grids[i + 1], xs[i + 1])
+            xs[i] = smooth(i, x, bs[i])
     return xs[0].reshape(-1)
 
 

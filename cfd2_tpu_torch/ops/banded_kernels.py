@@ -34,12 +34,30 @@ import ctypes
 import torch
 
 from . import _build
+from ._launch import float_ok, launch
 
 # Kernel calls per wrapper since the last reset_launches().
 LAUNCHES = {"banded_gather": 0, "banded_dot": 0, "banded_jacobi_sweeps": 0}
 
 # Limits of csrc/banded.cu.
 MAX_X, MAX_OFF, MAX_OUT, MAX_PAIRS, MAX_RHS = 3, 6, 3, 8, 4
+
+# The product lists the solver passes to banded_dot: each has a kernel
+# instantiation and a C entry point ``banded_dot_<name>`` of its own
+# (csrc/banded.cu).  name -> (operands, planes, prods).  Any other list
+# takes the generic instantiation.
+DOT_FORMS = {
+    "scalar": (1, 1, (((0, 0),),)),
+    "mom2": (2, 1, (((0, 0),), ((0, 1),))),
+    "schur_rhs": (2, 2, (((0, 0), (1, 1)),)),
+    "grad": (1, 2, (((0, 0),), ((1, 0),))),
+    "spmv": (3, 6, (((0, 0), (1, 2)), ((0, 1), (2, 2)),
+                    ((3, 0), (4, 1), (5, 2)))),
+}
+_FORM_OF = {(prods, n_x, n_off): name
+            for name, (n_x, n_off, prods) in DOT_FORMS.items()}
+# (prods, n_x, n_off) -> what a call needs that depends only on them.
+_PLANS: dict = {}
 
 
 def reset_launches() -> None:
@@ -114,7 +132,7 @@ def _raise_on(lib, err: int, fn: str) -> None:
 def _cuda_or_cpu(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); raises for any other device."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
@@ -146,13 +164,50 @@ def banded_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, K) + tuple(x.shape[1:]), dtype=torch.float32,
                       device=dev)
     lib = _build.load("banded")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.banded_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                M, K, C, stream)
+    err = launch(lib.banded_gather, dev, x.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), M, K, C)
     _raise_on(lib, err, "banded_gather")
     LAUNCHES["banded_gather"] += 1
     return out
+
+
+def dot_form(prods, n_x: int, n_off: int) -> str:
+    """The name of the kernel instantiation that :func:`banded_dot` picks
+    for this product list: one of ``DOT_FORMS``, or "generic"."""
+    return _plan(prods, n_x, n_off)[0]
+
+
+def _plan(prods, n_x: int, n_off: int):
+    """What a call takes of a product list: (form name, n_out, and for the
+    generic form pair_off, pair_x, pair_start as ctypes arrays), validated
+    and marshalled at the list's first use and kept."""
+    try:
+        return _PLANS[(prods, n_x, n_off)]
+    except (KeyError, TypeError):   # first use, or lists where tuples hash
+        pass
+    prods = tuple(tuple(tuple(pair) for pair in p) for p in prods)
+    key = (prods, n_x, n_off)
+    if key in _PLANS:
+        return _PLANS[key]
+    n_pairs = sum(len(p) for p in prods)
+    if not (1 <= n_x <= MAX_X and 1 <= n_off <= MAX_OFF
+            and 1 <= len(prods) <= MAX_OUT and n_pairs <= MAX_PAIRS):
+        raise ValueError(
+            f"banded_dot takes at most {MAX_X} operands, {MAX_OFF} planes, "
+            f"{MAX_OUT} outputs and {MAX_PAIRS} products; got {n_x}, "
+            f"{n_off}, {len(prods)}, {n_pairs}")
+    pair_off, pair_x, start = [], [], [0]
+    for pairs in prods:
+        for (oi, ci) in pairs:
+            if not (0 <= oi < n_off and 0 <= ci < n_x):
+                raise ValueError(f"product ({oi}, {ci}) names no plane or "
+                                 "operand")
+            pair_off.append(oi)
+            pair_x.append(ci)
+        start.append(len(pair_off))
+    plan = _PLANS[key] = (_FORM_OF.get(key, "generic"), len(prods),
+                          _ints(pair_off), _ints(pair_x), _ints(start))
+    return plan
 
 
 def banded_dot(xs, offs, idx: torch.Tensor, prods):
@@ -162,46 +217,43 @@ def banded_dot(xs, offs, idx: torch.Tensor, prods):
     ``xs``: up to 3 (n_src,) float32 operands; ``offs``: up to 6 (M, K)
     float32 coefficient planes; ``idx``: (M, K) int32; ``prods``: per output
     (up to 3) a tuple of (plane, operand) pairs.  Returns a tuple of (M,)
-    tensors."""
+    tensors (rows of one (n_out, M) tensor on the card)."""
     xs, offs = tuple(xs), tuple(offs)
-    prods = tuple(tuple(p) for p in prods)
     if not _cuda_or_cpu(xs[0]):
         return banded_dot_ref(xs, offs, idx, prods)
     dev = xs[0].device
-    _check_idx(idx, dev)
-    M, K = idx.shape
-    n_pairs = sum(len(p) for p in prods)
-    if not (1 <= len(xs) <= MAX_X and 1 <= len(offs) <= MAX_OFF
-            and 1 <= len(prods) <= MAX_OUT and n_pairs <= MAX_PAIRS):
-        raise ValueError(
-            f"banded_dot takes at most {MAX_X} operands, {MAX_OFF} planes, "
-            f"{MAX_OUT} outputs and {MAX_PAIRS} products; got {len(xs)}, "
-            f"{len(offs)}, {len(prods)}, {n_pairs}")
-    n_src = xs[0].shape[0]
-    for c, x in enumerate(xs):
-        _check(f"xs[{c}]", x, (n_src,), dev)
-    for p, o in enumerate(offs):
-        _check(f"offs[{p}]", o, (M, K), dev)
-    pair_off, pair_x, start = [], [], [0]
-    for pairs in prods:
-        for (oi, ci) in pairs:
-            if not (0 <= oi < len(offs) and 0 <= ci < len(xs)):
-                raise ValueError(f"product ({oi}, {ci}) names no plane or "
-                                 "operand")
-            pair_off.append(oi)
-            pair_x.append(ci)
-        start.append(len(pair_off))
-    outs = [torch.empty((M,), dtype=torch.float32, device=dev) for _ in prods]
+    if not (idx.dim() == 2 and idx.dtype is torch.int32 and idx.device == dev
+            and idx.is_contiguous()):
+        _check_idx(idx, dev)
+    form, n_out, pair_off, pair_x, start = _plan(prods, len(xs), len(offs))
+    src_shape, shape = xs[0].shape, idx.shape
+    ok = len(src_shape) == 1
+    for x in xs:
+        ok = ok and float_ok(x, src_shape, dev)
+    for o in offs:
+        ok = ok and float_ok(o, shape, dev)
+    if not ok:
+        for c, x in enumerate(xs):
+            _check(f"xs[{c}]", x, src_shape[:1], dev)
+        for p, o in enumerate(offs):
+            _check(f"offs[{p}]", o, shape, dev)
+    M, K = shape
     lib = _build.load("banded")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.banded_dot(_ptrs(xs), len(xs), _ptrs(offs), len(offs),
-                             _ptrs(outs), len(outs), _ints(pair_off),
-                             _ints(pair_x), _ints(start), idx.data_ptr(),
-                             M, K, stream)
+    # One allocation for all outputs; a single output is returned as it is
+    # (unbind costs the host as much as the allocation).
+    out = xs[0].new_empty((M,) if n_out == 1 else (n_out, M))
+    if form == "generic":
+        err = launch(lib.banded_dot, dev, _ptrs(xs), len(xs), _ptrs(offs),
+                     len(offs), out.data_ptr(), n_out, pair_off, pair_x,
+                     start, idx.data_ptr(), M, K)
+    else:
+        err = launch(getattr(lib, "banded_dot_" + form), dev,
+                     *[x.data_ptr() for x in xs],
+                     *[o.data_ptr() for o in offs], out.data_ptr(),
+                     idx.data_ptr(), M, K)
     _raise_on(lib, err, "banded_dot")
     LAUNCHES["banded_dot"] += 1
-    return tuple(outs)
+    return (out,) if n_out == 1 else out.unbind(0)
 
 
 def banded_jacobi_sweeps(rs, dinv, off, idx, sweeps: int, k_cap=None):
@@ -237,12 +289,9 @@ def banded_jacobi_sweeps(rs, dinv, off, idx, sweeps: int, k_cap=None):
     zb = torch.empty((C, n), dtype=torch.float32, device=dev) \
         if sweeps > 1 else za
     lib = _build.load("banded")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.banded_jacobi_sweeps(_ptrs(rs), C, dinv.data_ptr(),
-                                       off.data_ptr(), idx.data_ptr(),
-                                       za.data_ptr(), zb.data_ptr(), n, K,
-                                       cap, int(sweeps), stream)
+    err = launch(lib.banded_jacobi_sweeps, dev, _ptrs(rs), C, dinv.data_ptr(),
+                 off.data_ptr(), idx.data_ptr(), za.data_ptr(), zb.data_ptr(),
+                 n, K, cap, int(sweeps))
     _raise_on(lib, err, "banded_jacobi_sweeps")
     LAUNCHES["banded_jacobi_sweeps"] += 1
     z = za if sweeps % 2 == 1 else zb

@@ -6,7 +6,11 @@ Counterparts of ``cfd2_tpu/ops/pallas_stencil.py``:
 
 * :func:`rbgs_leg` <- ``fused_rbgs2``: ``2*sweeps`` coloured half-sweeps of
   the 5-point stencil on an (ny, nx) grid, optionally followed by the
-  residual ``b - A x``, in one launch (one V-cycle leg on one level);
+  residual ``b - A x``, in one launch (one V-cycle leg on one level).  Two
+  fused forms take the V-cycle's grid transfers into the same launch: the
+  down leg that returns the restricted residual (``restrict_to``) and the
+  up leg that first adds the prolongated coarse correction
+  (``add_prolong``);
 * :func:`rbgs_half_sweep` <- ``rbgs_half_sweep``: one coloured half-sweep on
   the flat (n,) layout with ``off`` (n, 4).
 
@@ -21,8 +25,10 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
+from ._launch import float_ok, launch
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"rbgs_leg": 0, "rbgs_half_sweep": 0}
@@ -100,6 +106,28 @@ def rbgs_leg_ref(xg, diag2, off2, bg, sweeps: int = 1,
     return xg
 
 
+def restrict2(rg: torch.Tensor, coarse_grid) -> torch.Tensor:
+    """2x2 block sums of an (ny, nx) grid, zero-padded to an even grid:
+    ``_GridOps.restrict2`` (cfd2_tpu/ops/amg.py)."""
+    nyc, nxc = coarse_grid
+    ny, nx = rg.shape
+    rg = F.pad(rg, (0, 2 * nxc - nx, 0, 2 * nyc - ny))
+    return rg.reshape(nyc, 2, nxc, 2).sum(dim=(1, 3))
+
+
+def prolong2(xcg: torch.Tensor, fine_grid) -> torch.Tensor:
+    """Piecewise-constant 2x upsample cropped to ``fine_grid``:
+    ``_GridOps.prolong2`` (cfd2_tpu/ops/amg.py)."""
+    ny, nx = fine_grid
+    full = xcg.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    return full[:ny, :nx]
+
+
+def coarse_grid_of(grid) -> tuple[int, int]:
+    ny, nx = grid
+    return (ny + 1) // 2, (nx + 1) // 2
+
+
 def rbgs_half_sweep_ref(x, diag, off, b, parity: int, grid_shape):
     """Plain version of :func:`rbgs_half_sweep`: one colour of
     ``_GridOps.smooth_rbgs`` (cfd2_tpu/ops/amg.py:639-646) — cells with
@@ -137,41 +165,86 @@ def _raise_on(lib, err: int, fn: str) -> None:
 def _cuda_or_cpu(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); raises for any other device."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no RB-GS implementation for device {t.device}")
 
 
-def rbgs_leg(xg, diag2, off2, bg, sweeps: int = 1, residual: bool = False):
+# Modes of the C function (csrc/rbgs.cu).
+_SMOOTH, _RESIDUAL, _RESTRICT, _PROLONG = 0, 1, 2, 3
+
+
+def rbgs_leg(xg, diag2, off2, bg, sweeps: int = 1, residual: bool = False,
+             restrict_to=None, add_prolong=None):
     """``2*sweeps`` red-black Gauss-Seidel half-sweeps (parity 0 then 1) of
-    the 5-point stencil, and with ``residual`` also ``b - A x`` of the
-    smoothed x: one V-cycle leg.  ``xg``/``diag2``/``bg`` (ny, nx) float32,
-    ``off2`` (4, ny, nx) float32 slots [E, W, N, S].  Returns x, or (x, r).
-    """
-    if not _cuda_or_cpu(xg):
-        return rbgs_leg_ref(xg, diag2, off2, bg, sweeps, residual)
+    the 5-point stencil: one V-cycle leg in one launch.  ``xg``/``diag2``/
+    ``bg`` (ny, nx) float32, ``off2`` (4, ny, nx) float32 slots [E, W, N, S].
+
+    * plain: returns x; with ``residual`` returns ``(x, b - A x)``;
+    * ``restrict_to=(nyc, nxc)`` (the down leg; the coarse grid, which must
+      be ``((ny+1)//2, (nx+1)//2)``): returns ``(x, restrict2(b - A x))``
+      without the residual ever reaching device memory;
+    * ``add_prolong=x_coarse`` (the up leg): smooths
+      ``x + prolong2(x_coarse)`` and returns x.
+
+    The two fused forms take ``sweeps == 1`` and exclude each other and
+    ``residual``."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
-    ny, nx = xg.shape
+    shape = xg.shape
+    ny, nx = shape
+    coarse = None
+    if restrict_to is not None or add_prolong is not None:
+        if sweeps != 1 or residual or (restrict_to is not None
+                                       and add_prolong is not None):
+            raise ValueError("restrict_to and add_prolong take sweeps == 1 "
+                             "and exclude each other and residual")
+        coarse = ((ny + 1) // 2, (nx + 1) // 2)
+        given = restrict_to if add_prolong is None else add_prolong.shape
+        if tuple(given) != coarse:
+            raise ValueError(f"the coarse grid of {(ny, nx)} is {coarse}, "
+                             f"got {tuple(given)}")
+    if not _cuda_or_cpu(xg):
+        if add_prolong is not None:
+            xg = xg + prolong2(add_prolong, (ny, nx))
+        if restrict_to is not None:
+            x, r = rbgs_leg_ref(xg, diag2, off2, bg, sweeps, True)
+            return x, restrict2(r, coarse)
+        return rbgs_leg_ref(xg, diag2, off2, bg, sweeps, residual)
     dev = xg.device
-    _check("x", xg, (ny, nx), dev)
-    _check("diag", diag2, (ny, nx), dev)
-    _check("off", off2, (4, ny, nx), dev)
-    _check("b", bg, (ny, nx), dev)
+    if not (float_ok(xg, shape, dev) and float_ok(diag2, shape, dev)
+            and float_ok(off2, (4, ny, nx), dev) and float_ok(bg, shape, dev)
+            and (add_prolong is None or float_ok(add_prolong, coarse, dev))):
+        _check("x", xg, (ny, nx), dev)
+        _check("diag", diag2, (ny, nx), dev)
+        _check("off", off2, (4, ny, nx), dev)
+        _check("b", bg, (ny, nx), dev)
+        if add_prolong is not None:
+            _check("add_prolong", add_prolong, coarse, dev)
     lib = _build.load("rbgs")
-    x_out = torch.empty_like(xg)
-    r_out = torch.empty_like(xg) if residual else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rbgs_leg(xg.data_ptr(), diag2.data_ptr(), off2.data_ptr(),
-                           bg.data_ptr(), x_out.data_ptr(),
-                           r_out.data_ptr() if residual else None,
-                           ny, nx, sweeps, stream)
-    _raise_on(lib, err, "rbgs_leg")
+    xc_ptr = r_ptr = r_out = None
+    mode = _SMOOTH
+    x_out = torch.empty_like(xg)   # the cheapest allocation for the host
+    if residual:
+        mode = _RESIDUAL
+        r_out = torch.empty_like(xg)
+        r_ptr = r_out.data_ptr()
+    elif restrict_to is not None:
+        mode = _RESTRICT
+        r_out = xg.new_empty(coarse)
+        r_ptr = r_out.data_ptr()
+    elif add_prolong is not None:
+        mode = _PROLONG
+        xc_ptr = add_prolong.data_ptr()
+    err = launch(lib.rbgs_leg, dev, xg.data_ptr(), diag2.data_ptr(),
+                 off2.data_ptr(), bg.data_ptr(), xc_ptr, x_out.data_ptr(),
+                 r_ptr, ny, nx, sweeps, mode)
+    if err:
+        _raise_on(lib, err, "rbgs_leg")
     LAUNCHES["rbgs_leg"] += 1
-    return (x_out, r_out) if residual else x_out
+    return x_out if r_out is None else (x_out, r_out)
 
 
 def rbgs_half_sweep(x, diag, off, b, parity: int, grid_shape):
@@ -192,12 +265,9 @@ def rbgs_half_sweep(x, diag, off, b, parity: int, grid_shape):
         raise ValueError("off must be 16-byte aligned (read as float4)")
     lib = _build.load("rbgs")
     x_out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rbgs_half_sweep(x.data_ptr(), diag.data_ptr(),
-                                  off.data_ptr(), b.data_ptr(),
-                                  x_out.data_ptr(), ny, nx, int(parity) & 1,
-                                  stream)
+    err = launch(lib.rbgs_half_sweep, dev, x.data_ptr(), diag.data_ptr(),
+                 off.data_ptr(), b.data_ptr(), x_out.data_ptr(), ny, nx,
+                 int(parity) & 1)
     _raise_on(lib, err, "rbgs_half_sweep")
     LAUNCHES["rbgs_half_sweep"] += 1
     return x_out

@@ -45,6 +45,7 @@ MIN_CELL = 0.0017   # the main path's mesh: 996,558 cells on 589x1765
 # Kernel-name fragments -> the code that issues them.
 _GROUPS = (
     ("rbgs_leg_kernel", "rbgs_leg (CUDA, V-cycle smoother)"),
+    ("rbgs_leg_staged_kernel", "rbgs_leg (CUDA, V-cycle smoother)"),
     ("rbgs_half_sweep", "rbgs_half_sweep (CUDA)"),
     ("banded_gather_kernel", "banded_gather (CUDA)"),
     ("banded_dot_kernel", "banded_dot (CUDA)"),

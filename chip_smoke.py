@@ -13,11 +13,15 @@ Phases (any failure exits non-zero):
    unstructured meshes of phases 6-7 cannot be generated in minutes;
 2. hold each kernel against its plain PyTorch version on the card (max-abs
    error <= 1e-5 on O(1) random data): the two RB-GS kernels on small grids
-   and on every level grid of the 589x1765 multigrid hierarchy, timed at
-   589x1765; the three banded kernels on square and rectangular index maps
-   (K = 1, 3, 9, 17, every product form of the solver, a capped K = 9 map),
-   compared and timed at M = 403,584, K = 3 beside their byte bounds, the
-   dot also beside the library's sparse CSR product;
+   and on every level grid of the 589x1765 multigrid hierarchy, the leg in
+   its four unfused forms and, against the plain leg composed with the plain
+   grid transfers, in its two fused forms; the leg timed in every form on
+   every level grid beside its byte bound; the three banded kernels on
+   square and rectangular index maps (K = 1, 3, 9, 17, every product form of
+   the solver and one that is not, a capped K = 9 map), compared and timed
+   at M = 403,584, K = 3 beside their byte bounds, the dot in all five
+   forms, at a coarse level's shape and at a restriction's, and beside the
+   library's sparse CSR product; the host's time per wrapper call;
 3. drive the main path: the 996,558-cell channel-obstacle mesh
    (min_cell=0.0017, 589x1765 grid), ``CoupledSolver`` with the structured
    multigrid (precond_type=1, fgmres_max_restarts=5), started from
@@ -39,11 +43,19 @@ Then the kernels' JSON line and the result line are printed.
 
 ``--phases 1,2`` runs only the listed phases (for bring-up); the result line
 is printed only when every phase ran.
+
+``--tree PATH`` runs phases 1 and 2 on the ``cfd2_tpu_torch`` of another
+checkout of this repository unpacked inside this one (for example the parent
+commit, ``git archive`` into a directory that ``.gitignore`` lists): its
+kernels and wrappers, this script's inputs, loops and timers, so that two
+commits are timed the same way on the same card in one call.  What that
+checkout's wrappers do not offer (the fused legs, ``dot_form``) is left out.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -95,26 +107,38 @@ def level_grids(ny, nx, min_coarse=100):
     grids = []
     while ny * nx > min_coarse:
         grids.append((ny, nx))
-        ny, nx = (ny + 1) // 2, (nx + 1) // 2
+        ny, nx = coarse_of((ny, nx))
     return grids, (ny, nx)
 
 
-def cuda_time_ms(fn, reps=50):
+def cuda_time_ms(fn, reps=50, flush="write"):
     """Mean device time of ``fn`` per call in ms, from CUDA events around
-    each call.  Before every call a 1 GiB buffer is zeroed: that flushes the
-    50 MB L2 cache (the solver finds its level-0 planes cold: FGMRES streams
-    the basis between applications) and keeps the device busy for some
-    hundred microseconds, so that the host has enqueued the start event, the
-    call and the end event before the device reaches them.  Without that
-    lead the interval between the events is the host's time to enqueue the
-    call (30-75 us for these wrappers), not the kernel's."""
+    each call.  Before every call the 50 MB L2 cache is flushed (the solver
+    finds its level-0 planes cold: FGMRES streams the basis between
+    applications) by a pass over a 1 GiB buffer, which also keeps the device
+    busy for some hundred microseconds, so that the host has enqueued the
+    start event, the call and the end event before the device reaches them.
+    Without that lead the interval between the events is the host's time to
+    enqueue the call, not the kernel's.
+
+    ``flush="write"`` zeroes the buffer.  It is the timer of every ``ms`` in
+    the kernels' JSON line and of every time printed without another word,
+    in this and in the earlier rounds of the port.  The cache is then full
+    of the buffer's dirty lines, whose write-back the timed kernel's loads
+    wait for: 5-7 us at these sizes that are none of the kernel's bytes.
+    ``flush="read"`` reads the buffer (a reduction) and leaves clean lines;
+    phase 2 prints its times beside the others for the leg and the dot.
+    Either way the interval holds the launch itself and the two event
+    records, about 6 us: the times of grids of a few hundred cells show
+    that floor."""
     import torch
-    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    buf = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    wipe = {"read": buf.max, "write": buf.zero_}[flush]
     for _ in range(3):
         fn()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        wipe()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -125,19 +149,33 @@ def cuda_time_ms(fn, reps=50):
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def host_us(fn, reps=300):
-    """Host time to enqueue ``fn`` once, in microseconds (no synchronisation
-    inside the loop; the kernels are small enough not to fill the queue)."""
+def host_us(fn, reps=200, batches=5):
+    """Host time to enqueue ``fn`` once, in microseconds: the fastest of
+    ``batches`` batches of ``reps`` calls (the host's cores are shared, and a
+    mean takes in whatever else ran), with no synchronisation inside a batch
+    (the kernels are small enough not to fill the queue)."""
     import torch
     for _ in range(10):
         fn()
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / reps * 1e6
+    return best / reps * 1e6
+
+
+def both_flushes_ms(fn, reps=30):
+    """``fn`` timed under the write flush and under the read flush."""
+    return (cuda_time_ms(fn, reps), cuda_time_ms(fn, reps, flush="read"))
+
+
+def coarse_of(grid):
+    ny, nx = grid
+    return (ny + 1) // 2, (nx + 1) // 2
 
 
 def bound_ms(n_bytes, n_flops):
@@ -183,8 +221,11 @@ def _grid_system(ny, nx, seed, device):
             t(rng.standard_normal((ny, nx))))
 
 
-# The product forms of banded_dot that the solver uses:
-# name -> (operands, planes, prods).
+# The product forms of banded_dot that the solver uses, each a kernel
+# instantiation of its own: name -> (operands, planes, prods).  Stated here
+# and not read from the package: the script also times checkouts (--tree)
+# whose wrapper names no forms, and holds the package's choice against this
+# list (``dot_form``).
 DOT_FORMS = {
     "spmv": (3, 6, (((0, 0), (1, 2)), ((0, 1), (2, 2)),
                     ((3, 0), (4, 1), (5, 2)))),
@@ -193,6 +234,8 @@ DOT_FORMS = {
     "grad": (1, 2, (((0, 0),), ((1, 0),))),
     "scalar": (1, 1, (((0, 0),),)),
 }
+# A list the solver never passes: it takes the kernel's generic instantiation.
+DOT_OTHER = (2, 2, (((1, 0), (0, 1)), ((1, 1),)))
 
 
 def _band_map(M, n_src, K, seed, device, spread=640):
@@ -267,7 +310,7 @@ def phase_banded_kernels(results):
             err_g = max(err_g, _maxerr([bk.banded_gather(x, idx)],
                                        [bk.banded_gather_ref(x, idx)]))
             n_cases += 1
-        for fi, (n_x, n_off, prods) in enumerate(DOT_FORMS.values()):
+        for n_x, n_off, prods in (*DOT_FORMS.values(), DOT_OTHER):
             xs = [_rand((n_src,), 20 + c, dev) for c in range(n_x)]
             offs = [_rand((M, K), 30 + p, dev, 0.3) for p in range(n_off)]
             err_d = max(err_d, _maxerr(bk.banded_dot(xs, offs, idx, prods),
@@ -330,9 +373,42 @@ def phase_banded_kernels(results):
     d_bound, d_by = bound_ms(
         B * (M * K + n_off * M * K + n_x * n + len(prods) * M),
         2 * n_mul * M * K)
-    # the scalar form (every AMG level's operator) for comparison
-    d1_ms = cuda_time_ms(lambda: bk.banded_dot(
-        xs[:1], offs[:1], idx, DOT_FORMS["scalar"][2]))
+    # Every form at this shape, then the scalar form (every AMG level's
+    # operator and restriction) at the first coarse level's shapes, whose
+    # rows reach a few dozen cells either way.
+    form_rows = []
+
+    def time_form(label, n_x, n_off, prods, xs, offs, idx):
+        M, K = idx.shape
+        got = bk.banded_dot(xs[:n_x], offs[:n_off], idx, prods)
+        err = _maxerr(got, bk.banded_dot_ref(xs[:n_x], offs[:n_off], idx,
+                                             prods))
+        ms, ms_read = both_flushes_ms(
+            lambda: bk.banded_dot(xs[:n_x], offs[:n_off], idx, prods))
+        bnd, _ = bound_ms(
+            B * (M * K + n_off * M * K + n_x * xs[0].shape[0]
+                 + len(prods) * M),
+            2 * sum(len(p) for p in prods) * M * K)
+        form_rows.append((label, ms, ms_read, bnd))
+        return err
+
+    named = hasattr(bk, "dot_form")   # not in a --tree of an earlier round
+    for name, (f_x, f_off, f_prods) in DOT_FORMS.items():
+        check(not named or bk.dot_form(f_prods, f_x, f_off) == name,
+              f"banded_dot does not pick the {name} instantiation")
+        err_d = max(err_d, time_form(f"{name} {M}x{K}", f_x, f_off, f_prods,
+                                     xs, offs, idx))
+    check(not named or bk.dot_form(DOT_OTHER[2], *DOT_OTHER[:2]) == "generic",
+          "an unknown product list must take the generic instantiation")
+    one = DOT_FORMS["scalar"][2]
+    n1, k1, kr = DELAUNAY_LEVELS[0], 9, 16
+    for label, mc, nc, kc in ((f"scalar {n1}x{k1}", n1, n1, k1),
+                              (f"restriction {n1}x{kr}<-{n}", n1, n, kr)):
+        err_d = max(err_d, time_form(
+            label, 1, 1, one, [_rand((nc,), 90, dev)],
+            [_rand((mc, kc), 91, dev, 0.3)],
+            _band_map(mc, nc, kc, 9, dev, spread=48)))
+    d1_ms = dict((r[0], r[1]) for r in form_rows)[f"scalar {M}x{K}"]
     d1_bound, _ = bound_ms(B * (M * K + M * K + n + M), 2 * M * K)
     # sweeps: C = 2, 8 sweeps (the momentum predict).
     C, sweeps = 2, 8
@@ -367,7 +443,8 @@ def phase_banded_kernels(results):
     log(f"phase 2: host time per call: banded_gather {h_g:.1f} us, "
         f"banded_dot scalar {h_d1:.1f} us / matvec {h_d:.1f} us, "
         f"banded_jacobi_sweeps {h_s:.1f} us; one eager torch add "
-        f"{h_add:.1f} us")
+        f"{h_add:.1f} us (ratios {h_g / h_add:.2f}, {h_d1 / h_add:.2f}, "
+        f"{h_d / h_add:.2f}, {h_s / h_add:.2f})")
     bk.LAUNCHES.update(before)
     log(f"phase 2: at M={M}, K={K}: max-abs error gather {err_g:.3e}, dot "
         f"{err_d:.3e}, sweeps {err_s:.3e}; sparse-matrix product against "
@@ -392,30 +469,65 @@ def phase_banded_kernels(results):
         f"{d_plain:.4f} ms, sparse CSR product {d_lib:.4f} ms; scalar form "
         f"{d1_ms:.4f} ms, bound {d1_bound:.4f} ms, sparse CSR product "
         f"{d1_lib:.4f} ms")
+    log("phase 2: banded_dot by form, ms / ms under the read flush / bound "
+        "ms: " + "; ".join(f"{label} {ms:.4f} / {rd:.4f} / {bnd:.4f}"
+                           for label, ms, rd, bnd in form_rows))
     log(f"phase 2: banded_jacobi_sweeps (C=2, 8 sweeps): {s_ms:.4f} ms, "
         f"bound {s_bound:.4f} ms ({s_by}), plain {s_plain:.4f} ms")
 
 
+# The forms of rbgs_leg: name -> planes moved per fine cell (x, diag, 4 off
+# and b read; x written; then r written, or a quarter plane of coarse
+# right-hand side written, or a quarter plane of coarse x read).
+LEG_FORMS = {"smooth": 8.0, "residual": 9.0, "restrict": 8.25,
+             "prolong": 8.25}
+
+
+def _leg(sk, form, x, diag2, off2, b, xc, plain=False):
+    """One leg in ``form`` through the kernel, or (``plain``) through
+    rbgs_leg_ref composed with the plain restrict2 / prolong2."""
+    coarse = coarse_of(x.shape)
+    if plain:
+        xin = x + sk.prolong2(xc, x.shape) if form == "prolong" else x
+        out = sk.rbgs_leg_ref(xin, diag2, off2, b, 1,
+                              form in ("residual", "restrict"))
+        if form == "restrict":
+            out = (out[0], sk.restrict2(out[1], coarse))
+    else:
+        kw = {"smooth": {}, "residual": {"residual": True},
+              "restrict": {"restrict_to": coarse},
+              "prolong": {"add_prolong": xc}}[form]
+        out = sk.rbgs_leg(x, diag2, off2, b, **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
 def phase_kernels(results):
     """Each kernel against its plain version on the card; times at the
-    main paths' finest shapes."""
+    main paths' shapes."""
     import torch
     from cfd2_tpu_torch.ops import stencil_kernels as sk
 
+    # The fused forms are not in a --tree of an earlier round.
+    fused = "restrict_to" in inspect.signature(sk.rbgs_leg).parameters
+    forms = [f for f in LEG_FORMS if fused or f in ("smooth", "residual")]
     grids, _ = level_grids(*MAIN_GRID)
     cases = [(37, 53), (16, 24), (300, 128)] + grids
-    err_leg = err_half = 0.0
+    err_leg = err_fused = err_half = 0.0
     before = dict(sk.LAUNCHES)
     for ci, (ny, nx) in enumerate(cases):
         diag2, off2, x, b = _grid_system(ny, nx, ci, "cuda")
+        xc = _rand(coarse_of((ny, nx)), 200 + ci, "cuda")
         for sweeps in (1, 2):
             for residual in (True, False):
                 got = sk.rbgs_leg(x, diag2, off2, b, sweeps, residual)
                 ref = sk.rbgs_leg_ref(x, diag2, off2, b, sweeps, residual)
                 got = got if residual else (got,)
                 ref = ref if residual else (ref,)
-                for g, r in zip(got, ref):
-                    err_leg = max(err_leg, float((g - r).abs().max()))
+                err_leg = max(err_leg, _maxerr(got, ref))
+        for form in forms[2:]:
+            err_fused = max(err_fused, _maxerr(
+                _leg(sk, form, x, diag2, off2, b, xc),
+                _leg(sk, form, x, diag2, off2, b, xc, plain=True)))
         off_flat = off2.reshape(4, -1).T.contiguous()
         for parity in (0, 1):
             args = (x.reshape(-1), diag2.reshape(-1), off_flat,
@@ -424,23 +536,54 @@ def phase_kernels(results):
             ref = sk.rbgs_half_sweep_ref(*args)
             err_half = max(err_half, float((got - ref).abs().max()))
     torch.cuda.synchronize()
-    log(f"phase 2: {len(cases)} grids; max-abs error leg {err_leg:.3e}, "
+    log(f"phase 2: {len(cases)} grids; max-abs error leg {err_leg:.3e} "
+        f"(sweeps 1 and 2, with and without residual), fused legs "
+        f"{err_fused:.3e} (restricted residual, prolongation added), "
         f"half-sweep {err_half:.3e} (tolerance {TOL:g})")
     check(err_leg <= TOL, f"rbgs_leg disagrees with its plain version: "
           f"{err_leg:.3e}")
+    check(err_fused <= TOL, f"a fused form of rbgs_leg disagrees with the "
+          f"plain leg and grid transfer: {err_fused:.3e}")
     check(err_half <= TOL, f"rbgs_half_sweep disagrees with its plain "
           f"version: {err_half:.3e}")
+
+    # The leg on every level grid of the main path, in every form, beside
+    # the form's byte bound.  Flops per cell: 2 half-sweeps x 9 on half the
+    # cells + 1 reciprocal + 10 for the residual.
+    per_cycle = 0.0
+    for ny, nx in grids:
+        diag2, off2, x, b = _grid_system(ny, nx, 99, "cuda")
+        xc = _rand(coarse_of((ny, nx)), 98, "cuda")
+        cells = []
+        for form in forms:
+            ms, ms_read = both_flushes_ms(
+                lambda: _leg(sk, form, x, diag2, off2, b, xc))
+            bnd, _ = bound_ms(LEG_FORMS[form] * 4 * ny * nx, 20 * ny * nx)
+            cells.append(f"{form} {ms:.4f} / {ms_read:.4f} / {bnd:.4f}")
+            if form in forms[-2:]:
+                per_cycle += ms
+        log(f"phase 2: rbgs_leg at {ny}x{nx}, ms / ms under the read flush "
+            "/ bound ms: " + "; ".join(cells))
+    tiny = _grid_system(2, 2, 95, "cuda")
+    floor = cuda_time_ms(lambda: sk.rbgs_leg(tiny[2], tiny[0], tiny[1],
+                                             tiny[3]), reps=30)
+    log(f"phase 2: rbgs_leg over one V-cycle ({forms[-2]} and {forms[-1]} "
+        f"leg on each of {len(grids)} levels): {per_cycle:.4f} ms; the timer's "
+        f"floor (one launch on a 2x2 grid between the events): "
+        f"{floor:.4f} ms")
 
     ny, nx = MAIN_GRID
     n = ny * nx
     diag2, off2, x, b = _grid_system(ny, nx, 99, "cuda")
-    leg_ms = cuda_time_ms(lambda: sk.rbgs_leg(x, diag2, off2, b, 1, True))
+    xc = _rand(coarse_of((ny, nx)), 98, "cuda")
+    # The main path's down leg at its finest grid: the fused form.
+    down = "restrict" if fused else "residual"
+    leg_ms = cuda_time_ms(lambda: _leg(sk, down, x, diag2, off2, b, xc))
     leg_plain = cuda_time_ms(
-        lambda: sk.rbgs_leg_ref(x, diag2, off2, b, 1, True))
-    # Down leg at sweeps=1: reads x, diag, 4 off planes, b; writes x, r.
-    # Flops per cell: 2 half-sweeps x 9 on half the cells + 1 reciprocal +
-    # 10 for the residual.
-    leg_bound, leg_by = bound_ms(9 * 4 * n, 20 * n)
+        lambda: _leg(sk, down, x, diag2, off2, b, xc, plain=True))
+    leg_bound, leg_by = bound_ms(LEG_FORMS[down] * 4 * n, 20 * n)
+    res_ms = cuda_time_ms(lambda: sk.rbgs_leg(x, diag2, off2, b, 1, True))
+    res_bound, _ = bound_ms(LEG_FORMS["residual"] * 4 * n, 20 * n)
     off_flat = off2.reshape(4, -1).T.contiguous()
     hargs = (x.reshape(-1), diag2.reshape(-1), off_flat, b.reshape(-1), 0,
              (ny, nx))
@@ -448,12 +591,28 @@ def phase_kernels(results):
     half_plain = cuda_time_ms(lambda: sk.rbgs_half_sweep_ref(*hargs))
     # Reads x, diag, off (n, 4), b; writes x.  Half the cells do 10 flops.
     half_bound, half_by = bound_ms(8 * 4 * n, 5 * n)
+    # Host cost of one wrapper call at a size where the kernels take a few
+    # microseconds.
+    sd, so, sx, sb = _grid_system(37, 111, 97, "cuda")
+    sc = _rand(coarse_of((37, 111)), 96, "cuda")
+    h_leg = {form: host_us(lambda: _leg(sk, form, sx, sd, so, sb, sc))
+             for form in forms}
+    sflat = (sx.reshape(-1), sd.reshape(-1),
+             so.reshape(4, -1).T.contiguous(), sb.reshape(-1), 0, (37, 111))
+    h_half = host_us(lambda: sk.rbgs_half_sweep(*sflat))
+    h_add = host_us(lambda: sx + sb)
+    log("phase 2: host time per call: rbgs_leg "
+        + ", ".join(f"{form} {us:.1f} us" for form, us in h_leg.items())
+        + f"; rbgs_half_sweep {h_half:.1f} us; one eager torch add "
+        f"{h_add:.1f} us (ratios "
+        + ", ".join(f"{us / h_add:.2f}" for us in h_leg.values())
+        + f"; {h_half / h_add:.2f})")
     # Launches made for these comparisons are not the main path's.
     sk.LAUNCHES.update(before)
     results["rbgs_leg"] = dict(
         name="rbgs_leg", route="cuda", source="cfd2_tpu_torch/csrc/rbgs.cu",
         replaces="cfd2_tpu/ops/pallas_stencil.py:264", launches=0,
-        max_abs_err=err_leg, ms=leg_ms, plain_ms=leg_plain,
+        max_abs_err=max(err_leg, err_fused), ms=leg_ms, plain_ms=leg_plain,
         bound_ms=leg_bound, bound_by=leg_by, library_ms=None)
     results["rbgs_half_sweep"] = dict(
         name="rbgs_half_sweep", route="cuda",
@@ -461,9 +620,10 @@ def phase_kernels(results):
         replaces="cfd2_tpu/ops/pallas_stencil.py:97", launches=0,
         max_abs_err=err_half, ms=half_ms, plain_ms=half_plain,
         bound_ms=half_bound, bound_by=half_by, library_ms=None)
-    log(f"phase 2: rbgs_leg at {ny}x{nx} (sweeps=1, residual): "
-        f"{leg_ms:.4f} ms, bound {leg_bound:.4f} ms ({leg_by}), plain "
-        f"{leg_plain:.4f} ms")
+    log(f"phase 2: rbgs_leg at {ny}x{nx}, down leg (sweeps=1, form "
+        f"{down}): {leg_ms:.4f} ms, bound {leg_bound:.4f} ms ({leg_by}), "
+        f"plain version {leg_plain:.4f} ms; unfused with residual "
+        f"{res_ms:.4f} ms, bound {res_bound:.4f} ms")
     log(f"phase 2: rbgs_half_sweep at {ny}x{nx}: {half_ms:.4f} ms, bound "
         f"{half_bound:.4f} ms ({half_by}), plain {half_plain:.4f} ms")
     phase_banded_kernels(results)
@@ -827,8 +987,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--tree", metavar="PATH",
+                    help="run phases 1 and 2 on the cfd2_tpu_torch of "
+                    "another checkout, unpacked inside this one")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    if args.tree is not None:
+        tree = Path(args.tree).resolve()
+        if ROOT not in tree.parents \
+                or not (tree / "cfd2_tpu_torch").is_dir():
+            print(f"chip_smoke: --tree {args.tree} is not a checkout inside "
+                  f"{ROOT}", file=sys.stderr)
+            return 2
+        sys.path.insert(0, str(tree))
+        phases &= {1, 2}
 
     import torch
     if not torch.cuda.is_available():

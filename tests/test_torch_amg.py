@@ -124,3 +124,67 @@ def test_v_cycle_agrees(setup, monkeypatch, level):
     got = tamg.structured_v_cycle(th, tv, torch.as_tensor(b),
                                   torch.as_tensor(x0))
     assert _rel(got, ref) < 1e-5
+
+
+def _port_level_values(setup):
+    _, th, P_diag2, P_off2 = setup
+    return tamg.compute_structured_level_values2(
+        th, torch.as_tensor(P_diag2), torch.as_tensor(P_off2))
+
+
+def _port_cycle(setup, tv, sweeps=1):
+    th = setup[1]
+    ny, nx = th.levels[0].fine_grid
+    b = np.random.default_rng(11).standard_normal(ny * nx).astype(np.float32)
+    return tamg.structured_v_cycle(th, tv, torch.as_tensor(b),
+                                   torch.zeros(ny * nx), sweeps=sweeps)
+
+
+@pytest.mark.parametrize("sweeps,fused", [(1, True), (2, False)])
+def test_v_cycle_takes_the_fused_legs_at_smoother_level_2(
+        setup, monkeypatch, sweeps, fused):
+    """At smoother level 2 and sweeps == 1 every level's down leg returns
+    the restricted residual and its up leg adds the prolongation (2 leg
+    calls per level, no separate grid transfer); with more sweeps the legs
+    are unfused and the transfers plain."""
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    calls = {"restrict_to": 0, "add_prolong": 0, "plain": 0,
+             "restrict2": 0, "prolong2": 0}
+    leg, restrict2, prolong2 = sk.rbgs_leg, sk.restrict2, sk.prolong2
+
+    def spy_leg(*a, **k):
+        kind = next((n for n in ("restrict_to", "add_prolong")
+                     if k.get(n) is not None), "plain")
+        calls[kind] += 1
+        return leg(*a, **k)
+
+    def spy(name, fn):
+        def inner(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return inner
+
+    tv = _port_level_values(setup)
+    monkeypatch.setenv("CFD2_PALLAS", "2")
+    monkeypatch.setattr(sk, "rbgs_leg", spy_leg)
+    monkeypatch.setattr(sk, "restrict2", spy("restrict2", restrict2))
+    monkeypatch.setattr(sk, "prolong2", spy("prolong2", prolong2))
+    _port_cycle(setup, tv, sweeps)
+    L = len(setup[1].levels)
+    if fused:
+        # On the CPU the wrapper itself composes the plain transfers.
+        assert calls == {"restrict_to": L, "add_prolong": L, "plain": 0,
+                         "restrict2": L, "prolong2": L}
+    else:
+        assert calls == {"restrict_to": 0, "add_prolong": 0, "plain": 2 * L,
+                         "restrict2": L, "prolong2": L}
+
+
+def test_fused_v_cycle_equals_the_plain_stencil_cycle(setup, monkeypatch):
+    """On the CPU the fused legs are the plain leg composed with the plain
+    transfers, so smoother levels 2 and 0 give the same bits."""
+    tv = _port_level_values(setup)
+    monkeypatch.setenv("CFD2_PALLAS", "2")
+    fused = _port_cycle(setup, tv)
+    monkeypatch.setenv("CFD2_PALLAS", "0")
+    assert torch.equal(fused, _port_cycle(setup, tv))

@@ -143,6 +143,59 @@ def test_k_cap_drops_the_slots_beyond_it():
     assert float((capped - full).abs().max()) > 1e-4
 
 
+# Every product list the solver passes (ellsys.spmv, _mom_dot2,
+# chebyshev_pressure_solve, schur_precond twice; amg._ONE_DOT), with the
+# numbers of operands and planes it passes them with.
+SOLVER_PRODS = {
+    "spmv": (3, 6, (((0, 0), (1, 2)), ((0, 1), (2, 2)),
+                    ((3, 0), (4, 1), (5, 2)))),
+    "mom2": (2, 1, (((0, 0),), ((0, 1),))),
+    "scalar": (1, 1, (((0, 0),),)),
+    "schur_rhs": (2, 2, (((0, 0), (1, 1)),)),
+    "grad": (1, 2, (((0, 0),), ((1, 0),))),
+}
+
+
+@pytest.mark.parametrize("name", list(SOLVER_PRODS))
+def test_solver_product_lists_map_to_named_forms(name):
+    n_x, n_off, prods = SOLVER_PRODS[name]
+    assert bk.dot_form(prods, n_x, n_off) == name
+    # Lists where the solver passes tuples name the same form.
+    assert bk.dot_form([list(map(list, p)) for p in prods], n_x, n_off) == name
+    assert bk.DOT_FORMS[name] == (n_x, n_off, prods)
+
+
+def test_amg_one_dot_is_the_scalar_form():
+    from cfd2_tpu_torch.ops import amg as tamg
+    assert bk.dot_form(tamg._ONE_DOT, 1, 1) == "scalar"
+
+
+@pytest.mark.parametrize("n_x,n_off,prods", [
+    (2, 2, (((1, 0), (0, 1)),)),               # schur_rhs with planes swapped
+    (2, 1, (((0, 1),), ((0, 0),))),            # mom2 with outputs swapped
+    (2, 2, (((0, 0),),)),                      # scalar with spare operands
+    (3, 6, (((0, 0), (1, 2)), ((0, 1), (2, 2)))),   # spmv without its p row
+])
+def test_unknown_product_lists_map_to_the_generic_form(n_x, n_off, prods):
+    assert bk.dot_form(prods, n_x, n_off) == "generic"
+    idx, n_src, _, rng = _map("mesh_k3")
+    xs = [_t(rng.standard_normal(n_src)) for _ in range(n_x)]
+    offs = [_t(rng.standard_normal(idx.shape)) for _ in range(n_off)]
+    got = bk.banded_dot(xs, offs, _t(idx, torch.int32), prods)
+    assert len(got) == len(prods)
+
+
+@pytest.mark.parametrize("n_x,n_off,prods", [
+    (1, 1, (((1, 0),),)),            # names no plane
+    (1, 1, (((0, 1),),)),            # names no operand
+    (4, 1, (((0, 0),),)),            # too many operands
+    (1, 1, (((0, 0),),) * 4),        # too many outputs
+])
+def test_dot_plan_refuses_bad_lists(n_x, n_off, prods):
+    with pytest.raises(ValueError):
+        bk.dot_form(prods, n_x, n_off)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     idx = torch.zeros((4, 2), dtype=torch.int32)
     x = torch.zeros(4)

@@ -44,6 +44,50 @@ def test_leg_kernel_matches_plain(cuda, ny, nx, sweeps):
     assert float((gr - rr).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("ny,nx", [(37, 53), (16, 24), (19, 56), (10, 28),
+                                   (74, 111), (5, 3), (300, 128)])
+def test_fused_leg_kernels_match_plain_composition(cuda, ny, nx):
+    """Both fused forms against the plain leg composed with the plain grid
+    transfers, on odd and even grids; one launch each."""
+    diag2, off2, x, b = _grid_system(ny, nx, 3, cuda)
+    coarse = sk.coarse_grid_of((ny, nx))
+    xc = _rand(coarse, 4, cuda)
+    before = sk.LAUNCHES["rbgs_leg"]
+    gx, gb = sk.rbgs_leg(x, diag2, off2, b, restrict_to=coarse)
+    up = sk.rbgs_leg(x, diag2, off2, b, add_prolong=xc)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["rbgs_leg"] == before + 2
+    rx, rr = sk.rbgs_leg_ref(x, diag2, off2, b, 1, residual=True)
+    assert float((gx - rx).abs().max()) <= TOL
+    assert float((gb - sk.restrict2(rr, coarse)).abs().max()) <= TOL
+    ref_up = sk.rbgs_leg_ref(x + sk.prolong2(xc, (ny, nx)), diag2, off2, b, 1)
+    assert float((up - ref_up).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("ny,nx", [(400, 1400), (295, 883), (75, 133)])
+def test_leg_kernel_tile_shapes_agree(cuda, ny, nx):
+    """Every tile shape of the leg kernel computes the same leg: grids on
+    which it takes its 16x64, 16x32 and 4x32 tile."""
+    diag2, off2, x, b = _grid_system(ny, nx, 5, cuda)
+    gx, gr = sk.rbgs_leg(x, diag2, off2, b, residual=True)
+    rx, rr = sk.rbgs_leg_ref(x, diag2, off2, b, 1, residual=True)
+    torch.cuda.synchronize()
+    assert float((gx - rx).abs().max()) <= TOL
+    assert float((gr - rr).abs().max()) <= TOL
+
+
+def test_fused_leg_refuses_bad_input(cuda):
+    diag2, off2, x, b = _grid_system(16, 24, 2, cuda)
+    with pytest.raises(ValueError):
+        sk.rbgs_leg(x, diag2, off2, b, sweeps=2, restrict_to=(8, 12))
+    with pytest.raises(TypeError):
+        sk.rbgs_leg(x, diag2, off2, b,
+                    add_prolong=torch.zeros(8, 12, device=cuda).double())
+    with pytest.raises(ValueError):
+        sk.rbgs_leg(x, diag2, off2, b,
+                    add_prolong=torch.zeros(8, 12))   # on the CPU
+
+
 @pytest.mark.parametrize("parity", [0, 1])
 def test_half_sweep_kernel_matches_plain(cuda, parity):
     ny, nx = 37, 53
@@ -70,14 +114,9 @@ def test_wrapper_refuses_bad_input(cuda):
 
 BANDED_MAPS = [(5000, 5000, 1), (5000, 5000, 3), (4096, 4096, 9),
                (5000, 700, 1), (700, 5000, 17)]
-DOT_FORMS = {
-    "spmv": (3, 6, (((0, 0), (1, 2)), ((0, 1), (2, 2)),
-                    ((3, 0), (4, 1), (5, 2)))),
-    "mom2": (2, 1, (((0, 0),), ((0, 1),))),
-    "schur_rhs": (2, 2, (((0, 0), (1, 1)),)),
-    "grad": (1, 2, (((0, 0),), ((1, 0),))),
-    "scalar": (1, 1, (((0, 0),),)),
-}
+DOT_FORMS = bk.DOT_FORMS
+# A list the solver never passes: the kernel's generic instantiation.
+DOT_OTHER = (2, 2, (((1, 0), (0, 1)), ((1, 1),)))
 
 
 def _band_map(M, n_src, K, seed, device):
@@ -119,6 +158,21 @@ def test_dot_kernel_matches_plain(cuda, M, n_src, K, form):
     ref = bk.banded_dot_ref(xs, offs, idx, prods)
     torch.cuda.synchronize()
     assert bk.LAUNCHES["banded_dot"] == before + 1
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("M,n_src,K", BANDED_MAPS + [(300, 300, 2),
+                                                     (500, 4000, 26)])
+def test_generic_dot_kernel_matches_plain(cuda, M, n_src, K):
+    n_x, n_off, prods = DOT_OTHER
+    assert bk.dot_form(prods, n_x, n_off) == "generic"
+    idx = _band_map(M, n_src, K, 12, cuda)
+    xs = [_rand((n_src,), 13 + c, cuda) for c in range(n_x)]
+    offs = [_rand((M, K), 15 + p, cuda, 0.3) for p in range(n_off)]
+    got = bk.banded_dot(xs, offs, idx, prods)
+    ref = bk.banded_dot_ref(xs, offs, idx, prods)
+    torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert float((g - r).abs().max()) <= TOL
 

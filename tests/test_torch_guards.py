@@ -191,3 +191,49 @@ def test_developed_checkpoint_in_repo_matches_main_grid():
         meta = json.loads(str(d["meta"]))
         assert d["u"].shape == (589, 1765, 2)
     assert meta["grid"] == [589, 1765]
+
+
+# ----------------------------------------------------------------------
+# chip_smoke.py states some of the package's facts itself (it also times
+# checkouts that predate them); here they are held against the package.
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["scalar", "mom2", "schur_rhs", "grad",
+                                  "spmv"])
+def test_chip_smoke_names_the_package_dot_forms(name):
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    smoke = _chip_smoke()
+    assert set(smoke.DOT_FORMS) == set(bk.DOT_FORMS)
+    assert smoke.DOT_FORMS[name] == bk.DOT_FORMS[name]
+    n_x, n_off, prods = smoke.DOT_FORMS[name]
+    assert bk.dot_form(prods, n_x, n_off) == name
+    assert bk.dot_form(smoke.DOT_OTHER[2], *smoke.DOT_OTHER[:2]) == "generic"
+
+
+def test_chip_smoke_level_grids_follow_the_package():
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    smoke = _chip_smoke()
+    grids, coarsest = smoke.level_grids(*smoke.MAIN_GRID)
+    assert [g[0] for g in grids] == [589, 295, 148, 74, 37, 19, 10]
+    for fine, coarse in zip(grids, grids[1:] + [coarsest]):
+        assert smoke.coarse_of(fine) == sk.coarse_grid_of(fine) == coarse
+
+
+def test_chip_smoke_refuses_a_tree_outside_the_checkout(tmp_path, capsys):
+    smoke = _chip_smoke()
+    (tmp_path / "cfd2_tpu_torch").mkdir()
+    before = list(sys.path)
+    assert smoke.main(["--tree", str(tmp_path)]) == 2
+    assert sys.path == before
+    assert "not a checkout inside" in capsys.readouterr().err
+    # Inside the checkout, but no package there.
+    assert smoke.main(["--tree", str(ROOT / "tests")]) == 2

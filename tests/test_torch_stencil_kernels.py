@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from cfd2_tpu.ops.amg import _GridOps as JGridOps
 from cfd2_tpu.ops.pallas_stencil import fused_rbgs2, rbgs_half_sweep
 from cfd2_tpu_torch.ops import _build
 from cfd2_tpu_torch.ops import stencil_kernels as sk
@@ -75,6 +76,94 @@ def test_half_sweep_pairs_equal_leg():
         (ny, nx), T(diag2).reshape(-1), T(off2).reshape(4, -1).T,
         T(x).reshape(-1), T(b).reshape(-1), sweeps=2)
     assert float((flat.reshape(ny, nx) - leg).abs().max()) < TOL
+
+
+# Odd and even grids, among them level grids of the 589x1765 hierarchy.
+FUSED_GRIDS = [(37, 53, 0), (16, 24, 1), (19, 56, 2), (10, 28, 3),
+               (74, 111, 4), (5, 3, 5)]
+# The fused forms repeat the unfused arithmetic in the same order on both
+# sides; what is left is the order of the 2x2 sum and fused multiply-adds.
+FUSED_TOL = 1e-6
+
+
+def _coarse(ny, nx):
+    return (ny + 1) // 2, (nx + 1) // 2
+
+
+@pytest.mark.parametrize("ny,nx,seed", FUSED_GRIDS)
+def test_fused_down_leg_matches_pallas_then_restrict(ny, nx, seed):
+    """rbgs_leg(restrict_to=...) on the CPU against fused_rbgs2 in interpret
+    mode followed by the JAX package's restrict2."""
+    diag2, off2, x, b = _grid_system(ny, nx, seed)
+    coarse = _coarse(ny, nx)
+    jx, jr = fused_rbgs2(x, diag2, off2, b, (ny, nx), sweeps=1,
+                         residual=True, interpret=True)
+    jb = JGridOps((ny, nx)).restrict2(coarse, jr)
+    tx, tb = sk.rbgs_leg(T(x), T(diag2), T(off2), T(b), restrict_to=coarse)
+    assert tuple(tb.shape) == coarse
+    scale = max(1.0, float(np.abs(np.asarray(jb)).max()))
+    assert float(np.abs(tx.numpy() - np.asarray(jx)).max()) < FUSED_TOL * scale
+    assert float(np.abs(tb.numpy() - np.asarray(jb)).max()) < FUSED_TOL * scale
+
+
+@pytest.mark.parametrize("ny,nx,seed", FUSED_GRIDS)
+def test_fused_up_leg_matches_prolong_then_pallas(ny, nx, seed):
+    """rbgs_leg(add_prolong=...) on the CPU against the JAX package's
+    prolong2 and add followed by fused_rbgs2 in interpret mode."""
+    diag2, off2, x, b = _grid_system(ny, nx, seed)
+    coarse = _coarse(ny, nx)
+    xc = np.random.default_rng(100 + seed).standard_normal(coarse).astype(
+        np.float32)
+    jin = x + np.asarray(JGridOps((ny, nx)).prolong2(coarse, xc))
+    jx = fused_rbgs2(jin, diag2, off2, b, (ny, nx), sweeps=1,
+                     residual=False, interpret=True)
+    tx = sk.rbgs_leg(T(x), T(diag2), T(off2), T(b), add_prolong=T(xc))
+    scale = max(1.0, float(np.abs(np.asarray(jx)).max()))
+    assert float(np.abs(tx.numpy() - np.asarray(jx)).max()) < FUSED_TOL * scale
+
+
+@pytest.mark.parametrize("ny,nx", [(37, 53), (16, 24), (5, 3), (1, 1)])
+def test_grid_transfers_match_the_jax_package(ny, nx):
+    rng = np.random.default_rng(ny * nx)
+    coarse = _coarse(ny, nx)
+    r = rng.standard_normal((ny, nx)).astype(np.float32)
+    xc = rng.standard_normal(coarse).astype(np.float32)
+    ops = JGridOps((ny, nx))
+    assert float(np.abs(sk.restrict2(T(r), coarse).numpy()
+                        - np.asarray(ops.restrict2(coarse, r))).max()) < 1e-6
+    np.testing.assert_array_equal(sk.prolong2(T(xc), (ny, nx)).numpy(),
+                                  np.asarray(ops.prolong2(coarse, xc)))
+    assert sk.coarse_grid_of((ny, nx)) == coarse
+
+
+def test_fused_forms_equal_the_unfused_composition():
+    """On the CPU the fused forms are the plain leg composed with the plain
+    grid transfers, bit for bit: what structured_v_cycle computed before."""
+    ny, nx = 37, 53
+    diag2, off2, x, b = (T(a) for a in _grid_system(ny, nx, 6))
+    coarse = _coarse(ny, nx)
+    xc = T(np.random.default_rng(7).standard_normal(coarse).astype(
+        np.float32))
+    gx, gb = sk.rbgs_leg(x, diag2, off2, b, restrict_to=coarse)
+    rx, rr = sk.rbgs_leg_ref(x, diag2, off2, b, 1, True)
+    assert torch.equal(gx, rx) and torch.equal(gb, sk.restrict2(rr, coarse))
+    up = sk.rbgs_leg(x, diag2, off2, b, add_prolong=xc)
+    assert torch.equal(up, sk.rbgs_leg_ref(
+        x + sk.prolong2(xc, (ny, nx)), diag2, off2, b, 1))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(restrict_to=(8, 12), sweeps=2),
+    dict(restrict_to=(8, 12), residual=True),
+    dict(restrict_to=(8, 12), add_prolong=torch.zeros(8, 12)),
+    dict(restrict_to=(8, 11)),
+    dict(add_prolong=torch.zeros(9, 12)),
+    dict(sweeps=0),
+])
+def test_leg_refuses_what_the_fused_forms_do_not_take(kwargs):
+    diag2, off2, x, b = (T(a) for a in _grid_system(16, 24, 8))
+    with pytest.raises(ValueError):
+        sk.rbgs_leg(x, diag2, off2, b, **kwargs)
 
 
 def test_wrappers_on_cpu_run_plain_version_without_build(monkeypatch):
