@@ -5,7 +5,9 @@
 // cfd2_tpu/ops/banded_gather.py:
 //   * banded_gather        <- _kernel via _banded_raw with prods=None
 //                             (banded_gather_nk / banded_gather2_nk):
-//                             out[i, k, c] = x[idx[i, k], c];
+//                             out[i, k, c] = x[idx[i, k], c]; and its use in
+//                             the V-cycle's prolongation, fused with the
+//                             update: banded_prolong_add;
 //   * banded_dot           <- _kernel via _banded_raw with prods (banded_dot):
 //                             out_j[i] = sum over (p, c) in prods[j] of
 //                             sum_k off_p[i, k] * x_c[idx[i, k]], with no
@@ -30,8 +32,30 @@
 //           resident between sweeps (design (a) below), so the bound is
 //           (sweeps - 1) times that plus the seed pass 4*(2C + 1)*n.
 // What the design does about it:
-//   * gather runs one thread per output element, so stores are fully coalesced
-//     and the C components of one neighbour are read from adjacent addresses;
+//   * gather runs one thread per (row, slot): the thread loads the slot's
+//     index once and copies the neighbour's C values.  C is compile-time for
+//     the widths the solver uses (1: scalars, 2: velocities and gradients,
+//     6: the packed assembly operands); any other C takes a run-time loop.
+//     Even C reads the neighbour's row as C/2 8-byte float2 loads (rows of
+//     4*C bytes are 8-byte aligned when the base is, which the wrapper
+//     checks).  C = 1 takes four slots per thread: one 16-byte index load,
+//     four gathers in flight, one 16-byte store (with one slot per thread
+//     each thread waits on a single dependent index-operand pair, and the
+//     kernel ran at under half the byte rate).  C = 1 and 2 store straight
+//     from registers, a warp's store covering 32*4*C contiguous bytes or
+//     more.  C = 6 would store 24-byte rows at a 24-byte stride, three
+//     instructions each touching every sector of the warp's 768 bytes; so a
+//     block first puts its 256 rows in shared memory and then writes its
+//     6 KB span as contiguous float2, 256 bytes per warp instruction (24-byte
+//     stores straight from registers were slower).  The first port ran one
+//     thread per output element with a 64-bit division by a run-time C in
+//     every thread and C loads of the same index: at C = 6 it took over
+//     three times the bound;
+//   * the fused prolongation of the aggregation V-cycle, out[i] = base[i] +
+//     alpha * x[idx[i]] (K = 1, C = 1): one thread per row, the product and
+//     the sum rounded separately (__fmul_rn, __fadd_rn, never contracted to
+//     an FMA), so that it equals the eager `base + alpha * x[idx]` bit for
+//     bit.  It replaces a gather and two elementwise launches per level;
 //   * dot.  With one thread per row a warp reads idx and every plane at a
 //     stride of 4*K bytes, so each 128-byte line is requested K times per
 //     stream and the load/store units, not device memory, set the pace.  So
@@ -104,15 +128,83 @@ struct SweepArgs {
     const float* r[MAX_RHS];
 };
 
-__global__ void banded_gather_kernel(const float* __restrict__ x,
-                                     const int* __restrict__ idx,
-                                     float* __restrict__ out,
-                                     long long n_elems, int C) {
-    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= n_elems) return;
-    const long long slot = e / C;            // flat (row, k)
-    const int c = (int)(e - slot * C);
-    out[e] = x[(long long)idx[slot] * C + c];
+// One thread per flat slot s = row * K + k; for C == 1 per four slots
+// (idx and out 16-byte aligned).  C == 0: C is the run-time c_rt.
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+banded_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                     float* __restrict__ out, long long n_slots, int c_rt) {
+    const long long s = (long long)blockIdx.x * THREADS + threadIdx.x;
+    if constexpr (C == 1) {
+        // One 16-byte index load, four operand loads in flight, one 16-byte
+        // store.
+        if (4 * s + 4 <= n_slots) {
+            const int4 j = __ldg(reinterpret_cast<const int4*>(idx) + s);
+            float4 v;
+            v.x = __ldg(x + j.x);
+            v.y = __ldg(x + j.y);
+            v.z = __ldg(x + j.z);
+            v.w = __ldg(x + j.w);
+            reinterpret_cast<float4*>(out)[s] = v;
+        } else {
+            for (long long t = 4 * s; t < n_slots; ++t)
+                out[t] = __ldg(x + __ldg(idx + t));
+        }
+    } else if constexpr (C == 2) {
+        if (s < n_slots)
+            reinterpret_cast<float2*>(out)[s] =
+                __ldg(reinterpret_cast<const float2*>(x) + __ldg(idx + s));
+    } else if constexpr (C == 0) {
+        if (s >= n_slots) return;
+        const float* src = x + (long long)__ldg(idx + s) * c_rt;
+        float* dst = out + s * c_rt;
+        for (int c = 0; c < c_rt; ++c) dst[c] = __ldg(src + c);
+    } else {
+        static_assert(C % 2 == 0, "odd widths take the run-time path");
+        // Rows staged in shared memory, then the block's span written out
+        // contiguously.  H is odd for C = 6, so the staging stores (a stride
+        // of H float2) fall on distinct banks within each half-warp.
+        constexpr int H = C / 2;
+        __shared__ float2 s_rows[THREADS * H];
+        if (s < n_slots) {
+            const float2* src = reinterpret_cast<const float2*>(x)
+                + (long long)__ldg(idx + s) * H;
+#pragma unroll
+            for (int j = 0; j < H; ++j)
+                s_rows[threadIdx.x * H + j] = __ldg(src + j);
+        }
+        __syncthreads();
+        const long long s0 = (long long)blockIdx.x * THREADS;
+        const int n_here = (int)(n_slots - s0 < THREADS ? n_slots - s0
+                                                         : THREADS) * H;
+        float2* dst = reinterpret_cast<float2*>(out) + s0 * H;
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+            const int k = threadIdx.x + j * THREADS;
+            if (k < n_here) dst[k] = s_rows[k];
+        }
+    }
+}
+
+template <int C>
+cudaError_t launch_gather(const float* x, const int* idx, float* out,
+                          long long n_slots, int c_rt, cudaStream_t stream) {
+    const long long n_threads = C == 1 ? (n_slots + 3) / 4 : n_slots;
+    const unsigned blocks = (unsigned)((n_threads + THREADS - 1) / THREADS);
+    banded_gather_kernel<C><<<blocks, THREADS, 0, stream>>>(x, idx, out,
+                                                            n_slots, c_rt);
+    return cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(THREADS)
+banded_prolong_add_kernel(const float* __restrict__ base,
+                          const float* __restrict__ x,
+                          const int* __restrict__ idx, float alpha,
+                          float* __restrict__ out, int M) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= M) return;
+    out[i] = __fadd_rn(__ldg(base + i),
+                       __fmul_rn(alpha, __ldg(x + __ldg(idx + i))));
 }
 
 // The product forms of banded_dot (ops/banded_kernels.py names them the
@@ -374,14 +466,34 @@ int launch_sweeps(SweepArgs a, const float* dinv, const float* off,
 extern "C" {
 
 // x: (n_src, C) float32; idx: (M, K) int32 with values in [0, n_src);
-// out: (M, K, C) float32.  Returns a cudaError_t.
+// out: (M, K, C) float32.  For even C, x and out must be 8-byte aligned.
+// Returns a cudaError_t.
 int banded_gather(const float* x, const int* idx, float* out, int M, int K,
                   int C, void* stream) {
-    const long long n_elems = (long long)M * K * C;
-    if (n_elems == 0) return (int)cudaSuccess;
-    const unsigned blocks = (unsigned)((n_elems + THREADS - 1) / THREADS);
-    banded_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        x, idx, out, n_elems, C);
+    const long long n_slots = (long long)M * K;
+    if (C < 1) return (int)cudaErrorInvalidValue;
+    if (n_slots == 0) return (int)cudaSuccess;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (C) {
+        case 1:   // a view of idx at an odd int4 takes the run-time path
+            if (((unsigned long long)idx | (unsigned long long)out) % 16)
+                return (int)launch_gather<0>(x, idx, out, n_slots, C, st);
+            return (int)launch_gather<1>(x, idx, out, n_slots, C, st);
+        case 2: return (int)launch_gather<2>(x, idx, out, n_slots, C, st);
+        case 6: return (int)launch_gather<6>(x, idx, out, n_slots, C, st);
+        default: return (int)launch_gather<0>(x, idx, out, n_slots, C, st);
+    }
+}
+
+// out[i] = base[i] + alpha * x[idx[i]], the product and the sum each rounded
+// to float32.  base, out: (M,) float32; x: (n_src,) float32; idx: (M, 1)
+// int32 with values in [0, n_src).  Returns a cudaError_t.
+int banded_prolong_add(const float* base, const float* x, const int* idx,
+                       float alpha, float* out, int M, void* stream) {
+    if (M == 0) return (int)cudaSuccess;
+    const unsigned blocks = (unsigned)((M + THREADS - 1) / THREADS);
+    banded_prolong_add_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        base, x, idx, alpha, out, M);
     return (int)cudaGetLastError();
 }
 

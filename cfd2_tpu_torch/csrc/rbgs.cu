@@ -6,7 +6,7 @@
 //                        2*sweeps coloured half-sweeps, optionally followed by
 //                        the residual b - A x, in one launch);
 //   * rbgs_half_sweep <- _rbgs_half_sweep_kernel via rbgs_half_sweep (one
-//                        coloured half-sweep on the flat (n,) layout).
+//                        coloured half-sweep).
 //
 // The update of a cell of the active colour is
 //     x <- dinv * (b - (oE*xE + oW*xW + oN*xN + oS*xS)),
@@ -52,8 +52,30 @@
 // For sweeps > 1 the kernel of the first port stays (rbgs_leg_staged_kernel):
 // all 7 planes staged with a halo of 2*sweeps+1 around a 32x32 tile.
 //
-// rbgs_half_sweep is one thread per cell on the flat layout, `off` read as
-// one float4 per cell; it is bound by bytes too (8 planes).
+// rbgs_half_sweep is bound by bytes too: 7 planes read (x, diag, 4 off, b)
+// and x written, 8 planes at 589x1765 = 33 MB, 9.9 us at 3.35 TB/s.  The TPU
+// kernel takes off as (n, 4) and splits it into four planes itself, and its
+// V-cycle moved the level's planes to that layout before every smooth; here
+// the kernel takes the (4, ny, nx) planes the level values are kept in, so
+// the V-cycle passes them as they are (the first port transposed them on
+// every smooth: a launch and 8 planes of traffic, as much as the half-sweep
+// itself).  What the design does:
+//   * a 2D launch of 128 x 2 threads, one per cell: the row comes from
+//     blockIdx.y and the column from blockIdx.x, so there is no division by
+//     a run-time width (the first port divided a 64-bit flat index by nx in
+//     every thread), and a warp's loads and stores cover 32 adjacent cells
+//     of one row, a block's 512-byte runs of two rows (square 32 x 8 blocks,
+//     eight rows of 128 bytes, were no faster and slower under a write
+//     flush of the L2).  Cells of the other colour load no coefficients,
+//     but their neighbours of the active colour share every sector, so all
+//     7 planes are read in full whatever the colour pattern;
+//   * in place (x_out == x): the second half-sweep of a pair writes into the
+//     first one's fresh output.  A cell of the active colour reads only
+//     cells of the other colour, and itself at a clamped edge, so nothing
+//     races; the other colour is not copied.  That saves the host one
+//     allocation per pair and half the store instructions, and no device
+//     bytes: the stores of alternate cells dirty every sector of x, which
+//     is written back whole, as a copy would write it.
 //
 // All functions have a plain C interface (loaded with ctypes), launch on the
 // caller's stream, allocate nothing, and return cudaGetLastError() after the
@@ -444,27 +466,39 @@ rbgs_leg_staged_kernel(const float* __restrict__ x,
 
 // ---------------------------------------------------------------------
 
-__global__ void rbgs_half_sweep_kernel(
-        const float* __restrict__ x, const float* __restrict__ diag,
-        const float* __restrict__ off, const float* __restrict__ b,
-        float* __restrict__ x_out, int ny, int nx, int parity) {
+constexpr int HS_X = 128;  // columns per half-sweep block (four warps)
+constexpr int HS_Y = 2;    // rows per half-sweep block
+
+// IN_PLACE: x_out is x, and the other colour is left as it is.
+template <bool IN_PLACE>
+__device__ __forceinline__ float load_x(const float* p) {
+    if constexpr (IN_PLACE) return *p;
+    else return __ldg(p);
+}
+
+template <bool IN_PLACE>
+__global__ void __launch_bounds__(HS_X * HS_Y)
+rbgs_half_sweep_kernel(const float* x, const float* __restrict__ diag,
+                       const float* __restrict__ off,
+                       const float* __restrict__ b, float* x_out, int ny,
+                       int nx, int parity) {
+    const int gc = blockIdx.x * HS_X + threadIdx.x;
+    const int gr = blockIdx.y * HS_Y + threadIdx.y;
+    if (gr >= ny || gc >= nx) return;
     const long long n_cells = (long long)ny * nx;
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_cells) return;
-    const int gr = (int)(i / nx);
-    const int gc = (int)(i - (long long)gr * nx);
-    const float xc = x[i];
+    const long long g = (long long)gr * nx + gc;
+    const float xc = load_x<IN_PLACE>(x + g);
     if (((gr + gc + parity) & 1) != 0) {
-        x_out[i] = xc;   // the other colour is copied through
+        if (!IN_PLACE) x_out[g] = xc;   // the other colour is copied through
         return;
     }
-    const float xe = gc == nx - 1 ? xc : x[i + 1];
-    const float xw = gc == 0 ? xc : x[i - 1];
-    const float xn = gr == ny - 1 ? xc : x[i + nx];
-    const float xs = gr == 0 ? xc : x[i - nx];
-    const float4 o = reinterpret_cast<const float4*>(off)[i];   // [E, W, N, S]
-    const float sigma = o.x * xe + o.y * xw + o.z * xn + o.w * xs;
-    x_out[i] = safe_inv(diag[i]) * (b[i] - sigma);
+    const float xe = gc == nx - 1 ? xc : load_x<IN_PLACE>(x + g + 1);
+    const float xw = gc == 0 ? xc : load_x<IN_PLACE>(x + g - 1);
+    const float xn = gr == ny - 1 ? xc : load_x<IN_PLACE>(x + g + nx);
+    const float xs = gr == 0 ? xc : load_x<IN_PLACE>(x + g - nx);
+    const float sigma = __ldg(off + g) * xe + __ldg(off + n_cells + g) * xw
+        + __ldg(off + 2 * n_cells + g) * xn + __ldg(off + 3 * n_cells + g) * xs;
+    x_out[g] = safe_inv(__ldg(diag + g)) * (__ldg(b + g) - sigma);
 }
 
 }  // namespace
@@ -522,16 +556,23 @@ int rbgs_leg(const float* x, const float* diag, const float* off,
     return (int)cudaGetLastError();
 }
 
-// x, diag, b, x_out: (n,) float32 with n = ny*nx; off: (n, 4) float32 slots
-// [E, W, N, S], 16-byte aligned.  Returns a cudaError_t.
+// x, diag, b, x_out: (ny, nx) float32; off: (4, ny, nx) float32 planes
+// [E, W, N, S].  Relaxes the cells with (row + col + parity) % 2 == 0 into
+// x_out and copies the others; with x_out == x it updates x in place and
+// leaves the others as they are.  Returns a cudaError_t.
 int rbgs_half_sweep(const float* x, const float* diag, const float* off,
                     const float* b, float* x_out, int ny, int nx, int parity,
                     void* stream) {
-    const long long n = (long long)ny * nx;
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    rbgs_half_sweep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        x, diag, off, b, x_out, ny, nx, parity);
+    if (ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+    const dim3 block(HS_X, HS_Y);
+    const dim3 grid((nx + HS_X - 1) / HS_X, (ny + HS_Y - 1) / HS_Y);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (x_out == x)
+        rbgs_half_sweep_kernel<true><<<grid, block, 0, st>>>(
+            x, diag, off, b, x_out, ny, nx, parity);
+    else
+        rbgs_half_sweep_kernel<false><<<grid, block, 0, st>>>(
+            x, diag, off, b, x_out, ny, nx, parity);
     return (int)cudaGetLastError();
 }
 

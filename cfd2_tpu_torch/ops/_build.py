@@ -36,6 +36,8 @@ SIGNATURES = {
     "banded": {
         # x, idx, out, M, K, C, stream
         "banded_gather": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        # base, x, idx, alpha, out, M, stream
+        "banded_prolong_add": ([_P, _P, _P, ctypes.c_float, _P, _I, _P], _I),
         # The named product forms: their operands, their planes, out, idx, M,
         # K, stream.
         "banded_dot_scalar": ([_P] * 4 + [_I, _I, _P], _I),

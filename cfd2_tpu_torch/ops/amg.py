@@ -18,8 +18,8 @@ package's ``segment_sum``), taken in a fixed order so that a run repeats bit
 for bit.  The V-cycle (damped Jacobi or
 Chebyshev smoothing) takes every neighbor sum, the restriction (a dot over
 the aggregate member lists) and the prolongation (a K = 1 gather through the
-aggregate map) through the CUDA kernels of :mod:`.banded_kernels`, on every
-level.
+aggregate map, fused with the update) through the CUDA kernels of
+:mod:`.banded_kernels`, on every level.
 
 Both end in a regularized dense LU at the coarsest level.  The multilevel
 (quadtree) embedding is not ported yet.
@@ -518,8 +518,9 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
     prolongated correction before it smooths (2 launches per level, and no
     launch for the grid transfers; with ``sweeps > 1`` the legs are unfused
     and the transfers plain); at level 1 each half-sweep is one
-    :func:`~.stencil_kernels.rbgs_half_sweep` launch on the flat layout;
-    level 0 (CPU only) runs the plain stencils."""
+    :func:`~.stencil_kernels.rbgs_half_sweep` launch on the level's own
+    (4, ny, nx) coefficient planes, with the residual and the transfers
+    plain; level 0 (CPU only) runs the plain stencils."""
     L = len(hier.levels)
     grids = [hier.levels[0].fine_grid] + [lvl.grid for lvl in hier.levels]
     ops = [_GridOps(g) for g in grids]
@@ -532,12 +533,8 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
         if level == 2:
             return sk.rbgs_leg(xg, diag2, off2, bg, sweeps=sweeps)
         if level == 1:
-            ny, nx = grids[i]
-            off_flat = off2.reshape(4, ny * nx).T.contiguous()
-            x = sk.smooth_rbgs_half_sweeps((ny, nx), diag2.reshape(-1),
-                                           off_flat, xg.reshape(-1),
-                                           bg.reshape(-1), sweeps=sweeps)
-            return x.reshape(ny, nx)
+            return sk.smooth_rbgs_half_sweeps(diag2, off2, xg, bg,
+                                              sweeps=sweeps)
         return ops[i].smooth_rbgs2(diag2, off2, xg, bg, sweeps=sweeps)
 
     xs = [x0.reshape(grids[0])]
@@ -666,7 +663,9 @@ def v_cycle(hier: AmgHierarchy, level_values, mesh,
     Per-level neighbor sums are fused banded dots over the level's ELL map
     (level 0: the mesh's), restriction is a dot over the member lists with
     ``members_mask`` as coefficients, prolongation a K = 1 gather through
-    the aggregate map; all on :mod:`.banded_kernels`.
+    the aggregate map fused with the update it feeds
+    (:func:`.banded_kernels.banded_prolong_add`); all on
+    :mod:`.banded_kernels`.
 
     ``smoother``: "jacobi" (damped, ``smooth_arg`` sweeps) or "cheb"
     (Chebyshev of degree ``smooth_arg``).  ``overcorrect``: scale on the
@@ -714,8 +713,9 @@ def v_cycle(hier: AmgHierarchy, level_values, mesh,
     for i in reversed(range(L)):
         lvl = hier.levels[i]
         diag, off = level_values[i]
-        prol = bk.banded_gather(xs[i + 1], lvl.agg)[:, 0]
-        x = xs[i] + overcorrect * prol
+        # xs[i] + overcorrect * xs[i + 1][agg] in one launch, rounded as
+        # the eager ops round it.
+        x = bk.banded_prolong_add(xs[i], xs[i + 1], lvl.agg, overcorrect)
         xs[i] = smooth(diag, off, dots[i], x, bs[i])
 
     return xs[0]

@@ -5,6 +5,9 @@ Counterparts of ``cfd2_tpu/ops/banded_gather.py``:
 
 * :func:`banded_gather` <- ``banded_gather_nk`` / ``banded_gather2_nk``:
   ``out[i, k, ...] = x[idx[i, k], ...]``;
+* :func:`banded_prolong_add`: the same gather as the aggregation V-cycle
+  uses it for its prolongation (K = 1), fused with the update
+  ``base + alpha * x[idx[:, 0]]`` that follows it there;
 * :func:`banded_dot` <- ``banded_dot``: ``out_j[i] = sum over (oi, ci) in
   prods[j] of sum_k offs[oi][i, k] * xs[ci][idx[i, k]]`` without the (M, K)
   gathered values ever reaching device memory;
@@ -22,9 +25,10 @@ counterpart here.
 Each wrapper runs its plain version (``*_ref``) for tensors on the CPU, and
 launches its kernel for CUDA tensors; anything else raises.  There is no
 fallback from a CUDA tensor to the plain version.  ``LAUNCHES`` counts the
-kernel calls per wrapper; :func:`reset_launches` zeroes it.  One call of
+kernel calls per kernel; :func:`reset_launches` zeroes it.  One call of
 :func:`banded_jacobi_sweeps` counts once although it enqueues ``sweeps``
-kernels on the stream (see the source note in ``csrc/banded.cu``).
+kernels on the stream (see the source note in ``csrc/banded.cu``), and
+:func:`banded_prolong_add` counts under ``banded_gather``, whose work it does.
 """
 
 from __future__ import annotations
@@ -72,6 +76,12 @@ def reset_launches() -> None:
 def banded_gather_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`banded_gather`."""
     return x[idx.long()]
+
+
+def banded_prolong_add_ref(base, x, idx, alpha: float):
+    """Plain version of :func:`banded_prolong_add`: the eager gather,
+    product and sum of the aggregation V-cycle's prolongation."""
+    return base + alpha * x[idx[:, 0].long()]
 
 
 def banded_dot_ref(xs, offs, idx, prods):
@@ -150,7 +160,9 @@ def _ints(values):
 def banded_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Neighbour values per slot: ``x`` (n_src,) or (n_src, C) float32,
     ``idx`` (M, K) int32 with values in [0, n_src) -> (M, K) or (M, K, C).
-    The C components of one neighbour share the index load."""
+    The C components of one neighbour share the index load; for even C the
+    kernel moves them 8 bytes at a time, so ``x`` must be 8-byte aligned (a
+    view that starts at an odd float is refused)."""
     if not _cuda_or_cpu(x):
         return banded_gather_ref(x, idx)
     dev = x.device
@@ -161,12 +173,48 @@ def banded_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check_idx(idx, dev)
     M, K = idx.shape
     C = 1 if x.dim() == 1 else x.shape[1]
+    if C % 2 == 0 and x.data_ptr() % 8:
+        raise ValueError(f"x (C = {C}) must be 8-byte aligned: the kernel "
+                         "reads its rows as float2")
     out = torch.empty((M, K) + tuple(x.shape[1:]), dtype=torch.float32,
                       device=dev)
     lib = _build.load("banded")
     err = launch(lib.banded_gather, dev, x.data_ptr(), idx.data_ptr(),
                  out.data_ptr(), M, K, C)
     _raise_on(lib, err, "banded_gather")
+    LAUNCHES["banded_gather"] += 1
+    return out
+
+
+def banded_prolong_add(base: torch.Tensor, x: torch.Tensor,
+                       idx: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``base + alpha * x[idx[:, 0]]`` in one launch: the aggregation
+    V-cycle's prolongation through the (M, 1) aggregate map added to the
+    finer level's iterate.  ``base`` (M,), ``x`` (n_src,) float32, ``idx``
+    (M, 1) int32.  The product and the sum are rounded as the eager ops
+    round them, so the result equals :func:`banded_prolong_add_ref` bit for
+    bit.  Returns a new (M,) tensor."""
+    if not _cuda_or_cpu(base):
+        return banded_prolong_add_ref(base, x, idx, alpha)
+    dev = base.device
+    if not (idx.dim() == 2 and idx.dtype is torch.int32 and idx.device == dev
+            and idx.is_contiguous()):
+        _check_idx(idx, dev)
+    M, K = idx.shape
+    if K != 1:
+        raise ValueError(f"idx has shape {(M, K)}, expected (M, 1)")
+    if not (float_ok(base, (M,), dev) and x.dim() == 1
+            and float_ok(x, x.shape, dev)):
+        _check("base", base, (M,), dev)
+        if x.dim() != 1:
+            raise ValueError(f"x has shape {tuple(x.shape)}, expected "
+                             "(n_src,)")
+        _check("x", x, None, dev)
+    out = torch.empty_like(base)
+    lib = _build.load("banded")
+    err = launch(lib.banded_prolong_add, dev, base.data_ptr(), x.data_ptr(),
+                 idx.data_ptr(), float(alpha), out.data_ptr(), M)
+    _raise_on(lib, err, "banded_prolong_add")
     LAUNCHES["banded_gather"] += 1
     return out
 

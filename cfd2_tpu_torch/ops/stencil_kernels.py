@@ -11,8 +11,10 @@ Counterparts of ``cfd2_tpu/ops/pallas_stencil.py``:
   down leg that returns the restricted residual (``restrict_to``) and the
   up leg that first adds the prolongated coarse correction
   (``add_prolong``);
-* :func:`rbgs_half_sweep` <- ``rbgs_half_sweep``: one coloured half-sweep on
-  the flat (n,) layout with ``off`` (n, 4).
+* :func:`rbgs_half_sweep` <- ``rbgs_half_sweep``: one coloured half-sweep
+  of an (ny, nx) grid with the (4, ny, nx) coefficient planes the levels keep
+  (the TPU kernel's flat (n,) layout with ``off`` (n, 4) has no use on the
+  card: it cost the V-cycle a transpose per smooth).
 
 Each wrapper runs its plain version (``*_ref``) for tensors on the CPU, and
 launches its kernel for CUDA tensors; anything else raises.  There is no
@@ -128,16 +130,13 @@ def coarse_grid_of(grid) -> tuple[int, int]:
     return (ny + 1) // 2, (nx + 1) // 2
 
 
-def rbgs_half_sweep_ref(x, diag, off, b, parity: int, grid_shape):
+def rbgs_half_sweep_ref(xg, diag2, off2, bg, parity: int):
     """Plain version of :func:`rbgs_half_sweep`: one colour of
     ``_GridOps.smooth_rbgs`` (cfd2_tpu/ops/amg.py:639-646) — cells with
     ``(row + col + parity) % 2 == 0`` are relaxed, the rest copied."""
-    ny, nx = grid_shape
-    xg = x.reshape(ny, nx)
-    off2 = off[:, :4].T.reshape(4, ny, nx)
-    xn = _dinv(diag.reshape(ny, nx)) * (b.reshape(ny, nx) - _sigma2(off2, xg))
-    upd = (_color2(ny, nx, x.device) + parity) % 2 == 0
-    return torch.where(upd, xn, xg).reshape(-1)
+    xn = _dinv(diag2) * (bg - _sigma2(off2, xg))
+    upd = (_color2(*xg.shape, xg.device) + parity) % 2 == 0
+    return torch.where(upd, xn, xg)
 
 
 # ----------------------------------------------------------------------
@@ -247,37 +246,41 @@ def rbgs_leg(xg, diag2, off2, bg, sweeps: int = 1, residual: bool = False,
     return x_out if r_out is None else (x_out, r_out)
 
 
-def rbgs_half_sweep(x, diag, off, b, parity: int, grid_shape):
+def rbgs_half_sweep(xg, diag2, off2, bg, parity: int,
+                    in_place: bool = False):
     """One coloured half-sweep: relax the cells with
-    ``(row + col + parity) % 2 == 0`` and copy the others.  ``x``/``diag``/
-    ``b`` (n,) float32 with n = ny*nx, ``off`` (n, 4) float32 slots
-    [E, W, N, S].  Returns the new flat x (a new tensor)."""
-    if not _cuda_or_cpu(x):
-        return rbgs_half_sweep_ref(x, diag, off, b, parity, grid_shape)
-    ny, nx = grid_shape
-    n = ny * nx
-    dev = x.device
-    _check("x", x, (n,), dev)
-    _check("diag", diag, (n,), dev)
-    _check("off", off, (n, 4), dev)
-    _check("b", b, (n,), dev)
-    if off.data_ptr() % 16:
-        raise ValueError("off must be 16-byte aligned (read as float4)")
+    ``(row + col + parity) % 2 == 0`` and copy the others.  ``xg``/``diag2``/
+    ``bg`` (ny, nx) float32, ``off2`` (4, ny, nx) float32 slots [E, W, N, S].
+    Returns the new x: a new tensor, or with ``in_place`` ``xg`` itself,
+    updated (only for a tensor that no one else reads: the caller's own
+    output of an earlier half-sweep)."""
+    if not _cuda_or_cpu(xg):
+        x = rbgs_half_sweep_ref(xg, diag2, off2, bg, parity)
+        return xg.copy_(x) if in_place else x
+    shape = xg.shape
+    ny, nx = shape
+    dev = xg.device
+    if not (float_ok(xg, shape, dev) and float_ok(diag2, shape, dev)
+            and float_ok(off2, (4, ny, nx), dev) and float_ok(bg, shape, dev)):
+        _check("x", xg, (ny, nx), dev)
+        _check("diag", diag2, (ny, nx), dev)
+        _check("off", off2, (4, ny, nx), dev)
+        _check("b", bg, (ny, nx), dev)
     lib = _build.load("rbgs")
-    x_out = torch.empty_like(x)
-    err = launch(lib.rbgs_half_sweep, dev, x.data_ptr(), diag.data_ptr(),
-                 off.data_ptr(), b.data_ptr(), x_out.data_ptr(), ny, nx,
+    x_out = xg if in_place else torch.empty_like(xg)
+    err = launch(lib.rbgs_half_sweep, dev, xg.data_ptr(), diag2.data_ptr(),
+                 off2.data_ptr(), bg.data_ptr(), x_out.data_ptr(), ny, nx,
                  int(parity) & 1)
-    _raise_on(lib, err, "rbgs_half_sweep")
+    if err:
+        _raise_on(lib, err, "rbgs_half_sweep")
     LAUNCHES["rbgs_half_sweep"] += 1
     return x_out
 
 
-def smooth_rbgs_half_sweeps(grid_shape, diag, off, x, b, sweeps: int = 1):
-    """``sweeps`` red-black sweeps as pairs of :func:`rbgs_half_sweep` on the
-    flat layout (counterpart of ``smooth_rbgs_pallas``)."""
-    off4 = off[:, :4].contiguous()
-    for _ in range(sweeps):
-        for parity in (0, 1):
-            x = rbgs_half_sweep(x, diag, off4, b, parity, grid_shape)
-    return x
+def smooth_rbgs_half_sweeps(diag2, off2, xg, bg, sweeps: int = 1):
+    """``sweeps`` red-black sweeps as pairs of :func:`rbgs_half_sweep`
+    (counterpart of ``smooth_rbgs_pallas``): the first half-sweep writes a
+    new tensor, the later ones update it in place."""
+    for k in range(2 * sweeps):
+        xg = rbgs_half_sweep(xg, diag2, off2, bg, k % 2, in_place=k > 0)
+    return xg

@@ -48,6 +48,8 @@ _GROUPS = (
     ("rbgs_leg_staged_kernel", "rbgs_leg (CUDA, V-cycle smoother)"),
     ("rbgs_half_sweep", "rbgs_half_sweep (CUDA)"),
     ("banded_gather_kernel", "banded_gather (CUDA)"),
+    ("banded_prolong_add_kernel",
+     "banded_gather (CUDA, fused V-cycle prolongation)"),
     ("banded_dot_kernel", "banded_dot (CUDA)"),
     ("jacobi_seed_kernel", "banded_jacobi_sweeps (CUDA, seed + sweeps)"),
     ("jacobi_sweep_kernel", "banded_jacobi_sweeps (CUDA, seed + sweeps)"),

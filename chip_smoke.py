@@ -12,28 +12,38 @@ Phases (any failure exits non-zero):
    and the native mesh library (``make -C native``), without which the
    unstructured meshes of phases 6-7 cannot be generated in minutes;
 2. hold each kernel against its plain PyTorch version on the card (max-abs
-   error <= 1e-5 on O(1) random data): the two RB-GS kernels on small grids
-   and on every level grid of the 589x1765 multigrid hierarchy, the leg in
-   its four unfused forms and, against the plain leg composed with the plain
-   grid transfers, in its two fused forms; the leg timed in every form on
-   every level grid beside its byte bound; the three banded kernels on
-   square and rectangular index maps (K = 1, 3, 9, 17, every product form of
-   the solver and one that is not, a capped K = 9 map), compared and timed
-   at M = 403,584, K = 3 beside their byte bounds, the dot in all five
-   forms, at a coarse level's shape and at a restriction's, and beside the
-   library's sparse CSR product; the host's time per wrapper call;
+   error <= 1e-5 on O(1) random data; the gather and the fused
+   prolongation exact): the two RB-GS kernels on small grids and on every
+   level grid of the 589x1765 multigrid hierarchy, the leg in its four
+   unfused forms and, against the plain leg composed with the plain grid
+   transfers, in its two fused forms, the half-sweep into a new tensor and
+   in place; the leg in every form and the half-sweep timed on every level
+   grid beside their byte bounds; the three banded kernels on square and
+   rectangular index maps (K = 1, 3, 9, 17; the gather at C = 1, 2, 6 and
+   the run-time C = 3, the fused prolongation at alpha 1 and 1.5; every
+   product form of the solver and one that is not, a capped K = 9 map),
+   compared and timed at M = 403,584, K = 3 beside their byte bounds: the
+   gather at C = 6 and 1 and the fused prolongation of the first two coarse
+   levels, the dot in all five forms, at a coarse level's shape and at a
+   restriction's, and beside the library's sparse CSR product; the host's
+   time per wrapper call;
 3. drive the main path: the 996,558-cell channel-obstacle mesh
    (min_cell=0.0017, 589x1765 grid), ``CoupledSolver`` with the structured
    multigrid (precond_type=1, fgmres_max_restarts=5), started from
    ``bench_developed_1m.npz``: 3 untimed healing steps, then 3 timed steps;
-4. the half-sweep path (CFD2_PALLAS=1) on a ~30k-cell mesh for 2 steps;
+4. the half-sweep path (CFD2_PALLAS=1) at full width: phase 3's solver
+   restarted from its state after healing for 2 steps, with the outer
+   iterations of phase 3's first two timed steps and their FGMRES
+   iterations within 2 per outer; 28 half-sweeps per FGMRES iteration;
 5. one step of a ~5k-cell mesh on the card (kernels) and on the CPU (plain
    versions): equal outer iterations, u within 1e-4 * max|u|;
 6. the unstructured main path: the 403,491-cell Delaunay channel-obstacle
    mesh (min_cell=0.003), aggregation AMG (precond_type=1), 3 steps from
    rest; before stepping, each banded kernel is held against its plain
    version on the solver's own maps (the mesh's and every coarse level's);
-   all three banded kernels must be launched;
+   all three banded kernels must be launched; after stepping, one V-cycle
+   under the profiler must prolong through one fused launch per level,
+   two device kernels per level fewer than the gather, product and sum;
 7. the slot-capped path: the 115,505-cell Voronoi mesh (min_cell=0.004,
    ``bd_k == 8``), its maps held the same way, 2 steps from rest;
 8. one step of a ~5k-cell Delaunay mesh on the card and on the CPU: equal
@@ -49,7 +59,10 @@ checkout of this repository unpacked inside this one (for example the parent
 commit, ``git archive`` into a directory that ``.gitignore`` lists): its
 kernels and wrappers, this script's inputs, loops and timers, so that two
 commits are timed the same way on the same card in one call.  What that
-checkout's wrappers do not offer (the fused legs, ``dot_form``) is left out.
+checkout's wrappers do not offer (the fused legs, ``dot_form``) is left out;
+where it has no fused prolongation, its gather, product and sum are timed in
+its place, and its flat-layout half-sweep gets the planes moved to (n, 4)
+outside the timed call.
 """
 
 from __future__ import annotations
@@ -289,6 +302,15 @@ def _dot_csr(offs, idx, prods, n_x, n_src):
     return A.to_sparse_csr()
 
 
+def _prolong_add(bk, base, x, idx, alpha):
+    """The fused prolongation of the aggregation V-cycle; in a ``--tree``
+    of an earlier round, which has none, the gather, product and sum that
+    its V-cycle ran."""
+    if hasattr(bk, "banded_prolong_add"):
+        return bk.banded_prolong_add(base, x, idx, alpha)
+    return base + alpha * bk.banded_gather(x, idx)[:, 0]
+
+
 def phase_banded_kernels(results):
     """The three banded kernels against their plain versions on the card,
     then their times at the Delaunay main path's shape."""
@@ -305,11 +327,27 @@ def phase_banded_kernels(results):
     n_cases = 0
     for mi, (M, n_src, K) in enumerate(maps):
         idx = _band_map(M, n_src, K, mi, dev, spread=min(640, n_src))
-        for C in (None, 2, 6):
+        for C in (None, 2, 6, 3):   # 3 takes the kernel's run-time width
             x = _rand((n_src,) if C is None else (n_src, C), 10 + mi, dev)
             err_g = max(err_g, _maxerr([bk.banded_gather(x, idx)],
                                        [bk.banded_gather_ref(x, idx)]))
             n_cases += 1
+        # C = 1 through a view of the map that starts one index in (not
+        # 16-byte aligned: one index per thread instead of four).
+        flat = torch.cat([idx.reshape(-1)[:1], idx.reshape(-1)])
+        view = flat[1:].view(M, K)
+        x = _rand((n_src,), 10 + mi, dev)
+        err_g = max(err_g, _maxerr([bk.banded_gather(x, view)],
+                                   [bk.banded_gather_ref(x, view)]))
+        n_cases += 1
+        if K == 1:
+            base = _rand((M,), 15 + mi, dev)
+            x = _rand((n_src,), 16 + mi, dev)
+            for alpha in (1.0, 1.5):
+                err_g = max(err_g, _maxerr(
+                    [_prolong_add(bk, base, x, idx, alpha)],
+                    [base + alpha * x[idx[:, 0].long()]]))
+                n_cases += 1
         for n_x, n_off, prods in (*DOT_FORMS.values(), DOT_OTHER):
             xs = [_rand((n_src,), 20 + c, dev) for c in range(n_x)]
             offs = [_rand((M, K), 30 + p, dev, 0.3) for p in range(n_off)]
@@ -349,6 +387,31 @@ def phase_banded_kernels(results):
     g_plain = cuda_time_ms(lambda: bk.banded_gather_ref(x6, idx))
     g_lib = cuda_time_ms(lambda: x6[idx_long])
     g_bound, g_by = bound_ms(B * (M * K + M * K * 6 + n * 6), 0)
+    # The gather at the shapes the path launches (under both flushes):
+    # C = 6 and C = 1 at the mesh's map, and the fused prolongation of the
+    # first two coarse levels through a K = 1 map of aggregates.
+    gather_rows = []
+    for C in (6, 1):
+        x = x6 if C == 6 else _rand((n,), 62, dev)
+        ms, ms_read = both_flushes_ms(lambda: bk.banded_gather(x, idx))
+        bnd, _ = bound_ms(B * (M * K + M * K * C + n * C), 0)
+        gather_rows.append(f"gather {M}x{K} C={C} {ms:.4f} / {ms_read:.4f}"
+                           f" / {bnd:.4f}")
+    for mf, nc in ((M, DELAUNAY_LEVELS[0]),
+                   (DELAUNAY_LEVELS[0], DELAUNAY_LEVELS[1])):
+        agg = _band_map(mf, nc, 1, 63, dev, spread=4)
+        base, xc = _rand((mf,), 64, dev), _rand((nc,), 65, dev)
+        err_g = max(err_g, _maxerr(
+            [_prolong_add(bk, base, xc, agg, 1.0)],
+            [base + xc[agg[:, 0].long()]]))
+        ms, ms_read = both_flushes_ms(
+            lambda: _prolong_add(bk, base, xc, agg, 1.0))
+        eager, _ = both_flushes_ms(
+            lambda: base + 1.0 * bk.banded_gather(xc, agg)[:, 0])
+        bnd, _ = bound_ms(B * (3 * mf + nc), 2 * mf)
+        gather_rows.append(
+            f"prolongation {mf}<-{nc} {ms:.4f} / {ms_read:.4f} / {bnd:.4f} "
+            f"(gather, product and sum as three launches {eager:.4f})")
     # dot, the coupled matvec: 6 planes, 3 operands, 3 outputs.
     n_x, n_off, prods = DOT_FORMS["spmv"]
     xs = [_rand((n,), 61 + c, dev) for c in range(n_x)]
@@ -464,6 +527,8 @@ def phase_banded_kernels(results):
     log(f"phase 2: banded_gather at M={M}, K={K}, C=6: {g_ms:.4f} ms, bound "
         f"{g_bound:.4f} ms ({g_by}), plain {g_plain:.4f} ms, indexing call "
         f"{g_lib:.4f} ms")
+    log("phase 2: banded_gather by shape, ms / ms under the read flush / "
+        "bound ms: " + "; ".join(gather_rows))
     log(f"phase 2: banded_dot (matvec: 6 planes, 3 operands, 3 outputs): "
         f"{d_ms:.4f} ms, bound {d_bound:.4f} ms ({d_by}), plain "
         f"{d_plain:.4f} ms, sparse CSR product {d_lib:.4f} ms; scalar form "
@@ -501,6 +566,23 @@ def _leg(sk, form, x, diag2, off2, b, xc, plain=False):
     return out if isinstance(out, tuple) else (out,)
 
 
+def _half_sweep_call(sk, x, diag2, off2, b, parity):
+    """A no-argument call of the tree's half-sweep on (ny, nx) planes, and
+    of its plain version.  Earlier rounds' wrappers (``--tree``) take the
+    flat layout with ``off`` (n, 4): the planes are moved there outside the
+    timed call."""
+    if "grid_shape" not in inspect.signature(sk.rbgs_half_sweep).parameters:
+        args = (x, diag2, off2, b, parity)
+        return (lambda: sk.rbgs_half_sweep(*args),
+                lambda: sk.rbgs_half_sweep_ref(*args))
+    ny, nx = x.shape
+    args = (x.reshape(-1), diag2.reshape(-1),
+            off2.reshape(4, -1).T.contiguous(), b.reshape(-1), parity,
+            (ny, nx))
+    return (lambda: sk.rbgs_half_sweep(*args).reshape(ny, nx),
+            lambda: sk.rbgs_half_sweep_ref(*args).reshape(ny, nx))
+
+
 def phase_kernels(results):
     """Each kernel against its plain version on the card; times at the
     main paths' shapes."""
@@ -509,6 +591,8 @@ def phase_kernels(results):
 
     # The fused forms are not in a --tree of an earlier round.
     fused = "restrict_to" in inspect.signature(sk.rbgs_leg).parameters
+    planar = "grid_shape" not in inspect.signature(
+        sk.rbgs_half_sweep).parameters
     forms = [f for f in LEG_FORMS if fused or f in ("smooth", "residual")]
     grids, _ = level_grids(*MAIN_GRID)
     cases = [(37, 53), (16, 24), (300, 128)] + grids
@@ -528,13 +612,14 @@ def phase_kernels(results):
             err_fused = max(err_fused, _maxerr(
                 _leg(sk, form, x, diag2, off2, b, xc),
                 _leg(sk, form, x, diag2, off2, b, xc, plain=True)))
-        off_flat = off2.reshape(4, -1).T.contiguous()
         for parity in (0, 1):
-            args = (x.reshape(-1), diag2.reshape(-1), off_flat,
-                    b.reshape(-1), parity, (ny, nx))
-            got = sk.rbgs_half_sweep(*args)
-            ref = sk.rbgs_half_sweep_ref(*args)
-            err_half = max(err_half, float((got - ref).abs().max()))
+            call, plain = _half_sweep_call(sk, x, diag2, off2, b, parity)
+            ref = plain()
+            err_half = max(err_half, float((call() - ref).abs().max()))
+            if planar:   # in place: the second half-sweep of a pair
+                xi = x.clone()
+                sk.rbgs_half_sweep(xi, diag2, off2, b, parity, in_place=True)
+                err_half = max(err_half, float((xi - ref).abs().max()))
     torch.cuda.synchronize()
     log(f"phase 2: {len(cases)} grids; max-abs error leg {err_leg:.3e} "
         f"(sweeps 1 and 2, with and without residual), fused legs "
@@ -549,8 +634,10 @@ def phase_kernels(results):
 
     # The leg on every level grid of the main path, in every form, beside
     # the form's byte bound.  Flops per cell: 2 half-sweeps x 9 on half the
-    # cells + 1 reciprocal + 10 for the residual.
-    per_cycle = 0.0
+    # cells + 1 reciprocal + 10 for the residual.  Then the half-sweep on
+    # the same grids: 7 planes read, x written; half the cells do 10 flops.
+    per_cycle = half_cycle = 0.0
+    half_rows = []
     for ny, nx in grids:
         diag2, off2, x, b = _grid_system(ny, nx, 99, "cuda")
         xc = _rand(coarse_of((ny, nx)), 98, "cuda")
@@ -564,6 +651,21 @@ def phase_kernels(results):
                 per_cycle += ms
         log(f"phase 2: rbgs_leg at {ny}x{nx}, ms / ms under the read flush "
             "/ bound ms: " + "; ".join(cells))
+        call, _ = _half_sweep_call(sk, x, diag2, off2, b, 0)
+        ms, ms_read = both_flushes_ms(call)
+        bnd, _ = bound_ms(8 * 4 * ny * nx, 5 * ny * nx)
+        row = f"{ny}x{nx} {ms:.4f} / {ms_read:.4f}"
+        if planar:   # the second half-sweep of a pair, in place
+            xi = x.clone()
+            ip, ip_read = both_flushes_ms(lambda: sk.rbgs_half_sweep(
+                xi, diag2, off2, b, 1, in_place=True))
+            row += f" (in place {ip:.4f} / {ip_read:.4f})"
+            ms = (ms + ip) / 2
+        half_rows.append(f"{row} / {bnd:.4f}")
+        half_cycle += 4 * ms
+    log("phase 2: rbgs_half_sweep, ms / ms under the read flush / bound ms: "
+        + "; ".join(half_rows) + f"; over one V-cycle (2 into a new tensor "
+        f"and 2 in place per level) {half_cycle:.4f} ms")
     tiny = _grid_system(2, 2, 95, "cuda")
     floor = cuda_time_ms(lambda: sk.rbgs_leg(tiny[2], tiny[0], tiny[1],
                                              tiny[3]), reps=30)
@@ -584,12 +686,11 @@ def phase_kernels(results):
     leg_bound, leg_by = bound_ms(LEG_FORMS[down] * 4 * n, 20 * n)
     res_ms = cuda_time_ms(lambda: sk.rbgs_leg(x, diag2, off2, b, 1, True))
     res_bound, _ = bound_ms(LEG_FORMS["residual"] * 4 * n, 20 * n)
-    off_flat = off2.reshape(4, -1).T.contiguous()
-    hargs = (x.reshape(-1), diag2.reshape(-1), off_flat, b.reshape(-1), 0,
-             (ny, nx))
-    half_ms = cuda_time_ms(lambda: sk.rbgs_half_sweep(*hargs))
-    half_plain = cuda_time_ms(lambda: sk.rbgs_half_sweep_ref(*hargs))
-    # Reads x, diag, off (n, 4), b; writes x.  Half the cells do 10 flops.
+    half_call, half_ref = _half_sweep_call(sk, x, diag2, off2, b, 0)
+    half_ms = cuda_time_ms(half_call)
+    half_plain = cuda_time_ms(half_ref)
+    # Reads x, diag, off (4 planes), b; writes x.  Half the cells do 10
+    # flops.
     half_bound, half_by = bound_ms(8 * 4 * n, 5 * n)
     # Host cost of one wrapper call at a size where the kernels take a few
     # microseconds.
@@ -597,9 +698,7 @@ def phase_kernels(results):
     sc = _rand(coarse_of((37, 111)), 96, "cuda")
     h_leg = {form: host_us(lambda: _leg(sk, form, sx, sd, so, sb, sc))
              for form in forms}
-    sflat = (sx.reshape(-1), sd.reshape(-1),
-             so.reshape(4, -1).T.contiguous(), sb.reshape(-1), 0, (37, 111))
-    h_half = host_us(lambda: sk.rbgs_half_sweep(*sflat))
+    h_half = host_us(_half_sweep_call(sk, sx, sd, so, sb, 0)[0])
     h_add = host_us(lambda: sx + sb)
     log("phase 2: host time per call: rbgs_leg "
         + ", ".join(f"{form} {us:.1f} us" for form, us in h_leg.items())
@@ -659,7 +758,7 @@ def _finite(s):
         bool(torch.isfinite(s.state.p).all())
 
 
-def phase_main(results):
+def phase_main(results, ctx):
     import torch
     from cfd2_tpu_torch.convert import load_developed_state
     from cfd2_tpu_torch.ops import stencil_kernels as sk
@@ -687,7 +786,11 @@ def phase_main(results):
     n = mesh.num_cells
     sk.reset_launches()
     lin_total = 0
+    timed = []
     for i in range(6):
+        if i == 3:   # the developed state phase 4 starts from
+            ctx["main"] = dict(solver=s, state=s.state, params=s.params,
+                               timed=timed)
         host_reads.reset()
         before = dict(sk.LAUNCHES)
         torch.cuda.synchronize()
@@ -701,6 +804,8 @@ def phase_main(results):
         lin_total += lins
         step_launch = {k: v - before[k] for k, v in sk.LAUNCHES.items()}
         kind = "heal" if i < 3 else "timed"
+        if i >= 3:
+            timed.append((outer, lins))
         log(f"phase 3: {kind} step {i}: wall {wall:.4f} s, outer_iters "
             f"{outer}, linear_iters_total {lins}, cell-updates/s "
             f"{n / wall:.1f}, host reads {host_reads.COUNT['reads']}, "
@@ -718,17 +823,47 @@ def phase_main(results):
         f"{sk.LAUNCHES['rbgs_half_sweep']}")
 
 
-def phase_half_sweep(results):
+def phase_half_sweep(results, ctx):
+    """The half-sweep path (CFD2_PALLAS=1) at full width: phase 3's solver
+    restarted from its state after healing, 2 steps, beside phase 3's first
+    two timed steps."""
+    import torch
     from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.runtime import host_reads
 
-    mesh = _channel(0.01)
-    s = _solver(mesh, 0.01, None)
+    check("main" in ctx, "phase 4 steps phase 3's developed state: run "
+          "phase 3 with it")
+    main = ctx["main"]
+    s = main["solver"]
+    s.state, s.params = main["state"], main["params"]
+    grids, _ = level_grids(*MAIN_GRID)
     old = os.environ.get("CFD2_PALLAS")
     os.environ["CFD2_PALLAS"] = "1"
     try:
         sk.reset_launches()
-        for _ in range(2):
+        lin_total = 0
+        for i, (outer3, lins3) in enumerate(main["timed"][:2]):
+            host_reads.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
             s.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            outer = int(s.state.outer_iters)
+            lins = int(s.state.linear_iters_total)
+            lin_total += lins
+            log(f"phase 4: step {i} with CFD2_PALLAS=1: wall {wall:.4f} s, "
+                f"outer_iters {outer}, linear_iters_total {lins}, "
+                f"cell-updates/s {MAIN_CELLS / wall:.1f}, host reads "
+                f"{host_reads.COUNT['reads']} (phase 3's timed step {i}: "
+                f"outer_iters {outer3}, linear_iters_total {lins3})")
+            check(_finite(s), "non-finite fields on the half-sweep path")
+            check(outer == outer3, f"step {i}: {outer} outer iterations on "
+                  f"the half-sweep path, {outer3} on the leg path")
+            check(abs(lins - lins3) <= 2 * outer,
+                  f"step {i}: {lins} FGMRES iterations on the half-sweep "
+                  f"path, {lins3} on the leg path (more than 2 per outer "
+                  "apart)")
         counts = dict(sk.LAUNCHES)
     finally:
         if old is None:
@@ -736,12 +871,13 @@ def phase_half_sweep(results):
         else:
             os.environ["CFD2_PALLAS"] = old
     results["rbgs_half_sweep"]["launches"] = counts["rbgs_half_sweep"]
-    log(f"phase 4: {mesh.num_cells} cells, 2 steps with CFD2_PALLAS=1: "
-        f"outer_iters {int(s.state.outer_iters)}, launches {counts}")
-    check(counts["rbgs_half_sweep"] > 0,
-          "rbgs_half_sweep was never launched on the CFD2_PALLAS=1 path")
+    per_apply = 2 * 2 * len(grids)   # 2 half-sweeps x 2 smooths per level
+    log(f"phase 4: {MAIN_CELLS} cells, launches {counts} over {lin_total} "
+        f"FGMRES iterations ({per_apply} half-sweeps per V-cycle)")
+    check(counts["rbgs_half_sweep"] == per_apply * lin_total,
+          f"rbgs_half_sweep launches {counts['rbgs_half_sweep']} != "
+          f"{per_apply} per V-cycle x {lin_total} FGMRES iterations")
     check(counts["rbgs_leg"] == 0, "rbgs_leg ran on the CFD2_PALLAS=1 path")
-    check(_finite(s), "non-finite fields on the half-sweep path")
 
 
 def phase_cpu_match():
@@ -848,6 +984,12 @@ def _hold_on_solver_maps(phase, s, results):
         gather(x_c, lvl.agg)
         gather(_rand((n_fine * (k_fine + 1),), 180 + li, dev),
                lvl.rap_order)
+        base = _rand((n_fine,), 190 + li, dev)
+        for alpha in (1.0, 1.5):
+            hold("banded_gather",
+                 [bk.banded_prolong_add(base, x_c, lvl.agg, alpha)],
+                 [base + alpha * x_c[lvl.agg[:, 0].long()]])
+        shapes.append(f"prolongation {tuple(lvl.agg.shape)}<-({lvl.n},)")
         n_fine, k_fine = lvl.n, lvl.k
     torch.cuda.synchronize()
     bk.LAUNCHES.update(before)
@@ -862,6 +1004,79 @@ def _hold_on_solver_maps(phase, s, results):
         if name in results:
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], e)
+
+
+def _v_cycle_kernels(s):
+    """One aggregation V-cycle on the solver's hierarchy, with random level
+    values, under the profiler: as the solver runs it, then with each
+    level's prolongation done as the gather, product and sum of the earlier
+    rounds.  Returns the device kernels of each, by name, the
+    ``banded_gather`` count of the first, and whether the two agree bit for
+    bit."""
+    import torch
+    from cfd2_tpu_torch.ops import amg
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+
+    dm, hier = s.mesh, s._get_amg()
+    n = dm.num_cells
+    rng = np.random.default_rng(200)
+    mask = dm.ck_mask.cpu().numpy() > 0
+    p_off = np.where(mask, -(0.5 + rng.random(mask.shape)), 0.0)
+    p_diag = -p_off.sum(axis=1) + 0.05 + 0.05 * rng.random(n)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
+    lv = amg.compute_level_values(hier, t(p_diag), t(p_off))
+    b = t(rng.standard_normal(n))
+    x0 = b / lv[0][0]
+    fused = bk.banded_prolong_add
+
+    def eager(base, x, idx, alpha):
+        return base + alpha * bk.banded_gather(x, idx)[:, 0]
+
+    def kernels(prolong):
+        bk.banded_prolong_add = prolong
+        try:
+            amg.v_cycle(hier, lv, dm, b, x0, **s.config.cycle_opts())
+            torch.cuda.synchronize()
+            before = bk.LAUNCHES["banded_gather"]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                x = amg.v_cycle(hier, lv, dm, b, x0,
+                                **s.config.cycle_opts())
+                torch.cuda.synchronize()
+            counted = bk.LAUNCHES["banded_gather"] - before
+        finally:
+            bk.banded_prolong_add = fused
+        names = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        return names, counted, x
+
+    saved = dict(bk.LAUNCHES)
+    (k_fused, counted, x_f), (k_eager, _, x_e) = kernels(fused), kernels(eager)
+    bk.LAUNCHES.update(saved)
+    return k_fused, k_eager, counted, torch.equal(x_f, x_e)
+
+
+def _check_prolongation(phase, s):
+    """The V-cycle prolongs through the fused kernel: one launch per level,
+    counted under banded_gather, and two fewer device kernels per level
+    than the gather, product and sum, with the same bits."""
+    L = len(s._get_amg().levels)
+    k_fused, k_eager, counted, same = _v_cycle_kernels(s)
+    n_f, n_e = sum(k_fused.values()), sum(k_eager.values())
+    n_prol = sum(c for k, c in k_fused.items() if "prolong_add" in k)
+    n_gath = sum(c for k, c in k_fused.items() if "banded_gather" in k)
+    log(f"phase {phase}: one V-cycle ({L} coarse levels): {n_f} device "
+        f"kernels, {n_prol} fused prolongations, {n_gath} gathers, "
+        f"{counted} counted under banded_gather; with the gather, product "
+        f"and sum: {n_e} kernels; results bit-equal: {same}")
+    check(n_prol == L and n_gath == 0 and counted == L,
+          f"the V-cycle did not prolong through one fused launch per level")
+    check(n_e - n_f == 2 * L, f"the fused prolongation saves {n_e - n_f} "
+          f"device kernels per V-cycle, not 2 per level ({2 * L})")
+    check(same, "the fused prolongation changes the V-cycle's bits")
+    return L
 
 
 def _drive_unstructured(phase, s, n_cells, n_steps):
@@ -906,7 +1121,7 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
         f"{counts['banded_gather'] / lin_total:.2f} banded_gather, "
         f"{counts['banded_jacobi_sweeps'] / lin_total:.2f} "
         "banded_jacobi_sweeps calls")
-    return counts
+    return counts, lin_total
 
 
 def phase_delaunay(results):
@@ -934,10 +1149,20 @@ def phase_delaunay(results):
     check(sizes == DELAUNAY_LEVELS,
           f"hierarchy levels {sizes} != {DELAUNAY_LEVELS}")
     _hold_on_solver_maps(6, s, results)
-    counts = _drive_unstructured(6, s, mesh.num_cells, 3)
+    counts, lin_total = _drive_unstructured(6, s, mesh.num_cells, 3)
     for name, cnt in counts.items():
         if name in results:
             results[name]["launches"] = cnt
+    L = _check_prolongation(6, s)
+    # Of the steps' gathers, L per FGMRES iteration are the V-cycle's
+    # prolongations; the rest are the assembly's and the Galerkin sums'.
+    rest = counts["banded_gather"] - L * lin_total
+    log(f"phase 6: banded_gather {counts['banded_gather']} = {L} fused "
+        f"prolongations x {lin_total} FGMRES iterations + {rest} assembly "
+        f"and Galerkin gathers ({counts['banded_gather'] / lin_total:.2f} "
+        "per iteration)")
+    check(0 <= rest < lin_total, "banded_gather launches do not split into "
+          f"{L} per FGMRES iteration and the assembly's")
 
 
 def phase_voronoi(results):
@@ -1010,11 +1235,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 basis dots
 
     log(card_line())
-    results = {}
+    results, ctx = {}, {}
     t_all = time.time()
     steps = [(1, phase_build), (2, lambda: phase_kernels(results)),
-             (3, lambda: phase_main(results)),
-             (4, lambda: phase_half_sweep(results)),
+             (3, lambda: phase_main(results, ctx)),
+             (4, lambda: phase_half_sweep(results, ctx)),
              (5, phase_cpu_match),
              (6, lambda: phase_delaunay(results)),
              (7, lambda: phase_voronoi(results)),

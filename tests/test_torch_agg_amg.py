@@ -216,3 +216,63 @@ def test_tiny_mesh_pools_its_padding_cells():
     trash = th.levels[0].n - 1
     assert (th.levels[0].agg.numpy()[mesh.num_cells:, 0] == trash).all()
     assert float(th.levels[0].members_mask[trash].sum()) == 0.0
+
+
+@pytest.mark.parametrize("overcorrect", [1.0, 1.5])
+def test_prolong_add_matches_the_jax_update(setup, overcorrect):
+    """The fused prolongation's plain version against the JAX package's
+    ``xs + overcorrect * xs_c[agg]`` on every level's aggregate map:
+    bitwise at 1.0 (the product is exact); at 1.5 within one ulp of the
+    result, since XLA may contract the product and the sum into an FMA."""
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    _, _, jh, th, *_ = setup
+    rng = np.random.default_rng(21)
+    for jl, tl in zip(jh.levels, th.levels):
+        n_fine = tl.agg.shape[0]
+        xs = rng.standard_normal(n_fine).astype(np.float32)
+        xc = rng.standard_normal(tl.n).astype(np.float32)
+        ref = np.asarray(jnp.asarray(xs)
+                         + overcorrect * jnp.asarray(xc)[jl.agg])
+        got = bk.banded_prolong_add(torch.as_tensor(xs), torch.as_tensor(xc),
+                                    tl.agg, overcorrect).numpy()
+        if overcorrect == 1.0:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            ulp = np.spacing(np.abs(ref).astype(np.float32))
+            assert (np.abs(got - ref) <= ulp).all()
+
+
+@pytest.mark.parametrize("overcorrect", [1.0, 1.5])
+def test_v_cycle_prolongs_through_the_fused_update(setup, monkeypatch,
+                                                   overcorrect):
+    """Each level's prolongation is one banded_prolong_add call (no separate
+    gather), with the cycle's overcorrection, and gives the bits of the
+    eager gather, product and sum."""
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    _, tm, _, th, P_diag, P_off, b = setup
+    tv = tamg.compute_level_values(th, torch.as_tensor(P_diag),
+                                   torch.as_tensor(P_off))
+    x0 = torch.as_tensor((b / P_diag).astype(np.float32))
+    calls = {"banded_gather": 0, "banded_prolong_add": []}
+    gather, prolong = bk.banded_gather, bk.banded_prolong_add
+
+    def spy_gather(*a, **k):
+        calls["banded_gather"] += 1
+        return gather(*a, **k)
+
+    def spy_prolong(base, x, idx, alpha):
+        calls["banded_prolong_add"].append(alpha)
+        return prolong(base, x, idx, alpha)
+
+    def eager(base, x, idx, alpha):
+        return base + alpha * gather(x, idx)[:, 0]
+
+    monkeypatch.setattr(bk, "banded_gather", spy_gather)
+    monkeypatch.setattr(bk, "banded_prolong_add", spy_prolong)
+    got = tamg.v_cycle(th, tv, tm, torch.as_tensor(b), x0,
+                       overcorrect=overcorrect)
+    assert calls == {"banded_gather": 0,
+                     "banded_prolong_add": [overcorrect] * len(th.levels)}
+    monkeypatch.setattr(bk, "banded_prolong_add", eager)
+    assert torch.equal(got, tamg.v_cycle(th, tv, tm, torch.as_tensor(b), x0,
+                                         overcorrect=overcorrect))

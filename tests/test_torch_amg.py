@@ -188,3 +188,40 @@ def test_fused_v_cycle_equals_the_plain_stencil_cycle(setup, monkeypatch):
     fused = _port_cycle(setup, tv)
     monkeypatch.setenv("CFD2_PALLAS", "0")
     assert torch.equal(fused, _port_cycle(setup, tv))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2])
+def test_v_cycle_half_sweeps_take_the_level_planes(setup, monkeypatch,
+                                                   sweeps):
+    """At smoother level 1 each smooth is 2 * sweeps half-sweeps on the
+    level's own (4, ny, nx) coefficient planes (no per-smooth transpose):
+    the first writes a new tensor, the rest update it in place."""
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    tv = tamg.structured_level_values_2d(setup[1], _port_level_values(setup))
+    planes = {o.data_ptr(): d.shape for d, o in tv[:-1]}
+    calls = []
+    half = sk.rbgs_half_sweep
+
+    def spy(xg, diag2, off2, bg, parity, in_place=False):
+        calls.append((off2.data_ptr(), tuple(off2.shape), parity, in_place))
+        return half(xg, diag2, off2, bg, parity, in_place=in_place)
+
+    monkeypatch.setenv("CFD2_PALLAS", "1")
+    monkeypatch.setattr(sk, "rbgs_half_sweep", spy)
+    _port_cycle(setup, tv, sweeps)
+    L = len(setup[1].levels)
+    assert len(calls) == 2 * L * 2 * sweeps
+    for ptr, shape, _, _ in calls:
+        assert ptr in planes and shape == (4,) + tuple(planes[ptr])
+    per_smooth = [(k % 2, k > 0) for k in range(2 * sweeps)]
+    assert [c[2:] for c in calls] == per_smooth * (2 * L)
+
+
+def test_half_sweep_cycle_equals_the_plain_stencil_cycle(setup, monkeypatch):
+    """On the CPU the half-sweeps are the plain colour updates, so smoother
+    levels 1 and 0 give the same bits."""
+    tv = _port_level_values(setup)
+    monkeypatch.setenv("CFD2_PALLAS", "1")
+    half = _port_cycle(setup, tv)
+    monkeypatch.setenv("CFD2_PALLAS", "0")
+    assert torch.equal(half, _port_cycle(setup, tv))

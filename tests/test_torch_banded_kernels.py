@@ -66,7 +66,7 @@ def _close(got, ref, rtol=RTOL):
     assert float(np.abs(got - ref).max()) <= rtol * scale
 
 
-@pytest.mark.parametrize("tail", [None, 2, 6])
+@pytest.mark.parametrize("tail", [None, 2, 3, 6])
 @pytest.mark.parametrize("name", list(MAPS))
 def test_gather_matches_banded_gather_nk(name, tail):
     idx, n_src, (lane, sel, base, W), rng = _map(name)
@@ -203,6 +203,61 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         bk.banded_jacobi_sweeps((x,), x, torch.zeros(4, 2), idx, 0)
     with pytest.raises(ValueError):
         bk.banded_gather(x.to("meta"), idx.to("meta"))
+    with pytest.raises(ValueError):
+        bk.banded_prolong_add(x.to("meta"), x.to("meta"), idx.to("meta"), 1.0)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 1.5])
+def test_prolong_add_is_the_eager_gather_product_and_sum(alpha):
+    idx, n_src, _, rng = _map("prolongation")
+    ti = _t(idx, torch.int32)
+    base = _t(rng.standard_normal(idx.shape[0]))
+    x = _t(rng.standard_normal(n_src))
+    got = bk.banded_prolong_add(base, x, ti, alpha)
+    assert torch.equal(got, base + alpha * bk.banded_gather(x, ti)[:, 0])
+    assert torch.equal(got, bk.banded_prolong_add_ref(base, x, ti, alpha))
+
+
+def _launch_path(monkeypatch):
+    """Drive the CUDA branch of the wrappers with CPU tensors up to the
+    build, which raises: what a wrapper refuses, it refuses before that."""
+    from cfd2_tpu_torch.ops import _build
+    monkeypatch.setattr(bk, "_cuda_or_cpu", lambda t: True)
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load", no_build)
+
+
+@pytest.mark.parametrize("C", [2, 6])
+def test_gather_refuses_a_misaligned_even_width(monkeypatch, C):
+    """Even widths are read as float2: a view that starts at an odd float
+    is refused; the same data at an aligned start reaches the launch."""
+    _launch_path(monkeypatch)
+    idx = torch.zeros((4, 3), dtype=torch.int32)
+    raw = torch.zeros(5 * 6 + 2)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.banded_gather(raw[1:1 + 5 * C].view(5, C), idx)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bk.banded_gather(raw[2:2 + 5 * C].view(5, C), idx)
+    with pytest.raises(RuntimeError, match="nvcc"):   # odd C: no float2
+        bk.banded_gather(raw[1:1 + 5 * 3].view(5, 3), idx)
+
+
+@pytest.mark.parametrize("case", ["wide_map", "base_shape", "x_2d",
+                                  "strided_base", "idx_int64"])
+def test_prolong_add_refuses_what_the_kernel_does_not_take(monkeypatch, case):
+    _launch_path(monkeypatch)
+    idx = torch.zeros((6, 1), dtype=torch.int32)
+    base, x = torch.zeros(6), torch.zeros(4)
+    args = {"wide_map": (base, x, torch.zeros((6, 2), dtype=torch.int32)),
+            "base_shape": (torch.zeros(5), x, idx),
+            "x_2d": (base, torch.zeros(4, 1), idx),
+            "strided_base": (torch.zeros(12)[::2], x, idx),
+            "idx_int64": (base, x, idx.long())}[case]
+    with pytest.raises((ValueError, TypeError)):
+        bk.banded_prolong_add(*args, 1.0)
 
 
 # ----------------------------------------------------------------------

@@ -88,15 +88,31 @@ def test_fused_leg_refuses_bad_input(cuda):
                     add_prolong=torch.zeros(8, 12))   # on the CPU
 
 
+@pytest.mark.parametrize("ny,nx", [(37, 53), (16, 24), (19, 56), (10, 28),
+                                   (5, 3), (589, 1765)])
 @pytest.mark.parametrize("parity", [0, 1])
-def test_half_sweep_kernel_matches_plain(cuda, parity):
-    ny, nx = 37, 53
+def test_half_sweep_kernel_matches_plain(cuda, parity, ny, nx):
+    """The planar half-sweep on odd and even grids, into a new tensor and
+    in place; the other colour is copied (or left) bit for bit."""
     diag2, off2, x, b = _grid_system(ny, nx, 1, cuda)
-    args = (x.reshape(-1), diag2.reshape(-1),
-            off2.reshape(4, -1).T.contiguous(), b.reshape(-1), parity,
-            (ny, nx))
-    got = sk.rbgs_half_sweep(*args)
-    ref = sk.rbgs_half_sweep_ref(*args)
+    before = sk.LAUNCHES["rbgs_half_sweep"]
+    got = sk.rbgs_half_sweep(x, diag2, off2, b, parity)
+    xi = x.clone()
+    inplace = sk.rbgs_half_sweep(xi, diag2, off2, b, parity, in_place=True)
+    ref = sk.rbgs_half_sweep_ref(x, diag2, off2, b, parity)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["rbgs_half_sweep"] == before + 2
+    assert inplace is xi
+    other = (sk._color2(ny, nx, cuda) + parity) % 2 == 1
+    for g in (got, xi):
+        assert float((g - ref).abs().max()) <= TOL
+        assert torch.equal(g[other], x[other])
+
+
+def test_half_sweep_pair_matches_the_leg(cuda):
+    diag2, off2, x, b = _grid_system(589, 1765, 6, cuda)
+    got = sk.smooth_rbgs_half_sweeps(diag2, off2, x, b)
+    ref = sk.rbgs_leg_ref(x, diag2, off2, b, 1)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= TOL
 
@@ -107,6 +123,11 @@ def test_wrapper_refuses_bad_input(cuda):
         sk.rbgs_leg(x.double(), diag2, off2, b)
     with pytest.raises(ValueError):
         sk.rbgs_leg(x.T, diag2, off2, b)
+    with pytest.raises(ValueError):
+        sk.rbgs_half_sweep(x, diag2, off2.transpose(1, 2).contiguous()
+                           .transpose(1, 2), b, 0)
+    with pytest.raises(ValueError):
+        sk.rbgs_half_sweep(x, diag2, off2[:, :, :23], b, 0)
 
 
 # ----------------------------------------------------------------------
@@ -134,7 +155,7 @@ def _rand(shape, seed, device, scale=1.0):
         device=device)
 
 
-@pytest.mark.parametrize("tail", [None, 2, 6])
+@pytest.mark.parametrize("tail", [None, 2, 3, 6])
 @pytest.mark.parametrize("M,n_src,K", BANDED_MAPS)
 def test_gather_kernel_matches_plain(cuda, M, n_src, K, tail):
     idx = _band_map(M, n_src, K, 0, cuda)
@@ -144,6 +165,35 @@ def test_gather_kernel_matches_plain(cuda, M, n_src, K, tail):
     torch.cuda.synchronize()
     assert bk.LAUNCHES["banded_gather"] == before + 1
     assert torch.equal(got, bk.banded_gather_ref(x, idx))
+
+
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+@pytest.mark.parametrize("M,K", [(4097, 1), (1001, 3), (3, 1)])
+def test_gather_scalar_takes_index_views_at_any_offset(cuda, M, K, start):
+    """C = 1 reads four indices at a time where idx is 16-byte aligned and
+    one at a time where a view starts elsewhere; both are exact, with the
+    ragged tail of M * K not a multiple of 4."""
+    raw = _band_map(M * K + 4, 900, 1, 20, cuda).reshape(-1)
+    idx = raw[start:start + M * K].view(M, K)
+    x = _rand((900,), 21, cuda)
+    got = bk.banded_gather(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bk.banded_gather_ref(x, idx))
+
+
+@pytest.mark.parametrize("alpha", [1.0, 1.5])
+@pytest.mark.parametrize("M,n_src", [(5000, 700), (403584, 59490),
+                                     (59490, 5227), (300, 7)])
+def test_prolong_add_kernel_is_the_eager_update_bit_for_bit(cuda, M, n_src,
+                                                           alpha):
+    idx = _band_map(M, n_src, 1, 14, cuda)
+    base, x = _rand((M,), 15, cuda), _rand((n_src,), 16, cuda)
+    before = bk.LAUNCHES["banded_gather"]
+    got = bk.banded_prolong_add(base, x, idx, alpha)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["banded_gather"] == before + 1
+    assert torch.equal(got, base + alpha * x[idx[:, 0].long()])
+    assert torch.equal(got, bk.banded_prolong_add_ref(base, x, idx, alpha))
 
 
 @pytest.mark.parametrize("form", list(DOT_FORMS))
@@ -208,3 +258,20 @@ def test_banded_wrappers_refuse_bad_input(cuda):
         bk.banded_dot((x,), (off,), idx, (((1, 0),),))
     with pytest.raises(ValueError):
         bk.banded_jacobi_sweeps((x,), x, off, idx, 3, k_cap=4)
+    # float2 rows need an 8-byte aligned operand; a strided one is refused.
+    raw = _rand((256 * 6 + 2,), 12, cuda)
+    for C in (2, 6):
+        with pytest.raises(ValueError, match="aligned"):
+            bk.banded_gather(raw[1:1 + 256 * C].view(256, C), idx)
+        got = bk.banded_gather(raw[2:2 + 256 * C].view(256, C), idx)
+        assert torch.equal(got, bk.banded_gather_ref(
+            raw[2:2 + 256 * C].view(256, C), idx))
+    with pytest.raises(ValueError):
+        bk.banded_gather(raw[:512].view(256, 2).T.contiguous().T, idx)
+    agg = idx[:, :1].contiguous()
+    with pytest.raises(ValueError):
+        bk.banded_prolong_add(x, x, idx, 1.0)          # K != 1
+    with pytest.raises(ValueError):
+        bk.banded_prolong_add(raw[:512:2], x, agg, 1.0)  # strided base
+    with pytest.raises(TypeError):
+        bk.banded_prolong_add(x.double(), x, agg, 1.0)

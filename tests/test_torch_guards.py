@@ -141,8 +141,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version reached")
 
-    for name in ("banded_gather_ref", "banded_dot_ref",
-                 "banded_jacobi_sweeps_ref"):
+    for name in ("banded_gather_ref", "banded_prolong_add_ref",
+                 "banded_dot_ref", "banded_jacobi_sweeps_ref"):
         monkeypatch.setattr(bk, name, boom)
     monkeypatch.setattr(bk, "_cuda_or_cpu", lambda t: True)
 
@@ -155,6 +155,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     off = torch.zeros((4, 2))
     with pytest.raises(RuntimeError, match="nvcc"):
         bk.banded_gather(x, idx)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bk.banded_prolong_add(x, x, torch.zeros((4, 1), dtype=torch.int32),
+                              1.5)
     with pytest.raises(RuntimeError, match="nvcc"):
         bk.banded_dot((x,), (off,), idx, (((0, 0),),))
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -26,15 +26,6 @@ def _grid_system(ny, nx, seed):
             rng.standard_normal((ny, nx)).astype(np.float32))
 
 
-def _flat_system(ny, nx, seed):
-    rng = np.random.default_rng(seed)
-    n = ny * nx
-    return (rng.uniform(1, 2, n).astype(np.float32),
-            (rng.standard_normal((n, 4)) * 0.1).astype(np.float32),
-            rng.standard_normal(n).astype(np.float32),
-            rng.standard_normal(n).astype(np.float32))
-
-
 T = torch.as_tensor
 
 
@@ -55,27 +46,43 @@ def test_leg_matches_pallas_fused(ny, nx, sweeps, seed):
                                         (300, 128, 2)])
 @pytest.mark.parametrize("parity", [0, 1])
 def test_half_sweep_matches_pallas(ny, nx, seed, parity):
-    diag, off, x, b = _flat_system(ny, nx, seed)
-    ref = rbgs_half_sweep(x, diag, off, b, parity, (ny, nx), interpret=True)
-    got = sk.rbgs_half_sweep_ref(T(x), T(diag), T(off), T(b), parity,
-                                 (ny, nx))
-    assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < TOL
+    """The port's half-sweep takes the (4, ny, nx) planes; the TPU kernel
+    takes them moved to (n, 4)."""
+    diag2, off2, x, b = _grid_system(ny, nx, seed)
+    ref = rbgs_half_sweep(x.reshape(-1), diag2.reshape(-1),
+                          np.moveaxis(off2.reshape(4, -1), 0, 1), b.reshape(-1),
+                          parity, (ny, nx), interpret=True)
+    got = sk.rbgs_half_sweep(T(x), T(diag2), T(off2), T(b), parity)
+    assert got.shape == (ny, nx)
+    got = got.numpy().reshape(-1)
+    assert float(np.abs(got - np.asarray(ref)).max()) < TOL
     # Only the active colour moves.
     j, i = np.divmod(np.arange(ny * nx), nx)
     other = (j + i + parity) % 2 == 1
-    np.testing.assert_array_equal(got.numpy()[other], x[other])
-    assert not np.allclose(got.numpy()[~other], x[~other])
+    np.testing.assert_array_equal(got[other], x.reshape(-1)[other])
+    assert not np.allclose(got[~other], x.reshape(-1)[~other])
 
 
 def test_half_sweep_pairs_equal_leg():
     """Two half-sweeps (parity 0 then 1) are one leg without residual."""
     ny, nx = 37, 53
-    diag2, off2, x, b = _grid_system(ny, nx, 5)
-    leg = sk.rbgs_leg_ref(T(x), T(diag2), T(off2), T(b), 2)
-    flat = sk.smooth_rbgs_half_sweeps(
-        (ny, nx), T(diag2).reshape(-1), T(off2).reshape(4, -1).T,
-        T(x).reshape(-1), T(b).reshape(-1), sweeps=2)
-    assert float((flat.reshape(ny, nx) - leg).abs().max()) < TOL
+    diag2, off2, x, b = (T(a) for a in _grid_system(ny, nx, 5))
+    leg = sk.rbgs_leg_ref(x, diag2, off2, b, 2)
+    got = sk.smooth_rbgs_half_sweeps(diag2, off2, x, b, sweeps=2)
+    assert float((got - leg).abs().max()) < TOL
+    assert not torch.equal(got, x)   # the caller's x is left as it was
+    assert torch.equal(x, T(_grid_system(ny, nx, 5)[2]))
+
+
+@pytest.mark.parametrize("ny,nx", [(10, 28), (19, 56), (5, 3)])
+def test_half_sweep_in_place_equals_a_new_tensor(ny, nx):
+    """in_place updates x itself and gives the values of a new tensor."""
+    diag2, off2, x, b = (T(a) for a in _grid_system(ny, nx, 9))
+    for parity in (0, 1):
+        new = sk.rbgs_half_sweep(x, diag2, off2, b, parity)
+        xi = x.clone()
+        got = sk.rbgs_half_sweep(xi, diag2, off2, b, parity, in_place=True)
+        assert got is xi and torch.equal(xi, new)
 
 
 # Odd and even grids, among them level grids of the 589x1765 hierarchy.
@@ -176,9 +183,8 @@ def test_wrappers_on_cpu_run_plain_version_without_build(monkeypatch):
     gx, gr = sk.rbgs_leg(x, diag2, off2, b, 1, residual=True)
     rx, rr = sk.rbgs_leg_ref(x, diag2, off2, b, 1, residual=True)
     assert torch.equal(gx, rx) and torch.equal(gr, rr)
-    d, o, xf, bf = (T(a) for a in _flat_system(16, 24, 4))
-    assert torch.equal(sk.rbgs_half_sweep(xf, d, o, bf, 1, (16, 24)),
-                       sk.rbgs_half_sweep_ref(xf, d, o, bf, 1, (16, 24)))
+    assert torch.equal(sk.rbgs_half_sweep(x, diag2, off2, b, 1),
+                       sk.rbgs_half_sweep_ref(x, diag2, off2, b, 1))
     assert sk.LAUNCHES == before
 
 
@@ -205,3 +211,33 @@ def test_smoother_level_refusals_on_cuda(monkeypatch, raw):
     monkeypatch.setenv("CFD2_PALLAS", raw)
     with pytest.raises(ValueError):
         sk.smoother_level(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("case", ["flat_off", "strided_off", "short_off",
+                                  "x_double", "b_transposed", "planar"])
+def test_half_sweep_launch_path_checks_before_it_builds(monkeypatch, case):
+    """On the launch path (a CUDA tensor) the planar half-sweep refuses the
+    TPU kernel's (n, 4) layout and any plane it cannot read as (ny, nx)
+    float32 before it builds anything, and never reaches the plain version;
+    what it takes goes on to the build."""
+    monkeypatch.setattr(sk, "_cuda_or_cpu", lambda t: True)
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(sk, "rbgs_half_sweep_ref", boom)
+    diag2, off2, x, b = (T(a) for a in _grid_system(6, 10, 4))
+    args = {"flat_off": (x, diag2, off2.reshape(4, -1).T.contiguous(), b),
+            "strided_off": (x, diag2, off2.transpose(1, 2).contiguous()
+                            .transpose(1, 2), b),
+            "short_off": (x, diag2, off2[:3], b),
+            "x_double": (x.double(), diag2, off2, b),
+            "b_transposed": (x, diag2, off2, b.T.contiguous().T),
+            "planar": (x, diag2, off2, b)}[case]
+    err = RuntimeError if case == "planar" else (ValueError, TypeError)
+    with pytest.raises(err):
+        sk.rbgs_half_sweep(*args, 0)

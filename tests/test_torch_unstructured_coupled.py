@@ -109,9 +109,11 @@ def test_step_fluxes_are_bitwise_antisymmetric(delaunay):
 
 def test_step_goes_through_the_three_wrappers(delaunay, monkeypatch):
     """Every neighbor access of the step is one of the three banded
-    wrappers: count their calls (on the CPU they run the plain versions and
-    leave LAUNCHES alone) and hold the sweeps to 2 per FGMRES iteration."""
-    calls = {"banded_gather": 0, "banded_dot": 0, "banded_jacobi_sweeps": 0}
+    wrappers (the gather also as the V-cycle's fused prolongation): count
+    their calls (on the CPU they run the plain versions and leave LAUNCHES
+    alone) and hold the sweeps to 2 per FGMRES iteration."""
+    calls = {"banded_gather": 0, "banded_prolong_add": 0, "banded_dot": 0,
+             "banded_jacobi_sweeps": 0}
 
     def counting(name):
         fn = getattr(bk, name)
@@ -131,7 +133,8 @@ def test_step_goes_through_the_three_wrappers(delaunay, monkeypatch):
     assert lin > 0
     assert calls["banded_jacobi_sweeps"] == 2 * lin
     levels = len(s._get_amg().levels)
-    assert calls["banded_gather"] >= levels * lin
+    assert calls["banded_prolong_add"] == levels * lin
+    assert calls["banded_gather"] > 0     # the assembly's neighbor values
     assert calls["banded_dot"] >= (3 + 4 * levels) * lin
     assert bk.LAUNCHES == before          # no kernel launch on CPU tensors
 
