@@ -8,10 +8,25 @@ banded unstructured path:
   pressure-plateau exits as the JAX package's ``lax.while_loop``.  Each
   outer corrector reads its two max-diff scalars to the host once (one
   synchronisation, counted by :mod:`..runtime.host_reads`);
+* :func:`step_host` (``begin_step`` / ``outer_iteration`` /
+  ``finish_step``): the JAX package's host-controlled step, with its own
+  quirks (coarse operators rebuilt every outer, presolve not gated to the
+  first outer, no recycling, ``FloatingPointError`` on NaN residuals);
+* :func:`multi_step` / :func:`multi_step_adaptive`: N steps with the
+  stopped state frozen, the latter with the CFL controller on the device;
 * :func:`check_evolution`, the steady-state/degeneracy classifier, runs on
   the device from state carried across steps;
 * :class:`CoupledSolver` is the host-side façade with the reference's
-  headless API (GpuSolver::new -> set_* -> step -> get_u/get_p).
+  headless API (GpuSolver::new -> set_* -> step -> get_u/get_p), plus
+  checkpoints and cross-step Krylov recycling.
+
+Every option of :class:`SolverConfig` is ported: the bf16 Krylov basis and
+preconditioner, the mixed-precision phase, float64 norms, the in-cycle exit,
+Krylov recycling across outers and steps, the first-outer pressure presolve,
+the ADI momentum predict, Anderson mixing, the extrapolated guess and the
+adaptive linear tolerance.  As in the JAX package, the bf16 preconditioner,
+the mixed phase, the presolve and the ADI predict act on the structured path
+only.
 
 Two solve paths are ported, both with the Schur preconditioner
 (``precond_type=1``: multigrid pressure block; ``precond_type=0``: Chebyshev
@@ -37,7 +52,7 @@ import torch
 from ..ops import ellsys as el
 from ..ops import stencil_system as st
 from ..ops.amg import AmgHierarchy, coarse_level_values, make_pressure_solve
-from ..ops.fgmres import fgmres_solve
+from ..ops.fgmres import fgmres_solve, zero_basis
 from ..runtime.device_mesh import DeviceMesh, encode_mesh, resolve_device
 from ..runtime.host_reads import read
 from ..runtime.state import (
@@ -54,22 +69,9 @@ from .assembly import (assemble_ell, assemble_pressure, assemble_stencil,
 
 _F32_MAX = float(np.finfo(np.float32).max)
 
-# Options of SolverConfig whose code paths are not ported yet, with the
-# value that leaves them off.
-_UNPORTED = {
-    "extrapolate_guess": False, "anderson_depth": 0,
-    "fgmres_basis_bf16": False, "precond_bf16": False,
-    "fgmres_f64_norms": False, "presolve_pressure_iters": 0,
-    "fgmres_incycle_window": 0, "fgmres_mixed_phase": False,
-    "adaptive_linear_tol": False, "fgmres_recycle": 0, "precond_mom_adi": 0,
-}
 
-
-def _check_ported(mesh: DeviceMesh, config: SolverConfig) -> None:
-    on = [k for k, off in _UNPORTED.items() if getattr(config, k) != off]
-    if on:
-        raise NotImplementedError(
-            f"SolverConfig options not ported yet: {', '.join(on)}")
+def _check_supported(mesh: DeviceMesh, config: SolverConfig,
+                     amg) -> None:
     if config.precond_type == PRECOND_BLOCK_JACOBI:
         raise NotImplementedError(
             "block-Jacobi preconditioning (precond_type=2) runs on the "
@@ -78,9 +80,35 @@ def _check_ported(mesh: DeviceMesh, config: SolverConfig) -> None:
         raise NotImplementedError(
             "this generic mesh admits no banded index map; the block-ELL "
             "path it takes in the JAX package is not ported")
+    if config.precond_type == PRECOND_AMG and amg is None \
+            and mesh.structured:
+        raise NotImplementedError(
+            "precond_type=1 needs the structured multigrid, which this mesh "
+            "is too small for; the block-ELL fallback is not ported")
 
 
-def _solve_banded(mesh, state, params, config, amg, n_sweeps, frozen_amg):
+def _basis_init(state: SolverState, config: SolverConfig) -> tuple:
+    """Zero Krylov-basis seed of the recycling carry
+    (SolverConfig.fgmres_recycle): the shapes fgmres_solve returns for this
+    mesh and config, with ``j = 0``, so the first solve starts cold."""
+    bd = torch.bfloat16 if config.fgmres_basis_bf16 else torch.float32
+    return zero_basis(config.fgmres_restart, 3 * state.u.shape[0], bd,
+                      torch.float32, state.u.device)
+
+
+def _fgmres_kwargs(config: SolverConfig) -> dict:
+    """The solve options shared by every FGMRES call of a step."""
+    return dict(restart=config.fgmres_restart,
+                max_restarts=config.fgmres_max_restarts,
+                stagnation_tol=config.fgmres_stagnation_tol,
+                stagnation_limit=config.fgmres_stagnation_limit,
+                f64_norms=config.fgmres_f64_norms,
+                incycle_window=config.fgmres_incycle_window,
+                incycle_tol=config.fgmres_incycle_tol)
+
+
+def _solve_banded(mesh, state, params, config, amg, n_sweeps, tol, x0,
+                  frozen_amg, recycle):
     """Banded (unstructured) path: scalar-coefficient ELL system, banded
     kernels, Schur preconditioner with the aggregation AMG, FGMRES on
     component-major (3, N) vectors (one transpose each way per solve)."""
@@ -91,48 +119,192 @@ def _solve_banded(mesh, state, params, config, amg, n_sweeps, frozen_amg):
     # Momentum depth 8 on this path (the JAX package's choice: a sweep is
     # one fused dot, and the halved iteration count wins).
     ms = config.precond_mom_sweeps if config.precond_mom_sweeps > 0 else 8
-    x0 = torch.cat([state.u, state.p[:, None]], dim=1)
     result = fgmres_solve(
         lambda x: el.spmv(es, mesh, x),
         lambda r: el.schur_precond(es, mesh, r, config.precond_omega,
                                    n_sweeps, pressure_solve=ps,
                                    mom_sweeps=ms),
-        es.rhs.T.contiguous(), x0.T.contiguous(),
-        restart=config.fgmres_restart,
-        max_restarts=config.fgmres_max_restarts,
-        tol=config.fgmres_tol, abstol=config.fgmres_abstol,
-        stagnation_tol=config.fgmres_stagnation_tol,
-        stagnation_limit=config.fgmres_stagnation_limit)
+        es.rhs.T.contiguous(), x0.T.contiguous(), tol=tol,
+        abstol=config.fgmres_abstol,
+        basis_dtype=torch.bfloat16 if config.fgmres_basis_bf16 else None,
+        recycle=recycle, return_basis=recycle is not None,
+        **_fgmres_kwargs(config))
     return replace(result, x=result.x.T)
 
 
+def _bf16_precond(ss, ps, config, n_sweeps, mom_sweeps):
+    """The Schur preconditioner applied in bf16 on the cast coefficients
+    (SolverConfig.precond_bf16 and the mixed phase's first phase).  The
+    pressure block stays f32 on the f32 system, with a cast in and out, so
+    the V-cycle's kernel keeps taking f32."""
+    ss16 = st.cast_coeffs(ss, torch.bfloat16)
+    if ps is None:
+        ps = lambda rhs2: st.chebyshev_pressure_solve2(
+            ss, rhs2, config.precond_omega, n_sweeps)
+    ps16 = lambda rhs2: ps(rhs2.float()).to(torch.bfloat16)
+    return lambda r: st.schur_precond_planar(
+        ss16, r.to(torch.bfloat16), config.precond_omega, n_sweeps,
+        pressure_solve=ps16, mom_sweeps=mom_sweeps,
+        mom_adi=config.precond_mom_adi).float()
+
+
+def _presolve(ss, b2, x0p, ps, config, n_sweeps, mom_sweeps, tol,
+              presolve_ok):
+    """First-outer pressure presolve (SolverConfig.presolve_pressure_iters):
+    when the initial residual exceeds ``presolve_threshold`` x the Krylov
+    target, move x0 by one Schur correction with a CG pressure block
+    (:func:`st.schur_guess`), kept only if one more matvec shows it reduced
+    the residual.  The gate reads the two norms to the host (one read); the
+    guard stays on the device.  ``presolve_ok`` False skips it (the fused
+    step's later outers), None does not gate (host mode)."""
+    if presolve_ok is False:
+        return x0p
+    r0 = b2 - st.spmv_planar(ss, x0p)
+    r0n_t = torch.linalg.vector_norm(r0)
+    r0n, bn = read(torch.stack([r0n_t, torch.linalg.vector_norm(b2)]))
+    target = max(np.float32(tol) * bn, np.float32(config.fgmres_abstol))
+    if not r0n > np.float32(config.presolve_threshold) * target:
+        return x0p
+    corr = st.schur_guess(ss, r0, config.precond_omega, n_sweeps,
+                          pressure_solve=ps,
+                          cg_iters=config.presolve_pressure_iters,
+                          mom_sweeps=mom_sweeps,
+                          mom_adi=config.precond_mom_adi)
+    rn = r0 - st.spmv_planar(ss, corr)
+    return torch.where(torch.linalg.vector_norm(rn) < r0n_t, x0p + corr, x0p)
+
+
 def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
-                        frozen_amg=None):
+                        tol=None, x_guess=None, presolve_ok=None,
+                        frozen_amg=None, recycle=None):
     """Assemble the coupled system and run one Schur-preconditioned FGMRES
     solve: in stencil form on (3, ny, nx) component planes on structured
-    meshes, in ELL form on (3, N) vectors on banded ones."""
+    meshes, in ELL form on (3, N) vectors on banded ones.
+
+    ``tol``: the relative tolerance (default config.fgmres_tol);
+    ``x_guess``: the (N, 3) initial guess (default the current fields);
+    ``presolve_ok``: gate of the presolve (see :func:`_presolve`);
+    ``frozen_amg``: the step's frozen coarse operators; ``recycle``: a
+    previous solve's basis, and the result then carries its own."""
+    tol = config.fgmres_tol if tol is None else tol
+    x0 = (x_guess if x_guess is not None else
+          torch.cat([state.u, state.p[:, None]], dim=1))
     if not mesh.structured:
         return _solve_banded(mesh, state, params, config, amg, n_sweeps,
-                             frozen_amg)
+                             tol, x0, frozen_amg, recycle)
     ss = assemble_stencil(mesh, state, params, config)
     ps = (st.make_pressure_solve2(
               amg, ss, n_cycles=config.pressure_vcycles(mesh.num_cells),
               frozen=frozen_amg)
           if config.precond_type == PRECOND_AMG else None)
-    mom_sweeps = config.mom_sweeps(mesh.num_cells)
-    x0 = torch.cat([state.u, state.p[:, None]], dim=1)
-    result = fgmres_solve(
-        lambda x: st.spmv_planar(ss, x),
-        lambda r: st.schur_precond_planar(ss, r, config.precond_omega,
-                                          n_sweeps, pressure_solve=ps,
-                                          mom_sweeps=mom_sweeps),
-        st.to_planar(ss, ss.rhs), st.to_planar(ss, x0),
-        restart=config.fgmres_restart,
-        max_restarts=config.fgmres_max_restarts,
-        tol=config.fgmres_tol, abstol=config.fgmres_abstol,
-        stagnation_tol=config.fgmres_stagnation_tol,
-        stagnation_limit=config.fgmres_stagnation_limit)
+    ms = config.mom_sweeps(mesh.num_cells)
+    precond = lambda r: st.schur_precond_planar(
+        ss, r, config.precond_omega, n_sweeps, pressure_solve=ps,
+        mom_sweeps=ms, mom_adi=config.precond_mom_adi)
+    precond16 = (_bf16_precond(ss, ps, config, n_sweeps, ms)
+                 if config.precond_bf16 or config.fgmres_mixed_phase
+                 else None)
+    pc = precond16 if config.precond_bf16 else precond
+    matvec = lambda x: st.spmv_planar(ss, x)
+    b2 = st.to_planar(ss, ss.rhs)
+    x0p = st.to_planar(ss, x0)
+    if config.presolve_pressure_iters > 0:
+        x0p = _presolve(ss, b2, x0p, ps, config, n_sweeps, ms, tol,
+                        presolve_ok)
+    kw = _fgmres_kwargs(config)
+    bd = torch.bfloat16 if config.fgmres_basis_bf16 else None
+    if config.fgmres_mixed_phase:
+        # Phase 1: bf16 basis and preconditioner down to ~1e-3 relative,
+        # with no recycling; phase 2: the full tolerance in f32 from the
+        # phase-1 iterate (it derives its own true residual).
+        r1 = fgmres_solve(matvec, precond16, b2, x0p,
+                          tol=max(float(np.float32(tol) * np.float32(30.0)),
+                                  1e-3),
+                          abstol=config.fgmres_abstol * 100.0,
+                          basis_dtype=torch.bfloat16, **kw)
+        x0p = r1.x
+    result = fgmres_solve(matvec, pc, b2, x0p, tol=tol,
+                          abstol=config.fgmres_abstol, basis_dtype=bd,
+                          recycle=recycle, return_basis=recycle is not None,
+                          **kw)
+    if config.fgmres_mixed_phase:
+        result = replace(result, iterations=r1.iterations + result.iterations)
     return replace(result, x=st.from_planar(ss, result.x))
+
+
+def _anderson_mix(g, x, Gh, Fh, it: int, config: SolverConfig):
+    """One Anderson (type-II) mixing step of the outer fixed point
+    x -> G(x): ``g`` = G(x_k) and ``x`` = x_k flattened, ``Gh`` / ``Fh`` the
+    last depth+1 map outputs / residuals, newest first.  The depth x depth
+    normal equations are Tikhonov-regularized and solved on the device
+    (``solve_ex``: no singularity check, so no host read); the update falls
+    back to ``g`` when the coefficients are not finite or exceed
+    ``anderson_gamma_max``.  Returns (x_next, Gh, Fh)."""
+    m = config.anderson_depth
+    f = g - x
+    Gh = torch.cat([g[None], Gh[:-1]])
+    Fh = torch.cat([f[None], Fh[:-1]])
+    navail = min(it, m)
+    if navail == 0:
+        return g, Gh, Fh
+    mask = torch.arange(1, m + 1, device=g.device) <= navail
+    dF = torch.where(mask[:, None], Fh[0][None] - Fh[1:], 0.0)    # (m, D)
+    dG = torch.where(mask[:, None], Gh[0][None] - Gh[1:], 0.0)
+    gram = dF @ dF.T                                              # (m, m)
+    rhs = dF @ f
+    # Masked rows become identity rows with zero rhs -> gamma_i = 0.
+    eye = torch.eye(m, dtype=gram.dtype, device=g.device)
+    scale = torch.clamp(torch.trace(gram) / m, min=1e-30)
+    gram = gram + 1e-8 * scale * eye
+    gram = torch.where(mask[:, None] & mask[None, :], gram, eye)
+    rhs = torch.where(mask, rhs, 0.0)
+    gamma = torch.linalg.solve_ex(gram, rhs)[0]
+    ok = torch.all(torch.isfinite(gamma)) & (
+        torch.sqrt(torch.sum(gamma * gamma)) <= config.anderson_gamma_max)
+    return torch.where(ok, g - gamma @ dG, g), Gh, Fh
+
+
+def _extrapolated_guess(state: SolverState, params: SolverParams):
+    """First outer's temporal predictor (SolverConfig.extrapolate_guess):
+    u + (dt/dt_old)(u - u_old_old) beside the current p, as (N, 3)."""
+    beta = params.dt / torch.clamp(params.dt_old, min=1e-30)
+    u_g = state.u + beta * (state.u - state.u_old_old)
+    return torch.cat([u_g, state.p[:, None]], dim=1)
+
+
+def _lin_tol(config: SolverConfig, it: int):
+    """Inexact-Newton forcing (SolverConfig.adaptive_linear_tol):
+    max(fgmres_tol, 10^-(3+it)); None keeps fgmres_tol."""
+    if not config.adaptive_linear_tol:
+        return None
+    return max(config.fgmres_tol, 10.0 ** -(3 + it))
+
+
+def _relaxed_update(state, params, config, x, it: int, aa):
+    """Under-relaxed field update (update_fields_from_coupled.wgsl) with the
+    alpha ramp, then Anderson mixing when ``aa`` holds its history.
+    Returns (u_new, p_new, aa)."""
+    alpha_u = params.alpha_u
+    if config.alpha_u_final > 0 and it >= config.alpha_ramp_after:
+        alpha_u = torch.tensor(config.alpha_u_final, dtype=torch.float32,
+                               device=state.u.device)
+    u_new = state.u + alpha_u * (x[:, 0:2] - state.u)
+    p_new = state.p + params.alpha_p * (x[:, 2] - state.p)
+    if aa is not None:
+        g = torch.cat([u_new, p_new[:, None]], dim=1).reshape(-1)
+        x_cur = torch.cat([state.u, state.p[:, None]], dim=1).reshape(-1)
+        x_next, Gh, Fh = _anderson_mix(g, x_cur, aa[0], aa[1], it, config)
+        xn = x_next.reshape(-1, 3)
+        u_new, p_new, aa = xn[:, 0:2], xn[:, 2], (Gh, Fh)
+    return u_new, p_new, aa
+
+
+def _anderson_init(mesh: DeviceMesh, config: SolverConfig, device):
+    if not config.anderson_depth:
+        return None
+    z = torch.zeros((config.anderson_depth + 1, mesh.num_cells * 3),
+                    dtype=torch.float32, device=device)
+    return z, z
 
 
 def _plateau_update(du_ok, dp_ref, diff_u, diff_p, config: SolverConfig):
@@ -188,19 +360,19 @@ def check_evolution(state: SolverState, config: SolverConfig,
 
 
 def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
-         config: SolverConfig, amg=None) -> SolverState:
+         config: SolverConfig, amg=None, krylov=None):
     """Advance one timestep (reference GpuSolver::step -> step_coupled).
 
     ``amg``: the hierarchy used when ``config.precond_type == PRECOND_AMG``
     (StructuredAmgHierarchy on structured meshes, AmgHierarchy on banded
     ones; a banded mesh too small for a hierarchy takes the Chebyshev
-    pressure relaxation, as in the JAX package)."""
-    _check_ported(mesh, config)
-    if config.precond_type == PRECOND_AMG and amg is None \
-            and mesh.structured:
-        raise NotImplementedError(
-            "precond_type=1 needs the structured multigrid, which this mesh "
-            "is too small for; the block-ELL fallback is not ported")
+    pressure relaxation, as in the JAX package).
+
+    ``krylov``: with ``config.fgmres_recycle >= 2``, the previous step's
+    Krylov basis tuple (or a zero seed): the first outer's solve then
+    recycles it, and the step returns ``(state, krylov')`` instead of
+    ``state``."""
+    _check_supported(mesh, config, amg)
     n_sweeps = config.pressure_sweeps(mesh.num_cells)
     dev = state.u.device
 
@@ -222,6 +394,15 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
         elif isinstance(amg, AmgHierarchy):
             frozen_amg = coarse_level_values(amg, P_diag, P_off)
 
+    aa = _anderson_init(mesh, config, dev)
+    # Krylov recycling across the outers (SolverConfig.fgmres_recycle): the
+    # previous solve's basis is carried; outer 0 sees the zero seed, or the
+    # previous step's basis when recycling across steps.
+    kry = _basis_init(state, config) if config.fgmres_recycle else None
+    cross_step = config.fgmres_recycle >= 2 and krylov is not None
+    if cross_step:
+        kry = krylov
+
     max_iters = max(config.n_outer_correctors, 10)
     prev_du = prev_dp = dp_ref = _F32_MAX
     du_ok = 0
@@ -232,17 +413,17 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
         # (coupled_solver.rs:166-189).
         if config.scheme != SCHEME_UPWIND or it > 0:
             state = prepare(mesh, state, params, config)
+        x_guess = (_extrapolated_guess(state, params)
+                   if config.extrapolate_guess and it == 0 else None)
         result = _assemble_and_solve(mesh, state, params, config, amg,
-                                     n_sweeps, frozen_amg=frozen_amg)
+                                     n_sweeps, _lin_tol(config, it),
+                                     x_guess=x_guess, presolve_ok=it == 0,
+                                     frozen_amg=frozen_amg, recycle=kry)
+        if kry is not None:
+            kry = result.basis
 
-        # Under-relaxed field update + max-diff
-        # (update_fields_from_coupled.wgsl), with the alpha ramp.
-        alpha_u = params.alpha_u
-        if config.alpha_u_final > 0 and it >= config.alpha_ramp_after:
-            alpha_u = torch.tensor(config.alpha_u_final, dtype=torch.float32,
-                                   device=dev)
-        u_new = state.u + alpha_u * (result.x[:, 0:2] - state.u)
-        p_new = state.p + params.alpha_p * (result.x[:, 2] - state.p)
+        u_new, p_new, aa = _relaxed_update(state, params, config, result.x,
+                                           it, aa)
         diffs = torch.stack([torch.max(torch.abs(u_new - state.u)),
                              torch.max(torch.abs(p_new - state.p))])
         state = replace(state, u=u_new, p=p_new,
@@ -271,7 +452,164 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
                     linear_residual=torch.tensor(lr, dtype=torch.float32,
                                                  device=dev),
                     linear_iters_total=torch.tensor(lt, **i32))
+    state = check_evolution(state, config, valid=mesh.c_valid)
+    if cross_step:
+        return state, kry
+    return state
+
+
+# ----------------------------------------------------------------------
+# Host-controlled variant (the JAX package's ``mode="host"``): the outer
+# loop with its own exits, one outer corrector per call of
+# :func:`outer_iteration`.  Unlike :func:`step` it rebuilds the coarse
+# operators every outer, does not gate the presolve to the first outer and
+# does not recycle Krylov bases, as in the JAX package.
+
+
+def begin_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
+               config: SolverConfig) -> SolverState:
+    state = replace(state, u_old_old=state.u_old, u_old=state.u,
+                    linear_iters_total=torch.zeros(
+                        (), dtype=torch.int32, device=state.u.device))
+    return prepare(mesh, state, params, config)
+
+
+def outer_iteration(mesh: DeviceMesh, state: SolverState,
+                    params: SolverParams, config: SolverConfig, amg=None,
+                    do_prepare: bool = True, lin_tol=None, aa=None,
+                    it: int = 0):
+    """One outer corrector: (prepare) -> assemble -> solve -> update.
+    Returns (state, diff_u, diff_p, aa) with the max-diffs as 0-d device
+    tensors; ``aa`` is the Anderson history pair (or None)."""
+    _check_supported(mesh, config, amg)
+    n_sweeps = config.pressure_sweeps(mesh.num_cells)
+    if do_prepare:
+        state = prepare(mesh, state, params, config)
+    x_guess = (_extrapolated_guess(state, params)
+               if config.extrapolate_guess and it == 0 else None)
+    result = _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
+                                 lin_tol, x_guess=x_guess)
+    u_new, p_new, aa = _relaxed_update(state, params, config, result.x, it,
+                                       aa if config.anderson_depth else None)
+    diff_u = torch.max(torch.abs(u_new - state.u))
+    diff_p = torch.max(torch.abs(p_new - state.p))
+    i32 = dict(dtype=torch.int32, device=state.u.device)
+    state = replace(state, u=u_new, p=p_new,
+                    outer_residual_u=diff_u, outer_residual_p=diff_p,
+                    linear_iters=torch.tensor(result.iterations, **i32),
+                    linear_residual=torch.tensor(
+                        result.residual, dtype=torch.float32,
+                        device=state.u.device),
+                    linear_iters_total=(state.linear_iters_total
+                                        + result.iterations))
+    return state, diff_u, diff_p, aa
+
+
+def finish_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
+                config: SolverConfig) -> SolverState:
+    state = replace(state, time=state.time + params.dt)
     return check_evolution(state, config, valid=mesh.c_valid)
+
+
+def step_host(mesh: DeviceMesh, state: SolverState, params: SolverParams,
+              config: SolverConfig, amg=None,
+              verbose: bool = False) -> SolverState:
+    """Host-controlled timestep with per-outer convergence reads; raises
+    ``FloatingPointError`` when an outer's max-diffs are NaN."""
+    state = begin_step(mesh, state, params, config)
+    max_iters = max(config.n_outer_correctors, 10)
+    prev_du = prev_dp = float("inf")
+    du_ok = 0
+    dp_ref = float("inf")
+    aa = _anderson_init(mesh, config, state.u.device)
+    for it in range(max_iters):
+        do_prep = it > 0 or config.scheme != SCHEME_UPWIND
+        state, du, dp, aa = outer_iteration(
+            mesh, state, params, config, amg, do_prepare=do_prep,
+            lin_tol=_lin_tol(config, it), aa=aa, it=it)
+        du, dp = (float(v) for v in read(torch.stack([du, dp])))
+        if verbose:
+            print(f"  outer {it}: du={du:.2e} dp={dp:.2e} "
+                  f"lin_it={int(state.linear_iters)} "
+                  f"lin_res={float(state.linear_residual):.2e}")
+        state = replace(state, outer_iters=torch.tensor(
+            it + 1, dtype=torch.int32, device=state.u.device))
+        if np.isnan(du) or np.isnan(dp):
+            raise FloatingPointError(
+                f"coupled solver diverged: NaN outer residuals at iter {it}")
+        if it > 0 and du < config.outer_tol_u and dp < config.outer_tol_p:
+            break
+        rel_u = abs(du - prev_du) / max(abs(prev_du), 1e-14)
+        rel_p = abs(dp - prev_dp) / max(abs(prev_dp), 1e-14)
+        if it > 2 and rel_u < config.outer_stagnation_factor \
+                and rel_p < config.outer_stagnation_factor:
+            break
+        # The fused path's pressure-stall gate, on host floats.
+        if du_ok == 0:
+            dp_ref = dp
+        du_ok = du_ok + 1 if du < 2.0 * config.outer_tol_u else 0
+        if config.outer_pressure_patience > 0 \
+                and du_ok >= config.outer_pressure_patience:
+            if dp > 0.5 * dp_ref:
+                break
+            du_ok = 0
+        prev_du, prev_dp = du, dp
+    return finish_step(mesh, state, params, config)
+
+
+def _max_vel(u: torch.Tensor) -> torch.Tensor:
+    return torch.max(torch.linalg.vector_norm(u, dim=1))
+
+
+def multi_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
+               config: SolverConfig, num_steps: int, amg=None):
+    """N steps of :func:`step`; a stopped state (degenerate, steady or
+    diverged) is frozen for the rest.  ``dt_old`` takes each step's dt, so
+    BDF2's ratio returns to 1 after a dt change.  Returns (state, metrics):
+    per-step 1-D device tensors, read by nobody until the caller does."""
+    rows = []
+    for _ in range(num_steps):
+        if not bool(read(state.should_stop)):
+            state = step(mesh, state, params, config, amg)
+        rows.append({"time": state.time, "outer_iters": state.outer_iters,
+                     "linear_iters": state.linear_iters,
+                     "linear_iters_total": state.linear_iters_total,
+                     "linear_residual": state.linear_residual,
+                     "outer_residual_u": state.outer_residual_u,
+                     "max_vel": _max_vel(state.u),
+                     "should_stop": state.should_stop})
+        params = replace(params, dt_old=params.dt)
+    return state, _stack_rows(rows)
+
+
+def multi_step_adaptive(mesh: DeviceMesh, state: SolverState,
+                        params: SolverParams, config: SolverConfig,
+                        num_steps: int, target_cfl: float = 0.5,
+                        min_cell_size: float = 0.05, amg=None):
+    """N adaptive-dt steps: the reference app's CFL controller
+    (ui/app.rs:878-909) on the device — dt = target_cfl * h / max|u|
+    clipped to [1e-5, 0.1], at most 1.2x the last dt, held while
+    max|u| <= 1e-6.  Returns (state, params, metrics)."""
+    rows = []
+    for _ in range(num_steps):
+        max_vel = _max_vel(state.u)
+        new_dt = torch.clamp(
+            torch.full_like(max_vel, target_cfl * min_cell_size)
+            / torch.clamp(max_vel, min=1e-6), 1e-5, 0.1)
+        new_dt = torch.minimum(new_dt, params.dt * 1.2)
+        new_dt = torch.where(max_vel > 1e-6, new_dt, params.dt)
+        params = replace(params, dt_old=params.dt, dt=new_dt)
+        if not bool(read(state.should_stop)):
+            state = step(mesh, state, params, config, amg)
+        rows.append({"time": state.time, "dt": params.dt, "max_vel": max_vel,
+                     "outer_iters": state.outer_iters,
+                     "should_stop": state.should_stop})
+    return state, params, _stack_rows(rows)
+
+
+def _stack_rows(rows: list) -> dict:
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]} \
+        if rows else {}
 
 
 class CoupledSolver:
@@ -295,6 +633,7 @@ class CoupledSolver:
         self.params = params or SolverParams.default(device=self.device)
         self.state = initial_state(self.mesh)
         self._amg = None
+        self._krylov = None   # cross-step recycling (fgmres_recycle >= 2)
 
     def _f32(self, v) -> torch.Tensor:
         return torch.tensor(float(v), dtype=torch.float32, device=self.device)
@@ -367,6 +706,12 @@ class CoupledSolver:
     def get_u(self) -> np.ndarray:
         return self.mesh.to_host_order(self.state.u).cpu().numpy()
 
+    def max_velocity_device(self) -> torch.Tensor:
+        """max |u| as an unfetched 0-d device tensor: a host loop hands it
+        to :class:`..runtime.async_reader.AsyncFieldReader` and overlaps the
+        4-byte read with the next step (reference async_buffer.rs)."""
+        return _max_vel(self.state.u)
+
     def get_p(self) -> np.ndarray:
         return self.mesh.to_host_order(self.state.p).cpu().numpy()
 
@@ -385,40 +730,52 @@ class CoupledSolver:
 
     def step(self, mode: str = "fused"):
         """Advance one timestep.  ``mode="fused"`` runs :func:`step` (the
-        outer loop in Python with one host read per outer corrector); the
-        JAX package's ``mode="host"`` variant is not ported."""
-        if mode != "fused":
-            raise NotImplementedError(f"step mode {mode!r} is not ported")
-        self.state = step(self.mesh, self.state, self.params, self.config,
-                          self._get_amg())
+        outer loop in Python with one host read per outer corrector);
+        ``mode="host"`` runs :func:`step_host`."""
+        amg = self._get_amg()
+        if mode == "host":
+            self.state = step_host(self.mesh, self.state, self.params,
+                                   self.config, amg)
+        elif mode != "fused":
+            raise ValueError(f"unknown step mode {mode!r}")
+        elif self.config.fgmres_recycle >= 2:
+            # Cross-step Krylov recycling: the basis tuple is carried here,
+            # outside SolverState (2(m+1)·3N floats: not checkpointed).
+            if self._krylov is None:
+                self._krylov = _basis_init(self.state, self.config)
+            self.state, self._krylov = step(self.mesh, self.state,
+                                            self.params, self.config, amg,
+                                            self._krylov)
+        else:
+            self.state = step(self.mesh, self.state, self.params,
+                              self.config, amg)
         # The step just taken becomes the BDF2 history step.
         if self.params.dt_old is not self.params.dt:
             self.params = replace(self.params, dt_old=self.params.dt)
 
     def run(self, num_steps: int) -> dict:
-        """Run N steps (one :meth:`step` each, none once ``should_stop``);
-        returns per-step metrics as host arrays, as the JAX package's
-        ``run`` does."""
-        keys = ("time", "outer_iters", "linear_iters", "linear_iters_total",
-                "linear_residual", "outer_residual_u", "max_vel",
-                "should_stop")
-        rows = {k: [] for k in keys}
-        for _ in range(num_steps):
-            if not self.should_stop:
-                self.step()
-            s = self.state
-            vals = torch.stack([
-                s.time, s.outer_iters.float(), s.linear_iters.float(),
-                s.linear_iters_total.float(), s.linear_residual,
-                s.outer_residual_u,
-                torch.max(torch.linalg.vector_norm(s.u, dim=1)),
-                s.should_stop.float()])
-            for k, v in zip(keys, read(vals)):
-                rows[k].append(v)
-        ints = ("outer_iters", "linear_iters", "linear_iters_total")
-        return {k: np.asarray(v, np.int32 if k in ints else
-                              bool if k == "should_stop" else np.float32)
-                for k, v in rows.items()}
+        """Run N steps through :func:`multi_step` (none once
+        ``should_stop``); returns per-step metrics as host arrays.  As in
+        the JAX package it does not carry the cross-step Krylov basis, so
+        ``fgmres_recycle=2`` recycles only across the outers of a step."""
+        self.state, metrics = multi_step(self.mesh, self.state, self.params,
+                                         self.config, num_steps,
+                                         self._get_amg())
+        if num_steps > 0:
+            self.params = replace(self.params, dt_old=self.params.dt)
+        return {k: read(v) for k, v in metrics.items()}
+
+    # --- checkpoint/resume (runtime/checkpoint.py) ---
+    def save_checkpoint(self, path):
+        from ..runtime.checkpoint import save_checkpoint
+        save_checkpoint(path, self.state, self.params)
+
+    def load_checkpoint(self, path):
+        from ..runtime.checkpoint import load_checkpoint
+        state, params = load_checkpoint(path, device=self.device)
+        self.state = state
+        if params is not None:
+            self.params = params
 
     # --- status (reference structs.rs should_stop / counters) ---
     @property

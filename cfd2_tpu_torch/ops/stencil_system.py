@@ -4,7 +4,11 @@ Port of ``cfd2_tpu.ops.stencil_system``: the coupled (u, v, p) system is kept
 as the 6 structurally nonzero block entries per directional slot, each a
 (4, ny, nx) plane, plus (ny, nx) diagonals, and every operator application is
 a stencil of edge-clamped shifts and multiply-adds on (ny, nx) planes.
-Vectors of the Krylov solve are (3, ny, nx) component planes.
+Vectors of the Krylov solve are (3, ny, nx) component planes; ``spmv`` and
+``schur_precond`` also take (N, 3) interleaved vectors, as the JAX package's
+first forms do.  Beside the Jacobi momentum predict the preconditioner has
+its red-black and ADI (truncated-PCR line solve) forms, and the presolve's
+pressure CG (``pcg_pressure``, ``schur_guess``) lives here too.
 
 Off-diagonal coefficients are identically zero at boundary/extra slots (the
 assembly multiplies them by the internal-face mask), so edge-clamped shifts
@@ -13,7 +17,7 @@ never contribute.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -57,6 +61,29 @@ class StencilSystem:
     rhs: torch.Tensor            # (N, 3)
 
 
+def cast_coeffs(ss: StencilSystem, dtype) -> StencilSystem:
+    """Copy of ``ss`` with every coefficient plane cast to ``dtype``
+    (``grid`` and ``rhs`` kept): the bf16 Schur preconditioner reads it
+    (SolverConfig.precond_bf16) while the matvec keeps the f32 system."""
+    return StencilSystem(**{
+        f.name: (getattr(ss, f.name) if f.name in ("grid", "rhs")
+                 else getattr(ss, f.name).to(dtype))
+        for f in fields(StencilSystem)})
+
+
+def _split3(x: torch.Tensor, grid):
+    """(N, 3) interleaved -> its three (ny, nx) component grids."""
+    ny, nx = grid
+    return (x[:, 0].reshape(ny, nx), x[:, 1].reshape(ny, nx),
+            x[:, 2].reshape(ny, nx))
+
+
+def spmv(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
+    """y = A x on (N, 3) interleaved vectors (the JAX package's first form;
+    the same arithmetic as :func:`spmv_planar`)."""
+    return from_planar(ss, spmv_planar(ss, torch.stack(_split3(x, ss.grid))))
+
+
 def spmv_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
     """y = A x with x, y of shape (3, ny, nx) (component planes)."""
     xu, xv, xp = x[0], x[1], x[2]
@@ -87,41 +114,198 @@ def chebyshev_pressure_solve2(ss: StencilSystem, rhs_p2: torch.Tensor,
     return x_cur
 
 
-def _momentum_solve(ss: StencilSystem, r_u, r_v, sweeps: int):
+def _momentum_solve(ss: StencilSystem, r_u, r_v, sweeps: int,
+                    rbgs: bool = False):
     """Approximate A_uu^{-1} applied to (r_u, r_v): Jacobi iteration seeded
     with the diagonal predict.  ``sweeps=1`` is the reference's SIMPLE
     diagonal approximation (schur_precond.wgsl:19-34); extra sweeps fold
-    the momentum off-diagonals in."""
+    the momentum off-diagonals in.  ``rbgs=True`` makes each sweep a
+    red-black Gauss-Seidel sweep (two coloured half-passes)."""
     z_u = ss.diag_u_inv2 * r_u
     z_v = ss.diag_u_inv2 * r_v
+    if not rbgs:
+        for _ in range(sweeps - 1):
+            z_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _shifts2(z_u)))
+            z_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _shifts2(z_v)))
+        return z_u, z_v
+    ny, nx = ss.grid
+    dev = r_u.device
+    color = (torch.arange(ny, device=dev)[:, None]
+             + torch.arange(nx, device=dev)[None, :]) % 2
     for _ in range(sweeps - 1):
-        z_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _shifts2(z_u)))
-        z_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _shifts2(z_v)))
+        for c in (0, 1):
+            zn_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _shifts2(z_u)))
+            zn_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _shifts2(z_v)))
+            z_u = torch.where(color == c, zn_u, z_u)
+            z_v = torch.where(color == c, zn_v, z_v)
     return z_u, z_v
+
+
+def _shift_along(x: torch.Tensor, s: int, axis: int,
+                 fill: float) -> torch.Tensor:
+    """Value from index i+s along ``axis`` (s may be negative), edges filled
+    with ``fill``."""
+    n = x.shape[axis]
+    pad = torch.full_like(x.narrow(axis, 0, abs(s)), fill)
+    if s > 0:
+        return torch.cat([x.narrow(axis, s, n - s), pad], dim=axis)
+    return torch.cat([pad, x.narrow(axis, 0, n + s)], dim=axis)
+
+
+def pcr_line_solve(a, b, c, r, axis: int, steps: int = 4) -> torch.Tensor:
+    """Approximate batched tridiagonal solve along ``axis`` by truncated
+    parallel cyclic reduction: row i couples (a_i, b_i, c_i) to
+    (i-1, i, i+1); step k eliminates the couplings at distance 2^k, and
+    ``steps`` steps end in a diagonal solve.  Boundary rows carry
+    a_0 = c_last = 0, which PCR propagates, so zero-filled shifts are
+    exact."""
+    for k in range(steps):
+        s = 1 << k
+        b_m = _shift_along(b, -s, axis, 1.0)
+        b_p = _shift_along(b, +s, axis, 1.0)
+        a_m = _shift_along(a, -s, axis, 0.0)
+        c_m = _shift_along(c, -s, axis, 0.0)
+        a_p = _shift_along(a, +s, axis, 0.0)
+        c_p = _shift_along(c, +s, axis, 0.0)
+        r_m = _shift_along(r, -s, axis, 0.0)
+        r_p = _shift_along(r, +s, axis, 0.0)
+        alpha = a / b_m
+        gamma = c / b_p
+        b = b - alpha * c_m - gamma * a_p
+        r = r - alpha * r_m - gamma * r_p
+        a = -alpha * a_m
+        c = -gamma * c_p
+    return r / b
+
+
+def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
+                        steps: int = 4):
+    """ADI line-relaxation momentum predict: implicit tridiagonal solves
+    (truncated PCR) along x, then along y, the transverse coupling taken
+    explicitly.  Slots: off_mom[0]=E (x+1), [1]=W, [2]=N (y+1), [3]=S."""
+    cE, cW, cN, cS = (ss.off_mom[0], ss.off_mom[1], ss.off_mom[2],
+                      ss.off_mom[3])
+    b = 1.0 / ss.diag_u_inv2
+    z_u = torch.zeros_like(r_u)
+    z_v = torch.zeros_like(r_v)
+    for _ in range(passes):
+        # implicit in x, explicit in y
+        rhs_u = r_u - _dot4(ss.off_mom, _shifts2(z_u)) \
+            + cE * _shift_along(z_u, 1, 1, 0.0) \
+            + cW * _shift_along(z_u, -1, 1, 0.0)
+        rhs_v = r_v - _dot4(ss.off_mom, _shifts2(z_v)) \
+            + cE * _shift_along(z_v, 1, 1, 0.0) \
+            + cW * _shift_along(z_v, -1, 1, 0.0)
+        z_u = pcr_line_solve(cW, b, cE, rhs_u, axis=1, steps=steps)
+        z_v = pcr_line_solve(cW, b, cE, rhs_v, axis=1, steps=steps)
+        # implicit in y, explicit in x
+        rhs_u = r_u - cE * _shift_along(z_u, 1, 1, 0.0) \
+            - cW * _shift_along(z_u, -1, 1, 0.0)
+        rhs_v = r_v - cE * _shift_along(z_v, 1, 1, 0.0) \
+            - cW * _shift_along(z_v, -1, 1, 0.0)
+        z_u = pcr_line_solve(cS, b, cN, rhs_u, axis=0, steps=steps)
+        z_v = pcr_line_solve(cS, b, cN, rhs_v, axis=0, steps=steps)
+    return z_u, z_v
+
+
+def _momentum_predict(ss: StencilSystem, mom_sweeps: int, mom_rbgs: bool,
+                      mom_adi: int):
+    """The momentum block of the Schur preconditioner as a function of
+    (r_u, r_v): ``mom_adi`` ADI passes when > 0, else ``mom_sweeps`` Jacobi
+    (or red-black) sweeps."""
+    if mom_adi > 0:
+        return lambda a, b: _momentum_solve_adi(ss, a, b, passes=mom_adi)
+    return lambda a, b: _momentum_solve(ss, a, b, mom_sweeps, rbgs=mom_rbgs)
+
+
+def _schur_rhs(ss: StencilSystem, rp, z_u, z_v):
+    """r_p - D z: the pressure right-hand side after the momentum predict."""
+    return rp - ss.diag_pu2 * z_u - ss.diag_pv2 * z_v \
+        - _dot4(ss.off_pu, _shifts2(z_u)) - _dot4(ss.off_pv, _shifts2(z_v))
+
+
+def _gradient(ss: StencilSystem, z_p):
+    """G z_p, the (u, v) rows' pressure coupling."""
+    sp = _shifts2(z_p)
+    return (ss.diag_up2 * z_p + _dot4(ss.off_up, sp),
+            ss.diag_vp2 * z_p + _dot4(ss.off_vp, sp))
 
 
 def schur_precond_planar(ss: StencilSystem, r: torch.Tensor, omega: float,
                          n_sweeps: int, pressure_solve=None,
-                         mom_sweeps: int = 1) -> torch.Tensor:
+                         mom_sweeps: int = 1, mom_rbgs: bool = False,
+                         mom_adi: int = 0) -> torch.Tensor:
     """SIMPLE/Schur preconditioner M^{-1} r on (3, ny, nx) component planes
     (reference schur_precond.wgsl): momentum predict -> Schur RHS ->
     pressure solve -> velocity correct.  ``pressure_solve`` takes and
-    returns an (ny, nx) grid; defaults to the Chebyshev sweeps."""
-    ru, rv, rp = r[0], r[1], r[2]
-    z_u, z_v = _momentum_solve(ss, ru, rv, mom_sweeps)
-
-    rhs_p = rp - ss.diag_pu2 * z_u - ss.diag_pv2 * z_v \
-        - _dot4(ss.off_pu, _shifts2(z_u)) - _dot4(ss.off_pv, _shifts2(z_v))
-
+    returns an (ny, nx) grid; defaults to the Chebyshev sweeps.
+    ``mom_adi`` > 0 replaces the Jacobi momentum predict with that many ADI
+    passes, ``mom_rbgs`` makes its sweeps red-black."""
+    mom = _momentum_predict(ss, mom_sweeps, mom_rbgs, mom_adi)
+    z_u, z_v = mom(r[0], r[1])
+    rhs_p = _schur_rhs(ss, r[2], z_u, z_v)
     if pressure_solve is None:
         z_p = chebyshev_pressure_solve2(ss, rhs_p, omega, n_sweeps)
     else:
         z_p = pressure_solve(rhs_p)
+    gz_u, gz_v = mom(*_gradient(ss, z_p))
+    return torch.stack([z_u - gz_u, z_v - gz_v, z_p])
 
-    sp = _shifts2(z_p)
-    g_u = ss.diag_up2 * z_p + _dot4(ss.off_up, sp)
-    g_v = ss.diag_vp2 * z_p + _dot4(ss.off_vp, sp)
-    gz_u, gz_v = _momentum_solve(ss, g_u, g_v, mom_sweeps)
+
+def schur_precond(ss: StencilSystem, r: torch.Tensor, omega: float,
+                  n_sweeps: int, pressure_solve=None) -> torch.Tensor:
+    """The Schur preconditioner with the bare diagonal predict on (N, 3)
+    interleaved vectors (the JAX package's first form)."""
+    zp = schur_precond_planar(ss, torch.stack(_split3(r, ss.grid)), omega,
+                              n_sweeps, pressure_solve=pressure_solve)
+    return from_planar(ss, zp)
+
+
+def pressure_apply(ss: StencilSystem, x2: torch.Tensor) -> torch.Tensor:
+    """Scalar pressure (Schur) operator on an (ny, nx) grid: P x."""
+    return ss.P_diag2 * x2 + _dot4(ss.P_off2, _shifts2(x2))
+
+
+def pcg_pressure(ss: StencilSystem, rhs2: torch.Tensor, pressure_solve,
+                 iters: int) -> torch.Tensor:
+    """``iters`` preconditioned-CG iterations on the scalar pressure system,
+    preconditioned by ``pressure_solve`` (a V-cycle of
+    :func:`make_pressure_solve2` or the Chebyshev relaxation).  The scalars
+    stay on the device: no host read."""
+    x = torch.zeros_like(rhs2)
+    r = rhs2
+    z = pressure_solve(r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(iters):
+        Ap = pressure_apply(ss, p)
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = pressure_solve(r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(torch.abs(rz) > 1e-30, rz_new / rz, 0.0)
+        rz = rz_new
+        p = z + beta * p
+    return x
+
+
+def schur_guess(ss: StencilSystem, r: torch.Tensor, omega: float,
+                n_sweeps: int, pressure_solve=None, cg_iters: int = 8,
+                mom_sweeps: int = 1, mom_adi: int = 0) -> torch.Tensor:
+    """One SIMPLE/Schur correction whose pressure block runs ``cg_iters``
+    preconditioned-CG iterations: the first-outer initial guess of
+    the presolve (SolverConfig.presolve_pressure_iters).  It moves only the
+    start point, so the solve's rtol/atol contract is untouched."""
+    mom = _momentum_predict(ss, mom_sweeps, False, mom_adi)
+    z_u, z_v = mom(r[0], r[1])
+    rhs_p = _schur_rhs(ss, r[2], z_u, z_v)
+    if pressure_solve is None:
+        pressure_solve = lambda rr: chebyshev_pressure_solve2(
+            ss, rr, omega, n_sweeps)
+    z_p = pcg_pressure(ss, rhs_p, pressure_solve, cg_iters)
+    gz_u, gz_v = mom(*_gradient(ss, z_p))
     return torch.stack([z_u - gz_u, z_v - gz_v, z_p])
 
 
@@ -134,6 +318,11 @@ def to_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
 def from_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
     """(3, ny, nx) planes -> (N, 3) interleaved (once per solve)."""
     return x.reshape(3, -1).T
+
+
+def coarse_level_values2(hier, ss: StencilSystem):
+    """:func:`coarse_level_values2_planes` from an assembled system."""
+    return coarse_level_values2_planes(hier, ss.P_diag2, ss.P_off2)
 
 
 def coarse_level_values2_planes(hier, P_diag2, P_off2):

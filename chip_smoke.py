@@ -47,12 +47,26 @@ Phases (any failure exits non-zero):
 7. the slot-capped path: the 115,505-cell Voronoi mesh (min_cell=0.004,
    ``bd_k == 8``), its maps held the same way, 2 steps from rest;
 8. one step of a ~5k-cell Delaunay mesh on the card and on the CPU: equal
-   outer iterations, u within 1e-4 * max|u|.
+   outer iterations, u within 1e-4 * max|u|;
+9. the solver's options and other entry points: on phase 3's developed 1M
+   state after healing (restored before each run), one step with each
+   option of ``OPTION_RUNS``, two host-mode steps (outer counts within 1 of
+   phase 3's first two timed steps), two steps recycling the Krylov basis
+   across steps, two ``multi_step_adaptive`` steps, a checkpoint round trip
+   (a fresh solver loaded from it steps bit for bit as the original), and
+   the presolve on a from-rest first step beside the same step without it;
+   on phase 6's Delaunay solver one step with the bf16 basis and recycling
+   (all three banded kernels launched); on the ~5k-cell meshes of phases 5
+   and 8 every option for one step on the card and on the CPU (equal outer
+   counts, u within 1e-4 * max|u|).  Each structured run on the card must
+   launch ``rbgs_leg``; per run it logs outers, FGMRES iterations per
+   outer, wall time and launches.
 
 Then the kernels' JSON line and the result line are printed.
 
-``--phases 1,2`` runs only the listed phases (for bring-up); the result line
-is printed only when every phase ran.
+``--phases 1,2`` runs only the listed phases (for bring-up: ``1,3,9`` runs
+phase 9 on the 1M state alone, leaving out its Delaunay run); the result
+line is printed only when every phase ran.
 
 ``--tree PATH`` runs phases 1 and 2 on the ``cfd2_tpu_torch`` of another
 checkout of this repository unpacked inside this one (for example the parent
@@ -90,7 +104,23 @@ DELAUNAY_LEVELS = (59_490, 5_227, 550, 112, 62)
 VORONOI_MIN_CELL, VORONOI_CELLS = 0.004, 115_505
 BANDED_SRC = "cfd2_tpu_torch/csrc/banded.cu"
 BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+# Phase 9: one step of each SolverConfig option on the developed 1M state
+# and on the small meshes (the Delaunay ones take those that act on the
+# banded path, as in the JAX package).
+OPTION_RUNS = (
+    ("fgmres_basis_bf16", dict(fgmres_basis_bf16=True)),
+    ("precond_bf16", dict(precond_bf16=True)),
+    ("fgmres_mixed_phase", dict(fgmres_mixed_phase=True)),
+    ("precond_mom_adi=1", dict(precond_mom_adi=1)),
+    ("fgmres_incycle_window=5", dict(fgmres_incycle_window=5)),
+    ("extrapolate_guess", dict(extrapolate_guess=True)),
+    ("adaptive_linear_tol", dict(adaptive_linear_tol=True)),
+    ("fgmres_recycle=1", dict(fgmres_recycle=1)),
+    ("anderson_depth=2", dict(anderson_depth=2)),
+    ("fgmres_f64_norms", dict(fgmres_f64_norms=True)),
+)
+STRUCTURED_ONLY = ("precond_bf16", "fgmres_mixed_phase", "precond_mom_adi=1")
 
 
 class PhaseError(RuntimeError):
@@ -777,6 +807,7 @@ def phase_main(results, ctx):
     check(len(amg.levels) == len(grids)
           and tuple(amg.levels[-1].grid) == coarsest,
           "hierarchy does not match the expected level grids")
+    ctx["rest"] = (s.state, s.params)   # phase 9's presolve step
     meta = load_developed_state(s, ROOT / "bench_developed_1m.npz")
     torch.cuda.synchronize()
     log(f"phase 3: solver set-up {time.time() - t0:.1f} s; "
@@ -812,7 +843,8 @@ def phase_main(results, ctx):
             f"launches {step_launch}")
         check(_finite(s), f"non-finite fields after step {i}")
     leg = sk.LAUNCHES["rbgs_leg"]
-    results["rbgs_leg"]["launches"] = leg
+    if "rbgs_leg" in results:          # phase 2 ran and made the entry
+        results["rbgs_leg"]["launches"] = leg
     check(leg > 0, "rbgs_leg was never launched on the main path")
     per_apply = 2 * len(grids)
     check(leg == per_apply * lin_total,
@@ -870,7 +902,8 @@ def phase_half_sweep(results, ctx):
             os.environ.pop("CFD2_PALLAS")
         else:
             os.environ["CFD2_PALLAS"] = old
-    results["rbgs_half_sweep"]["launches"] = counts["rbgs_half_sweep"]
+    if "rbgs_half_sweep" in results:
+        results["rbgs_half_sweep"]["launches"] = counts["rbgs_half_sweep"]
     per_apply = 2 * 2 * len(grids)   # 2 half-sweeps x 2 smooths per level
     log(f"phase 4: {MAIN_CELLS} cells, launches {counts} over {lin_total} "
         f"FGMRES iterations ({per_apply} half-sweeps per V-cycle)")
@@ -1071,6 +1104,11 @@ def _check_prolongation(phase, s):
         f"kernels, {n_prol} fused prolongations, {n_gath} gathers, "
         f"{counted} counted under banded_gather; with the gather, product "
         f"and sum: {n_e} kernels; results bit-equal: {same}")
+    diff = {k: k_eager.get(k, 0) - k_fused.get(k, 0)
+            for k in sorted(set(k_eager) | set(k_fused))
+            if k_eager.get(k, 0) != k_fused.get(k, 0)}
+    log(f"phase {phase}: device kernels by name, the gather, product and "
+        f"sum less the fused form: {diff}")
     check(n_prol == L and n_gath == 0 and counted == L,
           f"the V-cycle did not prolong through one fused launch per level")
     check(n_e - n_f == 2 * L, f"the fused prolongation saves {n_e - n_f} "
@@ -1124,7 +1162,7 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
     return counts, lin_total
 
 
-def phase_delaunay(results):
+def phase_delaunay(results, ctx):
     import torch
     from cfd2_tpu_torch import generate_delaunay_mesh
 
@@ -1150,6 +1188,7 @@ def phase_delaunay(results):
           f"hierarchy levels {sizes} != {DELAUNAY_LEVELS}")
     _hold_on_solver_maps(6, s, results)
     counts, lin_total = _drive_unstructured(6, s, mesh.num_cells, 3)
+    ctx["delaunay"] = s
     for name, cnt in counts.items():
         if name in results:
             results[name]["launches"] = cnt
@@ -1208,9 +1247,224 @@ def phase_delaunay_cpu_match():
           "card and CPU velocities disagree")
 
 
+# ----------------------------------------------------------------------
+# Phase 9: the options and the other entry points.
+
+
+def _outer_slack(opts) -> int:
+    """Outer-count slack of card against CPU: 2 with Anderson mixing, whose
+    later outers extrapolate differences at the linear solves' rtol (the
+    CPU parity tests measured the same against the JAX package), else 0."""
+    return 2 if opts.get("anderson_depth") else 0
+
+
+def _record_solves():
+    """Wrap the solver's per-outer solve to record each one's FGMRES
+    iterations; returns (list, restore)."""
+    from cfd2_tpu_torch.models import coupled
+    orig = coupled._assemble_and_solve
+    its = []
+
+    def recorded(*a, **k):
+        r = orig(*a, **k)
+        its.append(r.iterations)
+        return r
+
+    coupled._assemble_and_solve = recorded
+    return its, lambda: setattr(coupled, "_assemble_and_solve", orig)
+
+
+def _timed_steps(s, n, mode="fused", step=None):
+    """``n`` steps of ``s`` (or of ``step()``) with the launch counts zeroed
+    just before and read just after; returns the rows (outers, FGMRES
+    iterations per outer, wall s) and the counts."""
+    import torch
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    rows = []
+    sk.reset_launches()
+    bk.reset_launches()
+    for _ in range(n):
+        its, restore = _record_solves()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            if step is None:
+                s.step(mode=mode)
+            else:
+                step()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        rows.append((int(s.state.outer_iters), its,
+                     time.perf_counter() - t))
+        check(_finite(s), "non-finite fields")
+    return rows, {**sk.LAUNCHES, **bk.LAUNCHES}
+
+
+def _log_run(label, rows, counts):
+    for i, (outer, its, wall) in enumerate(rows):
+        log(f"phase 9: {label} step {i}: outer_iters {outer}, FGMRES "
+            f"iterations {sum(its)} per outer {its}, wall {wall:.4f} s")
+    log(f"phase 9: {label} launches {counts}")
+
+
+def _options_card_vs_cpu(make, label, opts, mode="fused", structured=True):
+    """One step of a fresh small-mesh solver with ``opts`` on the card and
+    on the CPU (``make(device)``): outer counts equal (within the Anderson
+    slack), u within 1e-4 * max|u|, and the path's kernels launched on the
+    card.  Returns (outers card, outers cpu, max|du|, limit)."""
+    from dataclasses import replace
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        s = make(dev)
+        s.config = replace(s.config, **opts)
+        if dev == "cuda":
+            rows, counts = _timed_steps(s, 1, mode=mode)
+        else:
+            s.step(mode=mode)
+        runs[dev] = (int(s.state.outer_iters), s.get_u())
+    (o_gpu, u_gpu), (o_cpu, u_cpu) = runs["cuda"], runs["cpu"]
+    limit = 1e-4 * float(np.abs(u_cpu).max())
+    err = float(np.abs(u_gpu - u_cpu).max())
+    names = (("rbgs_leg",) if structured else
+             ("banded_gather", "banded_dot", "banded_jacobi_sweeps"))
+    check(all(counts[k] > 0 for k in names),
+          f"{label}: {names} not all launched on the card: {counts}")
+    check(abs(o_gpu - o_cpu) <= _outer_slack(opts),
+          f"{label}: outer iterations card {o_gpu}, cpu {o_cpu}")
+    check(np.isfinite(u_gpu).all() and err <= limit,
+          f"{label}: card and CPU velocities disagree: {err:.3e} > "
+          f"{limit:.3e}")
+    return o_gpu, o_cpu, err, limit
+
+
+def _small_solvers():
+    from cfd2_tpu_torch import generate_delaunay_mesh
+    channel = _channel(0.025)
+    delaunay = generate_delaunay_mesh(_obstacle_geo(), 0.025, 0.025, 1.2,
+                                      (3.0, 1.0))
+    return ((lambda dev: _solver(channel, 0.025, dev), True),
+            (lambda dev: _unstructured_solver(delaunay, 0.025, dev), False))
+
+
+def _small_option_runs(structured):
+    runs = [(label, opts, "fused") for label, opts in OPTION_RUNS
+            if structured or label not in STRUCTURED_ONLY]
+    runs.append(("host mode", {}, "host"))
+    if structured:
+        runs.append(("presolve_pressure_iters=8",
+                     dict(presolve_pressure_iters=8), "fused"))
+    return runs
+
+
+def phase_options(ctx):
+    import tempfile
+    from dataclasses import replace
+    import torch
+    from cfd2_tpu_torch import CoupledSolver
+    from cfd2_tpu_torch.models.coupled import multi_step_adaptive
+
+    check("main" in ctx, "phase 9 steps phase 3's developed state: run "
+          "phase 3 with it")
+    main = ctx["main"]
+    s = main["solver"]
+    base = s.config
+
+    def restore(state=None, params=None, **opts):
+        s.state = main["state"] if state is None else state
+        s.params = main["params"] if params is None else params
+        s.config = replace(base, **opts)
+        s._krylov = None
+
+    def run(label, n=1, mode="fused", step=None):
+        rows, counts = _timed_steps(s, n, mode=mode, step=step)
+        _log_run(label, rows, counts)
+        check(counts["rbgs_leg"] > 0, f"{label}: rbgs_leg never launched")
+        return rows
+
+    log(f"phase 9: options on the developed {MAIN_CELLS}-cell state "
+        f"(phase 3's timed steps: {main['timed']})")
+    for label, opts in (("default", {}),) + OPTION_RUNS:
+        restore(**opts)
+        run(label)
+    restore()
+    for i, (outer, _, _) in enumerate(run("host mode", 2, mode="host")):
+        outer3 = main["timed"][i][0]
+        check(abs(outer - outer3) <= 1, f"host-mode step {i}: {outer} "
+              f"outer iterations, phase 3's timed step {i}: {outer3}")
+    restore(fgmres_recycle=2)
+    run("fgmres_recycle=2 (across steps)", 2)
+    check(s._krylov is not None, "no Krylov basis crossed the steps")
+    restore()
+
+    def adaptive():
+        s.state, s.params, _ = multi_step_adaptive(
+            s.mesh, s.state, s.params, s.config, 1, min_cell_size=0.0017,
+            amg=s._get_amg())
+
+    run("multi_step_adaptive", 2, step=adaptive)
+    log(f"phase 9: multi_step_adaptive dt {float(s.params.dt):.6g}, "
+        f"dt_old {float(s.params.dt_old):.6g}")
+
+    # Checkpoint round trip: a fresh solver (sharing the hierarchy, which
+    # depends on the mesh alone) loaded from the file steps bit for bit as
+    # the one that wrote it.
+    restore()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        s.save_checkpoint(Path(tmp) / "ck.npz")
+        fresh = CoupledSolver(s.host_mesh, config=s.config)
+        fresh._amg = s._get_amg()
+        fresh.load_checkpoint(Path(tmp) / "ck.npz")
+    log(f"phase 9: checkpoint saved and loaded into a fresh solver in "
+        f"{time.time() - t0:.1f} s")
+    s.step()
+    fresh.step()
+    same = all(torch.equal(getattr(fresh.state, f), getattr(s.state, f))
+               for f in ("u", "p", "outer_iters", "linear_iters_total"))
+    log(f"phase 9: checkpoint step: outer_iters {int(s.state.outer_iters)} "
+        f"/ {int(fresh.state.outer_iters)}, bit-equal {same}")
+    check(same, "the solver loaded from the checkpoint stepped otherwise")
+    del fresh
+
+    # The presolve gate trips only far from the attractor: a from-rest
+    # first step, with and without it.
+    first = {}
+    for iters in (0, 8):
+        restore(*ctx["rest"], presolve_pressure_iters=iters)
+        rows = run(f"from rest, presolve_pressure_iters={iters}")
+        first[iters] = rows[0][1][0]
+    log(f"phase 9: from-rest first outer's FGMRES iterations: "
+        f"{first[0]} without the presolve, {first[8]} with it")
+    restore()
+
+    if "delaunay" in ctx:
+        d = ctx["delaunay"]
+        d.config = replace(d.config, fgmres_basis_bf16=True,
+                           fgmres_recycle=1)
+        rows, counts = _timed_steps(d, 1)
+        _log_run("Delaunay fgmres_basis_bf16 + fgmres_recycle=1", rows,
+                 counts)
+        for name in ("banded_gather", "banded_dot", "banded_jacobi_sweeps"):
+            check(counts[name] > 0, f"{name} never launched on the "
+                  "Delaunay options step")
+    else:
+        log("phase 9: phase 6 did not run: no Delaunay options step")
+
+    for make, structured in _small_solvers():
+        kind = "cut-cell" if structured else "Delaunay"
+        for label, opts, mode in _small_option_runs(structured):
+            o_gpu, o_cpu, err, limit = _options_card_vs_cpu(
+                make, f"{kind} {label}", opts, mode, structured)
+            log(f"phase 9: {kind} ~5k cells, {label}: outer_iters card "
+                f"{o_gpu} / cpu {o_cpu}, max|u_card - u_cpu| {err:.3e} "
+                f"(limit {limit:.3e})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--tree", metavar="PATH",
                     help="run phases 1 and 2 on the cfd2_tpu_torch of "
@@ -1241,9 +1495,10 @@ def main(argv=None) -> int:
              (3, lambda: phase_main(results, ctx)),
              (4, lambda: phase_half_sweep(results, ctx)),
              (5, phase_cpu_match),
-             (6, lambda: phase_delaunay(results)),
+             (6, lambda: phase_delaunay(results, ctx)),
              (7, lambda: phase_voronoi(results)),
-             (8, phase_delaunay_cpu_match)]
+             (8, phase_delaunay_cpu_match),
+             (9, lambda: phase_options(ctx))]
     for num, fn in steps:
         if num in phases:
             t0 = time.time()

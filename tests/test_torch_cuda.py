@@ -275,3 +275,76 @@ def test_banded_wrappers_refuse_bad_input(cuda):
         bk.banded_prolong_add(raw[:512:2], x, agg, 1.0)  # strided base
     with pytest.raises(TypeError):
         bk.banded_prolong_add(x.double(), x, agg, 1.0)
+
+
+# ----------------------------------------------------------------------
+# The solver's options and entry points on the card (chip_smoke.py phase
+# 9's comparisons on the small meshes, through its own helpers).
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _chip_smoke()
+_SMALL_RUNS = [(structured, label, opts, mode)
+               for structured in (True, False)
+               for label, opts, mode in _SMOKE._small_option_runs(structured)]
+
+
+@pytest.fixture(scope="module")
+def small_solvers():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return {structured: make for make, structured in _SMOKE._small_solvers()}
+
+
+@pytest.mark.parametrize(
+    "structured,label,opts,mode", _SMALL_RUNS,
+    ids=[f"{'cutcell' if r[0] else 'delaunay'}-{r[1].replace(' ', '_')}"
+         for r in _SMALL_RUNS])
+def test_option_step_card_matches_cpu(cuda, small_solvers, structured,
+                                      label, opts, mode):
+    """One step with the option on the card and on the CPU: equal outer
+    counts (within 2 with Anderson mixing), u within 1e-4 * max|u|, the
+    path's kernels launched on the card."""
+    _SMOKE._options_card_vs_cpu(small_solvers[structured], label, opts,
+                                mode, structured)
+
+
+def test_async_reader_lands_cuda_tensors(cuda):
+    from cfd2_tpu_torch.runtime.async_reader import AsyncFieldReader
+    r = AsyncFieldReader(depth=2)
+    xs = [torch.arange(1000, dtype=torch.float32, device=cuda) * (i + 1)
+          for i in range(4)]
+    for x in xs:
+        r.start_read(x.max())
+    assert float(r.get_last_value()) == float(xs[1].max())   # depth 2
+    r.start_read(xs[0])
+    np.testing.assert_array_equal(r.flush(), xs[0].cpu().numpy())
+    r.start_read(xs[3].sum())
+    torch.cuda.synchronize()
+    assert r.poll() and float(r.get_last_value()) == float(xs[3].sum())
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """Saved from the card, loaded onto it: the same bits, and one more
+    step of each solver bit-equal."""
+    make = _SMOKE._small_solvers()[0][0]
+    s = make("cuda")
+    s.step()
+    s.save_checkpoint(tmp_path / "ck.npz")
+    fresh = make("cuda")
+    fresh.load_checkpoint(tmp_path / "ck.npz")
+    assert fresh.state.u.device.type == "cuda"
+    assert torch.equal(fresh.state.u, s.state.u)
+    s.step()
+    fresh.step()
+    assert torch.equal(fresh.state.u, s.state.u)
+    assert torch.equal(fresh.state.p, s.state.p)

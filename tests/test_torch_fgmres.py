@@ -4,29 +4,23 @@ On an assembled coupled system both solve with the same operator and
 preconditioner (each package's own stencil_system): iteration counts within
 +-1 (the Givens/Gram-Schmidt sums round differently), and solutions within
 10x the solve's relative tolerance of each other (each meets rtol against
-its own operator; 10x leaves room for the two f32 operators' roundoff)."""
+its own operator; 10x leaves room for the two f32 operators' roundoff).
+The options (float64 norms, the bf16 basis, the in-cycle exit, the
+recycled warm start) are held the same way, each with its tolerance stated
+beside it."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from cfd2_tpu.mesh import ChannelWithObstacle, generate_cut_cell_mesh
-from cfd2_tpu.models.assembly import assemble_stencil as j_assemble
-from cfd2_tpu.models.assembly import prepare as j_prepare
-from cfd2_tpu.ops import amg as jamg
 from cfd2_tpu.ops import stencil_system as jst
 from cfd2_tpu.ops.fgmres import fgmres_solve as j_fgmres
-from cfd2_tpu.runtime.device_mesh import encode_mesh as jencode
 from cfd2_tpu.runtime import state as js
-from cfd2_tpu_torch.convert import params_from_arrays, state_from_arrays
-from cfd2_tpu_torch.models.assembly import assemble_stencil as t_assemble
-from cfd2_tpu_torch.ops import amg as tamg
 from cfd2_tpu_torch.ops import stencil_system as tst
 from cfd2_tpu_torch.ops.fgmres import fgmres_solve as t_fgmres
-from cfd2_tpu_torch.runtime.device_mesh import encode_mesh as tencode
 from cfd2_tpu_torch.runtime import host_reads
-from cfd2_tpu_torch.runtime import state as ts
+from torch_parity import assembled_systems
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -34,28 +28,7 @@ RTOL = 1e-5
 
 @pytest.fixture(scope="module")
 def systems():
-    geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
-    mesh = generate_cut_cell_mesh(geo, 0.05, 0.05, 1.2, (3.0, 1.0))
-    jm = jencode(mesh)
-    tm = tencode(mesh, device="cpu")
-    cfg = js.SolverConfig()
-    params = js.SolverParams.default(dt=0.01)
-    u0 = np.zeros((mesh.num_cells, 2))
-    u0[mesh.cell_cx < 0.1, 0] = 1.0
-    state = js.initial_state(jm, u0=u0)
-    state = jax.jit(j_prepare, static_argnames=("config",))(
-        jm, state, params, cfg)
-    jss = j_assemble(jm, state, params, cfg)
-    tstate = state_from_arrays({f: np.asarray(getattr(state, f))
-                                for f in ts.STATE_FIELDS}, "cpu")
-    tparams = params_from_arrays({f: np.asarray(getattr(params, f))
-                                  for f in ts.PARAMS_FIELDS}, "cpu")
-    tss = t_assemble(tm, tstate, tparams, ts.SolverConfig())
-    jh = jamg.build_structured_hierarchy(jm)
-    th = tamg.build_structured_hierarchy(tm)
-    x0 = np.concatenate([np.asarray(state.u), np.asarray(state.p)[:, None]],
-                        axis=1)
-    return jm, jss, tss, jh, th, x0
+    return assembled_systems()
 
 
 @pytest.mark.parametrize("precond", ["amg", "chebyshev"])
@@ -125,8 +98,167 @@ def test_zero_rhs_and_exact_guess_take_no_iterations():
 
 
 def test_unported_options_raise():
-    b = torch.ones(6)
-    with pytest.raises(NotImplementedError):
-        t_fgmres(lambda x: x, lambda r: r, b, b, f64_norms=True)
-    with pytest.raises(NotImplementedError):
-        t_fgmres(lambda x: x, lambda r: r, b, b, basis_dtype=torch.bfloat16)
+    """Nothing of the JAX function is refused any more: the options the
+    first slices refused (float64 norms, the bf16 basis) and the TPU layout
+    arguments (accepted and ignored) solve a small system."""
+    A = np.eye(30, dtype=np.float32) * 2.0
+    b = np.arange(30, dtype=np.float32).reshape(10, 3)
+    for kw in (dict(f64_norms=True), dict(basis_dtype=torch.bfloat16),
+               dict(flatten=False, cgs_chunk_rows=4)):
+        res = _dense(A, b, 0.5, tol=1e-6, abstol=1e-10, **kw)
+        assert res.converged and res.basis is None, kw
+        np.testing.assert_allclose(res.x.numpy(), b / 2, rtol=1e-5)
+
+
+def test_make_norm_f64_against_numpy():
+    """make_norm(True) sums the squares in float64 (numpy's float64 norm,
+    rounded to f32 once: equal within one f32 ulp); on a vector whose f32
+    squares overflow it stays finite, where the f32 norm does not.  The JAX
+    package's make_norm(True) without jax_enable_x64 is the f32 norm (a
+    deliberate difference of the port)."""
+    from cfd2_tpu.ops.fgmres import make_norm as j_make_norm
+    from cfd2_tpu_torch.ops.fgmres import make_norm
+    rng = np.random.default_rng(5)
+    nrm = make_norm(True)
+    for v in (rng.standard_normal(10_001).astype(np.float32) * 1e3,
+              np.array([3e20, 4e20, 1.0], np.float32)):
+        got = nrm(torch.as_tensor(v))
+        assert got.dtype == torch.float32
+        ref = np.float32(np.sqrt(np.sum(v.astype(np.float64) ** 2)))
+        np.testing.assert_allclose(float(got), ref, rtol=1.2e-7)
+    assert not np.isfinite(float(make_norm(False)(torch.as_tensor(v))))
+    assert not np.isfinite(float(j_make_norm(True, jax.numpy.float32)(
+        jax.numpy.asarray(v))))
+
+
+@pytest.mark.parametrize("option,slack", [
+    (dict(f64_norms=True), 1),
+    (dict(basis_dtype="bf16"), 2),
+], ids=["f64_norms", "bf16_basis"])
+def test_option_solve_matches_jax(systems, option, slack):
+    """One option of the JAX function against its port on the assembled
+    coupled system (AMG pressure block): iterations within 1 (within 2 for
+    the bf16 basis, whose rows the two packages round from slightly
+    different f32 vectors), solutions within 10x the solve's rtol."""
+    jm, jss, tss, jh, th, x0 = systems
+    n_sweeps = js.SolverConfig().pressure_sweeps(jm.num_cells)
+    jps = jst.make_pressure_solve2(jh, jss)
+    tps = tst.make_pressure_solve2(th, tss)
+    kw = dict(restart=50, max_restarts=3, tol=RTOL, abstol=1e-9)
+    jopt, topt = dict(option), dict(option)
+    if option.get("basis_dtype"):
+        jopt["basis_dtype"] = jax.numpy.bfloat16
+        topt["basis_dtype"] = torch.bfloat16
+    jr = j_fgmres(
+        lambda x: jst.spmv_planar(jss, x),
+        lambda r: jst.schur_precond_planar(jss, r, 1.2, n_sweeps,
+                                           pressure_solve=jps, mom_sweeps=8),
+        jst.to_planar(jss, jss.rhs), jst.to_planar(jss, x0), **kw, **jopt)
+    tr = t_fgmres(
+        lambda x: tst.spmv_planar(tss, x),
+        lambda r: tst.schur_precond_planar(tss, r, 1.2, n_sweeps,
+                                           pressure_solve=tps, mom_sweeps=8),
+        tst.to_planar(tss, tss.rhs), tst.to_planar(tss, torch.as_tensor(x0)),
+        **kw, **topt)
+    assert abs(tr.iterations - int(jr.iterations)) <= slack, \
+        (tr.iterations, int(jr.iterations))
+    jx = np.asarray(jr.x)
+    err = np.linalg.norm(tr.x.numpy() - jx) / np.linalg.norm(jx)
+    assert err <= 10 * RTOL
+
+
+def test_incycle_exit_matches_jax():
+    """The in-cycle stall exit on the JAX package's own case for it
+    (tests/test_fgmres.py: an unattainable tolerance, a noisy
+    preconditioner): it cuts the iterations, and the port exits where the
+    JAX package does (counts within 1, true residuals within 1e-4)."""
+    rng = np.random.default_rng(21)
+    N = 50
+    A = rng.standard_normal((3 * N, 3 * N)).astype(np.float32) * 0.3
+    A += np.eye(3 * N, dtype=np.float32) * 3.0
+    b = rng.standard_normal((N, 3)).astype(np.float32)
+    kw = dict(restart=40, max_restarts=4, tol=1e-14, abstol=1e-30)
+    full = _dense(A, b, 0.3, **kw)
+    cut = _dense(A, b, 0.3, incycle_window=12, **kw)
+    ref = _jax_dense(A, b, 0.3, incycle_window=12, **kw)
+    assert cut.iterations < full.iterations
+    assert abs(cut.iterations - int(ref.iterations)) <= 1
+    assert cut.residual == pytest.approx(float(ref.residual), rel=1e-4)
+
+
+def _perturbed_pair(seed, N, drift):
+    rng = np.random.default_rng(seed)
+    A1 = rng.standard_normal((3 * N, 3 * N)).astype(np.float32) * 0.1
+    A1 += np.eye(3 * N, dtype=np.float32) * 4.0
+    A2 = A1 + drift * rng.standard_normal((3 * N, 3 * N)).astype(np.float32)
+    b = rng.standard_normal((N, 3)).astype(np.float32)
+    return A1, A2, b
+
+
+def test_recycle_zero_seed_is_noop():
+    """The zero-basis seed (j = 0; the first outer of a recycling step)
+    leaves the solve bit-equal to a cold one, with no host read more."""
+    from cfd2_tpu_torch.ops.fgmres import zero_basis
+    A, _, b = _perturbed_pair(4, 24, 0.0)
+    A += np.eye(72, dtype=np.float32)
+    kw = dict(restart=20, max_restarts=5, tol=1e-6, abstol=1e-10)
+    host_reads.reset()
+    cold = _dense(A, b, 0.2, **kw)
+    reads = host_reads.COUNT["reads"]
+    host_reads.reset()
+    warm = _dense(A, b, 0.2, recycle=zero_basis(20, 72, torch.float32,
+                                                torch.float32, "cpu"),
+                  return_basis=True, **kw)
+    assert host_reads.COUNT["reads"] == reads
+    assert cold.iterations == warm.iterations
+    np.testing.assert_array_equal(cold.x.numpy(), warm.x.numpy())
+    V, Z, R, cs, sn, j = warm.basis
+    assert V.shape == (21, 72) and Z.shape == (20, 72) and R.shape == (20, 20)
+    assert j == warm.iterations <= 20
+
+
+def test_recycle_warm_start_cuts_iterations():
+    """A perturbed system warm-started from the first solve's basis keeps
+    the convergence contract and takes fewer iterations than a cold solve,
+    in the port as in the JAX package (counts within 1 of the JAX
+    package's)."""
+    A1, A2, b = _perturbed_pair(3, 60, 0.01)
+    kw = dict(restart=30, max_restarts=10, tol=1e-6, abstol=1e-10,
+              return_basis=True)
+    counts = {}
+    for pkg, solve in (("port", lambda A, rc: _dense(A, b, 0.25,
+                                                     recycle=rc, **kw)),
+                       ("jax", lambda A, rc: _jax_dense(A, b, 0.25,
+                                                        recycle=rc, **kw))):
+        r1 = solve(A1, None)
+        cold = solve(A2, None)
+        warm = solve(A2, r1.basis)
+        for res in (cold, warm):
+            x = np.asarray(res.x).reshape(-1)
+            rel = np.linalg.norm(A2 @ x - b.reshape(-1)) / np.linalg.norm(b)
+            assert bool(res.converged) and rel < 1e-4, pkg
+        counts[pkg] = (int(cold.iterations), int(warm.iterations))
+        assert counts[pkg][1] < counts[pkg][0], pkg
+    assert all(abs(p - j) <= 1 for p, j in zip(counts["port"],
+                                               counts["jax"])), counts
+
+
+def test_converged_at_entry_returns_a_zero_basis():
+    """A solve that converges before its first cycle returns the zero basis
+    (j = 0), as the JAX package does."""
+    A = np.eye(30, dtype=np.float32) * 2.0
+    x_true = np.ones((10, 3), np.float32)
+    b = (A @ x_true.reshape(-1)).reshape(10, 3)
+    res = _dense(A, b, 1.0, x0=x_true, restart=8, tol=1e-5, abstol=1e-7,
+                 return_basis=True)
+    V, Z, R, cs, sn, j = res.basis
+    assert res.iterations == 0 and j == 0
+    assert not V.any() and not Z.any() and not R.any()
+
+
+def _jax_dense(A, b, scale, **kw):
+    Aj = jax.numpy.asarray(A)
+    N = b.shape[0]
+    return j_fgmres(lambda x: (Aj @ x.reshape(-1)).reshape(N, 3),
+                    lambda r: r * scale, jax.numpy.asarray(b),
+                    jax.numpy.zeros((N, 3), jax.numpy.float32), **kw)

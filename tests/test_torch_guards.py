@@ -54,6 +54,8 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.ops.banded_kernels, "
             "cfd2_tpu_torch.ops.banded_maps, cfd2_tpu_torch.ops.ellsys, "
             "cfd2_tpu_torch.mesh.native, cfd2_tpu_torch.mesh.voronoi, "
+            "cfd2_tpu_torch.runtime.checkpoint, "
+            "cfd2_tpu_torch.runtime.async_reader, "
             "cfd2_tpu_torch.profile_step; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -81,7 +83,8 @@ def test_solver_without_device_runs_on_cuda_or_raises(small_mesh):
 def test_new_modules_are_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"banded_kernels.py", "banded_maps.py", "ellsys.py", "native.py",
-            "delaunay.py", "voronoi.py", "chip_smoke.py"} <= names
+            "delaunay.py", "voronoi.py", "chip_smoke.py", "checkpoint.py",
+            "async_reader.py"} <= names
 
 
 def test_refined_quadtree_mesh_still_raises():
@@ -128,8 +131,9 @@ def test_generic_mesh_without_banded_map_raises():
         s.mesh.banded_jacobi_sweeps((x,), x, off, 3)
     for precond in (0, 1):
         s.set_precond_type(precond)
-        with pytest.raises(NotImplementedError):
-            s.step()
+        for mode in ("fused", "host"):
+            with pytest.raises(NotImplementedError):
+                s.step(mode=mode)
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
