@@ -2,12 +2,14 @@
 
 A second package beside the JAX reference, for one NVIDIA H100: the same
 finite-volume coupled (u, v, p) solver with FGMRES and a SIMPLE/Schur
-preconditioner whose pressure block is a multigrid: geometric on uniform
-cut-cell meshes, aggregation AMG on Delaunay and Voronoi meshes.  The
-red-black Gauss-Seidel smoother of the first (``csrc/rbgs.cu``) and every
-neighbor access of the second (gather, fused gather-dot, multi-sweep Jacobi;
-``csrc/banded.cu``) run as CUDA kernels written for Hopper; everything else
-is plain PyTorch.
+preconditioner whose pressure block is a multigrid (geometric on uniform
+cut-cell meshes, embedded in the finest grid on locally-refined quadtree
+meshes, aggregation AMG on Delaunay and Voronoi meshes) or Chebyshev
+relaxation, or block-Jacobi preconditioning; plus the segregated SIMPLE
+stepper.  The red-black Gauss-Seidel smoother of the structured multigrids
+(``csrc/rbgs.cu``) and every neighbor access of the other meshes (gather,
+fused gather-dot, multi-sweep Jacobi; ``csrc/banded.cu``) run as CUDA
+kernels written for Hopper; everything else is plain PyTorch.
 
 Module paths and function names follow ``cfd2_tpu`` so each counterpart is
 easy to find.  Entry points run on the GPU unless the caller passes
@@ -33,6 +35,7 @@ Unstructured meshes take the same solver::
 __version__ = "0.1.0"
 
 from .mesh import (  # noqa: E402
+    BackwardsStep,
     ChannelWithObstacle,
     Geometry,
     Mesh,
@@ -41,7 +44,7 @@ from .mesh import (  # noqa: E402
     generate_delaunay_mesh,
     generate_voronoi_mesh,
 )
-from .models.coupled import CoupledSolver, step  # noqa: E402
+from .models.coupled import CoupledSolver, multi_step, step  # noqa: E402
 from .runtime.device_mesh import DeviceMesh, encode_mesh  # noqa: E402
 from .runtime.state import (  # noqa: E402
     SolverConfig,
@@ -51,9 +54,10 @@ from .runtime.state import (  # noqa: E402
 )
 
 __all__ = [
-    "Geometry", "ChannelWithObstacle", "RectangularChannel", "Mesh",
-    "generate_cut_cell_mesh", "generate_delaunay_mesh",
-    "generate_voronoi_mesh", "CoupledSolver", "step",
+    "Geometry", "ChannelWithObstacle", "BackwardsStep", "RectangularChannel",
+    "Mesh", "generate_cut_cell_mesh", "generate_delaunay_mesh",
+    "generate_voronoi_mesh",
+    "CoupledSolver", "step", "multi_step",
     "SolverConfig", "SolverParams", "SolverState", "initial_state",
     "DeviceMesh", "encode_mesh",
 ]

@@ -1,19 +1,23 @@
 """Finite-volume kernels: prepare (fluxes, d_p, gradients) and the coupled
-assembly, in stencil form (structured meshes) or scalar-coefficient ELL form
-(banded unstructured meshes).
+assembly, in stencil form (structured meshes), scalar-coefficient ELL form
+(banded meshes) or 3x3 block-ELL form (every mesh).
 
 Port of ``cfd2_tpu.models.assembly`` as plain PyTorch on float32 tensors;
 neighbor values come from ``DeviceMesh.gather`` (grid shifts, or the banded
-gather kernel on unstructured meshes).  The expressions keep the JAX package's order of
-operations so that both give the same values to f32 roundoff:
+gather kernel on multilevel and unstructured meshes).  The expressions keep
+the JAX package's order of operations so that both give the same values to
+f32 roundoff:
 
-* :func:`prepare` — Rhie–Chow face mass fluxes in slot layout, the
+* :func:`prepare` — Rhie–Chow mass fluxes (in slot layout, or one per face
+  by :func:`compute_fluxes` on generic meshes without a banded map), the
   pressure-correction coefficient d_p = vol/a_P, and Green–Gauss gradients of
   p, u, v (reference shaders/prepare_coupled.wgsl:63-348);
 * :func:`assemble_stencil` — the coupled (u, v, p) system as 2D stencil
   planes (reference shaders/coupled_assembly_merged.wgsl:70-463);
 * :func:`assemble_ell` — the same coefficients as (N, K) planes for the
   banded path (see ops/ellsys.py);
+* :func:`assemble_coupled` — the same as (N, K, 3, 3) blocks for the
+  block-ELL path (see ops/blockell.py);
 * :func:`assemble_pressure` — the scalar pressure (Schur) matrix alone.
 
 Boundary codes: 1=Inlet (ramped u_bc), 2=Outlet (p=0, backflow guard),
@@ -48,10 +52,12 @@ def _inlet_velocity(params: SolverParams, time: torch.Tensor):
     return params.inlet_velocity * ramp
 
 
-def _inlet_bc(mesh: DeviceMesh, params: SolverParams, time: torch.Tensor):
-    """Inlet u value per slot ((N, K)), or a scalar for a uniform inlet."""
+def _inlet_bc(mesh: DeviceMesh, params: SolverParams, time: torch.Tensor,
+              slot: bool = True):
+    """Inlet u value per slot ((N, K)) or per face ((F,)), or a scalar for
+    a uniform inlet."""
     u_bc = _inlet_velocity(params, time)
-    scale = mesh.ck_inlet_scale
+    scale = mesh.ck_inlet_scale if slot else mesh.f_inlet_scale
     return u_bc if scale is None else u_bc * scale
 
 
@@ -62,6 +68,43 @@ def _time_coeff(mesh: DeviceMesh, params: SolverParams, config: SolverConfig):
         r = params.dt / params.dt_old
         return base * (1.0 + 2.0 * r) / (1.0 + r)
     return base
+
+
+def compute_fluxes(mesh: DeviceMesh, state: SolverState, params: SolverParams,
+                   time: torch.Tensor) -> torch.Tensor:
+    """Rhie–Chow face mass fluxes (F,), face-parallel, for generic meshes
+    without a banded map (prepare_coupled.wgsl:120-195).  Positive = out of
+    the owner cell.  Both cells' values of every face come from one gather
+    through the (F, 2) [owner, neighbor] map."""
+    packed = torch.cat(
+        [state.u, state.p[:, None], state.d_p[:, None], state.grad_p],
+        dim=1)                                         # (N, 6)
+    from ..ops.banded_kernels import banded_gather
+    cells = torch.stack([mesh.f_owner, mesh.f_neighbor_safe], dim=1)
+    g = banded_gather(packed, cells)                   # (F, 2, 6)
+    own, ngh = g[:, 0], g[:, 1]
+    u_own, u_ngh = own[:, 0:2], ngh[:, 0:2]
+    lam = mesh.f_lambda[:, None]
+    u_face = lam * u_own + (1.0 - lam) * u_ngh
+
+    dp_face = mesh.f_lambda * own[:, 3] + (1.0 - mesh.f_lambda) * ngh[:, 3]
+    gp_face = lam * own[:, 4:6] + (1.0 - lam) * ngh[:, 4:6]
+
+    grad_p_n = gp_face[:, 0] * mesh.f_nx + gp_face[:, 1] * mesh.f_ny
+    p_grad_f = (ngh[:, 2] - own[:, 2]) / mesh.f_dist_cc
+    rc_term = dp_face * mesh.f_area * (grad_p_n - p_grad_f)
+    u_n = u_face[:, 0] * mesh.f_nx + u_face[:, 1] * mesh.f_ny
+    flux_internal = params.density * (u_n * mesh.f_area + rc_term)
+
+    u_bc = _inlet_bc(mesh, params, time, slot=False)
+    flux_inlet = params.density * u_bc * mesh.f_nx * mesh.f_area
+    un_own = u_own[:, 0] * mesh.f_nx + u_own[:, 1] * mesh.f_ny
+    flux_outlet = torch.clamp(params.density * un_own * mesh.f_area, min=0.0)
+
+    return torch.where(mesh.f_internal, flux_internal,
+                       torch.where(mesh.f_boundary == 1, flux_inlet,
+                                   torch.where(mesh.f_boundary == 2,
+                                               flux_outlet, 0.0)))
 
 
 def _boundary_slot_fluxes(mesh, state, params, time):
@@ -78,15 +121,27 @@ def _boundary_slot_fluxes(mesh, state, params, time):
 
 def compute_slot_fluxes(mesh: DeviceMesh, state: SolverState,
                         params: SolverParams, time: torch.Tensor) -> torch.Tensor:
-    """Structured-path fluxes in slot layout (N, K), outward-positive.
+    """Structured- and multilevel-path fluxes in slot layout (N, K),
+    outward-positive.
 
     E/N slots evaluate the internal Rhie–Chow formula; W/S mirror them via
     shifts (exact antisymmetry); boundary slots use the boundary formulas.
+    On a multilevel mesh the W/S mirror applies where ``ck_mirror`` says the
+    same-level partner holds the face; every other internal face (hanging
+    faces, extra slots) is evaluated on one side and scattered negated to
+    the other through the ``ml_pair`` entry pairs, so per-face antisymmetry
+    is exact there too.
     """
-    u_n = mesh.gather(state.u)          # (N, K, 2)
-    p_n = mesh.gather(state.p)          # (N, K)
-    dp_n = mesh.gather(state.d_p)
-    gp_n = mesh.gather(state.grad_p)    # (N, K, 2)
+    if mesh.structured:
+        u_n = mesh.gather(state.u)          # (N, K, 2)
+        p_n = mesh.gather(state.p)          # (N, K)
+        dp_n = mesh.gather(state.d_p)
+        gp_n = mesh.gather(state.grad_p)    # (N, K, 2)
+    else:
+        # One multi-component gather (the kernel loads each index once).
+        g = mesh.gather(torch.cat([state.u, state.p[:, None],
+                                   state.d_p[:, None], state.grad_p], dim=1))
+        u_n, p_n, dp_n, gp_n = g[..., 0:2], g[..., 2], g[..., 3], g[..., 4:6]
 
     lam = mesh.ck_lam
     u_face = lam[..., None] * state.u[:, None, :] + (1.0 - lam[..., None]) * u_n
@@ -108,6 +163,21 @@ def compute_slot_fluxes(mesh: DeviceMesh, state: SolverState,
         * mask[:, SLOT_E]
     fN = torch.where(is_b[:, SLOT_N], fl_bdry[:, SLOT_N], fl_int[:, SLOT_N]) \
         * mask[:, SLOT_N]
+    if mesh.multilevel:
+        fl = torch.where(is_b, fl_bdry, fl_int)
+        fW = torch.where(mesh.ck_mirror[:, SLOT_W] > 0,
+                         -mesh.shift_from_west(fE), fl[:, SLOT_W]) \
+            * mask[:, SLOT_W]
+        fS = torch.where(mesh.ck_mirror[:, SLOT_S] > 0,
+                         -mesh.shift_from_south(fN), fl[:, SLOT_S]) \
+            * mask[:, SLOT_S]
+        flux = torch.stack([fE, fW, fN, fS] + [
+            fl[:, k] * mask[:, k] for k in range(4, mesh.max_faces)], dim=1)
+        # Each internal face has one side-b entry, so the targets are
+        # distinct and the scatter is deterministic.
+        a = (mesh.ml_pair_cell_a.long(), mesh.ml_pair_slot_a.long())
+        b = (mesh.ml_pair_cell_b.long(), mesh.ml_pair_slot_b.long())
+        return flux.index_put_(b, -flux[a])
     fW = torch.where(is_b[:, SLOT_W], fl_bdry[:, SLOT_W],
                      -mesh.shift_from_west(fE)) * mask[:, SLOT_W]
     fS = torch.where(is_b[:, SLOT_S], fl_bdry[:, SLOT_S],
@@ -170,15 +240,16 @@ def prepare(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     reference, which reads them before overwriting).
     """
     p_other = u_other = None
-    if mesh.structured:
-        flux = compute_slot_fluxes(mesh, state, params, state.time)
+    if mesh.structured or mesh.multilevel:
+        flux = flux_out = compute_slot_fluxes(mesh, state, params,
+                                              state.time)
     elif mesh.banded:
         flux, p_other, u_other = compute_banded_slot_fluxes(
             mesh, state, params, state.time)
+        flux_out = flux
     else:
-        raise NotImplementedError(
-            "the face-parallel flux path of generic meshes without a banded "
-            "index map is not ported")
+        flux = compute_fluxes(mesh, state, params, state.time)
+        flux_out = mesh.slot_fluxes(flux)
 
     mask = mesh.ck_mask
     is_b = mesh.ck_is_boundary
@@ -186,7 +257,7 @@ def prepare(mesh: DeviceMesh, state: SolverState, params: SolverParams,
 
     # --- d_p: momentum diagonal accumulation (prepare_coupled.wgsl:202-254) ---
     diff = params.viscosity * mesh.ck_area / mesh.ck_dist  # plain distance here
-    conv_diag = torch.clamp(flux, min=0.0)
+    conv_diag = torch.clamp(flux_out, min=0.0)
     contrib = torch.where((is_b > 0) & (bdry == 2), conv_diag, diff + conv_diag)
     diag = _time_coeff(mesh, params, config) + torch.sum(contrib * mask, dim=1)
     d_p = torch.where(torch.abs(diag) > 1e-20, mesh.c_vol / diag, 0.0)
@@ -423,6 +494,33 @@ def assemble_pressure(mesh: DeviceMesh, state: SolverState,
     P_diag = torch.sum(scalar_diag_c + b_scalar_diag, dim=1)
     P_diag = torch.where(mesh.c_valid > 0, P_diag, 1.0)
     return P_diag, P_off
+
+
+def assemble_coupled(mesh: DeviceMesh, state: SolverState,
+                     params: SolverParams, config: SolverConfig):
+    """Assemble the coupled system as 3x3 blocks plus the scalar pressure
+    matrix (:class:`..ops.blockell.BlockSystem`)."""
+    from ..ops.blockell import BlockSystem
+
+    c = _assemble_parts(mesh, state, params, config)
+    zero_nk = torch.zeros_like(c["off_mom"])
+    A_off = torch.stack([
+        torch.stack([c["off_mom"], zero_nk, c["off_up"]], dim=-1),
+        torch.stack([zero_nk, c["off_mom"], c["off_vp"]], dim=-1),
+        torch.stack([c["off_pu"], c["off_pv"], c["off_pp"]], dim=-1),
+    ], dim=-2)                                             # (N, K, 3, 3)
+    zero_n = torch.zeros_like(c["diag_u"])
+    A_diag = torch.stack([
+        torch.stack([c["diag_u"], zero_n, c["diag_up"]], dim=-1),
+        torch.stack([zero_n, c["diag_u"], c["diag_vp"]], dim=-1),
+        torch.stack([c["diag_pu"], c["diag_pv"], c["diag_pp"]], dim=-1),
+    ], dim=-2)                                             # (N, 3, 3)
+    diag_u_inv = _safe_inv(c["diag_u"])
+    return BlockSystem(
+        A_diag=A_diag, A_off=A_off, rhs=c["rhs"],
+        P_diag=c["P_diag"], P_off=c["P_off"],
+        diag_u_inv=diag_u_inv, diag_v_inv=diag_u_inv,
+        diag_p_inv=_safe_inv(c["P_diag"]))
 
 
 def assemble_stencil(mesh: DeviceMesh, state: SolverState,

@@ -1,7 +1,6 @@
 """Coupled (u,v,p) timestep driver.
 
-Port of ``cfd2_tpu.models.coupled`` on the structured stencil path and the
-banded unstructured path:
+Port of ``cfd2_tpu.models.coupled``:
 
 * :func:`step` = prepare -> [assemble -> FGMRES -> relaxed update] outer
   correctors as a Python loop, with the same convergence, stagnation and
@@ -26,20 +25,21 @@ Krylov recycling across outers and steps, the first-outer pressure presolve,
 the ADI momentum predict, Anderson mixing, the extrapolated guess and the
 adaptive linear tolerance.  As in the JAX package, the bf16 preconditioner,
 the mixed phase, the presolve and the ADI predict act on the structured path
-only.
+only, and recycling is off on the block path.
 
-Two solve paths are ported, both with the Schur preconditioner
-(``precond_type=1``: multigrid pressure block; ``precond_type=0``: Chebyshev
-relaxation):
+Three solve paths, chosen as the JAX package chooses them:
 
-* uniform cut-cell meshes on the stencil system with the structured
-  multigrid (ops/stencil_system.py);
-* Delaunay / Voronoi meshes with a banded index map on the
-  scalar-coefficient ELL system with the aggregation AMG (ops/ellsys.py),
-  whose neighbor access runs on the kernels of ops/banded_kernels.py.
-
-A generic mesh without a banded map, block-Jacobi preconditioning
-(``precond_type=2``) and the multilevel layout raise ``NotImplementedError``.
+* the stencil system (ops/stencil_system.py): uniform cut-cell meshes with
+  the Schur preconditioner, whose pressure block is the structured
+  multigrid (``precond_type=1``) or the Chebyshev relaxation (``0``);
+* the scalar-coefficient ELL system (ops/ellsys.py): meshes with a banded
+  index map (Delaunay, Voronoi, multilevel refined quadtree meshes) with
+  the Schur preconditioner and the aggregation AMG or, on multilevel
+  meshes, the fine-grid-embedded multigrid;
+* the block-ELL system (ops/blockell.py, ops/schur.py): block-Jacobi
+  preconditioning (``precond_type=2``) on every mesh, and the Schur
+  preconditioner on meshes that fit neither path above (no banded map, or a
+  structured mesh too small for the structured multigrid).
 """
 
 from __future__ import annotations
@@ -51,8 +51,11 @@ import torch
 
 from ..ops import ellsys as el
 from ..ops import stencil_system as st
-from ..ops.amg import AmgHierarchy, coarse_level_values, make_pressure_solve
+from ..ops.amg import (AmgHierarchy, StructuredAmgHierarchy,
+                       coarse_level_values, make_pressure_solve)
+from ..ops.blockell import block_spmv
 from ..ops.fgmres import fgmres_solve, zero_basis
+from ..ops.schur import block_jacobi_preconditioner, schur_preconditioner
 from ..runtime.device_mesh import DeviceMesh, encode_mesh, resolve_device
 from ..runtime.host_reads import read
 from ..runtime.state import (
@@ -64,33 +67,36 @@ from ..runtime.state import (
     SolverState,
     initial_state,
 )
-from .assembly import (assemble_ell, assemble_pressure, assemble_stencil,
-                       prepare)
+from .assembly import (assemble_coupled, assemble_ell, assemble_pressure,
+                       assemble_stencil, prepare)
 
 _F32_MAX = float(np.finfo(np.float32).max)
 
 
-def _check_supported(mesh: DeviceMesh, config: SolverConfig,
-                     amg) -> None:
-    if config.precond_type == PRECOND_BLOCK_JACOBI:
-        raise NotImplementedError(
-            "block-Jacobi preconditioning (precond_type=2) runs on the "
-            "block-ELL path, which is not ported")
-    if not mesh.structured and not mesh.banded:
-        raise NotImplementedError(
-            "this generic mesh admits no banded index map; the block-ELL "
-            "path it takes in the JAX package is not ported")
-    if config.precond_type == PRECOND_AMG and amg is None \
-            and mesh.structured:
-        raise NotImplementedError(
-            "precond_type=1 needs the structured multigrid, which this mesh "
-            "is too small for; the block-ELL fallback is not ported")
+def _use_stencil_path(mesh: DeviceMesh, config: SolverConfig, amg) -> bool:
+    """The stencil system covers the Schur-preconditioned flows on
+    structured meshes; block-Jacobi, and a structured mesh whose hierarchy
+    fell back to the aggregation AMG, keep the block-ELL path."""
+    if not mesh.structured or config.precond_type == PRECOND_BLOCK_JACOBI:
+        return False
+    if config.precond_type == PRECOND_AMG:
+        return isinstance(amg, StructuredAmgHierarchy)
+    return True
 
 
-def _basis_init(state: SolverState, config: SolverConfig) -> tuple:
+def _use_banded_path(mesh: DeviceMesh, config: SolverConfig) -> bool:
+    return mesh.banded and config.precond_type != PRECOND_BLOCK_JACOBI
+
+
+def _basis_init(mesh: DeviceMesh, state: SolverState, config: SolverConfig,
+                amg) -> tuple | None:
     """Zero Krylov-basis seed of the recycling carry
     (SolverConfig.fgmres_recycle): the shapes fgmres_solve returns for this
-    mesh and config, with ``j = 0``, so the first solve starts cold."""
+    mesh and config, with ``j = 0``, so the first solve starts cold.  None
+    on the block path, where recycling is off (as in the JAX package)."""
+    if not (_use_stencil_path(mesh, config, amg)
+            or _use_banded_path(mesh, config)):
+        return None
     bd = torch.bfloat16 if config.fgmres_basis_bf16 else torch.float32
     return zero_basis(config.fgmres_restart, 3 * state.u.shape[0], bd,
                       torch.float32, state.u.device)
@@ -109,11 +115,14 @@ def _fgmres_kwargs(config: SolverConfig) -> dict:
 
 def _solve_banded(mesh, state, params, config, amg, n_sweeps, tol, x0,
                   frozen_amg, recycle):
-    """Banded (unstructured) path: scalar-coefficient ELL system, banded
-    kernels, Schur preconditioner with the aggregation AMG, FGMRES on
-    component-major (3, N) vectors (one transpose each way per solve)."""
+    """Banded path: scalar-coefficient ELL system, banded kernels, Schur
+    preconditioner with the aggregation AMG (or the multilevel embedding),
+    FGMRES on component-major (3, N) vectors (one transpose each way per
+    solve)."""
     es = assemble_ell(mesh, state, params, config)
-    ps = (make_pressure_solve(amg, mesh, es, cycle_opts=config.cycle_opts(),
+    ps = (make_pressure_solve(amg, mesh, es,
+                              coeff=params.density * state.d_p,
+                              cycle_opts=config.cycle_opts(),
                               frozen=frozen_amg)
           if config.precond_type == PRECOND_AMG and amg is not None else None)
     # Momentum depth 8 on this path (the JAX package's choice: a sweep is
@@ -130,6 +139,37 @@ def _solve_banded(mesh, state, params, config, amg, n_sweeps, tol, x0,
         recycle=recycle, return_basis=recycle is not None,
         **_fgmres_kwargs(config))
     return replace(result, x=result.x.T)
+
+
+def _solve_block(mesh, state, params, config, amg, n_sweeps, tol, x0):
+    """Block-ELL path: (N, K, 3, 3) blocks, FGMRES on (N, 3) vectors with
+    block-Jacobi or the Schur preconditioner (its pressure block the
+    hierarchy's V-cycle for ``precond_type=1``, else Chebyshev).  The
+    momentum predict takes ``mom_sweeps`` sweeps on a banded mesh and the
+    reference's bare diagonal elsewhere."""
+    sys = assemble_coupled(mesh, state, params, config)
+    if config.precond_type == PRECOND_BLOCK_JACOBI:
+        precond = lambda r: block_jacobi_preconditioner(sys, r)
+    else:
+        ps = (make_pressure_solve(amg, mesh, sys,
+                                  coeff=params.density * state.d_p,
+                                  cycle_opts=config.cycle_opts())
+              if config.precond_type == PRECOND_AMG and amg is not None
+              else None)
+        if config.precond_mom_sweeps > 0:
+            ms = config.precond_mom_sweeps
+        elif mesh.banded:
+            ms = config.mom_sweeps(mesh.num_cells)
+        else:
+            ms = 1
+        precond = lambda r: schur_preconditioner(
+            sys, mesh, r, config.precond_omega, n_sweeps, pressure_solve=ps,
+            mom_sweeps=ms)
+    return fgmres_solve(
+        lambda x: block_spmv(sys, mesh, x), precond, sys.rhs, x0, tol=tol,
+        abstol=config.fgmres_abstol,
+        basis_dtype=torch.bfloat16 if config.fgmres_basis_bf16 else None,
+        **_fgmres_kwargs(config))
 
 
 def _bf16_precond(ss, ps, config, n_sweeps, mom_sweeps):
@@ -177,9 +217,10 @@ def _presolve(ss, b2, x0p, ps, config, n_sweeps, mom_sweeps, tol,
 def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
                         tol=None, x_guess=None, presolve_ok=None,
                         frozen_amg=None, recycle=None):
-    """Assemble the coupled system and run one Schur-preconditioned FGMRES
-    solve: in stencil form on (3, ny, nx) component planes on structured
-    meshes, in ELL form on (3, N) vectors on banded ones.
+    """Assemble the coupled system and run one preconditioned FGMRES solve:
+    in stencil form on (3, ny, nx) component planes, in ELL form on (3, N)
+    vectors or in block-ELL form on (N, 3) vectors (see the module
+    docstring for which mesh and option takes which).
 
     ``tol``: the relative tolerance (default config.fgmres_tol);
     ``x_guess``: the (N, 3) initial guess (default the current fields);
@@ -189,9 +230,12 @@ def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
     tol = config.fgmres_tol if tol is None else tol
     x0 = (x_guess if x_guess is not None else
           torch.cat([state.u, state.p[:, None]], dim=1))
-    if not mesh.structured:
-        return _solve_banded(mesh, state, params, config, amg, n_sweeps,
-                             tol, x0, frozen_amg, recycle)
+    if not _use_stencil_path(mesh, config, amg):
+        if _use_banded_path(mesh, config):
+            return _solve_banded(mesh, state, params, config, amg, n_sweeps,
+                                 tol, x0, frozen_amg, recycle)
+        return _solve_block(mesh, state, params, config, amg, n_sweeps, tol,
+                            x0)
     ss = assemble_stencil(mesh, state, params, config)
     ps = (st.make_pressure_solve2(
               amg, ss, n_cycles=config.pressure_vcycles(mesh.num_cells),
@@ -364,15 +408,14 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     """Advance one timestep (reference GpuSolver::step -> step_coupled).
 
     ``amg``: the hierarchy used when ``config.precond_type == PRECOND_AMG``
-    (StructuredAmgHierarchy on structured meshes, AmgHierarchy on banded
-    ones; a banded mesh too small for a hierarchy takes the Chebyshev
-    pressure relaxation, as in the JAX package).
+    (see ops/amg.py:build_hierarchy_for_mesh; a mesh too small for any
+    hierarchy takes the Chebyshev pressure relaxation, as in the JAX
+    package).
 
     ``krylov``: with ``config.fgmres_recycle >= 2``, the previous step's
     Krylov basis tuple (or a zero seed): the first outer's solve then
     recycles it, and the step returns ``(state, krylov')`` instead of
     ``state``."""
-    _check_supported(mesh, config, amg)
     n_sweeps = config.pressure_sweeps(mesh.num_cells)
     dev = state.u.device
 
@@ -381,25 +424,31 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     state = prepare(mesh, state, params, config)
 
     # Per-step frozen coarse multigrid operators from a pressure-only
-    # assembly at step entry (SolverConfig.amg_freeze_coarse).
+    # assembly at step entry (SolverConfig.amg_freeze_coarse): the
+    # structured multigrid on the stencil path, the aggregation AMG on the
+    # banded path; the multilevel embedding and the block path rebuild them
+    # every outer, as in the JAX package.
     frozen_amg = None
     if (config.amg_freeze_coarse and amg is not None
             and config.precond_type == PRECOND_AMG):
-        P_diag, P_off = assemble_pressure(mesh, state, params)
-        if mesh.structured:
+        if _use_stencil_path(mesh, config, amg):
+            P_diag, P_off = assemble_pressure(mesh, state, params)
             ny, nx = mesh.grid_shape
             frozen_amg = st.coarse_level_values2_planes(
                 amg, P_diag.reshape(ny, nx),
                 P_off[:, :4].T.reshape(4, ny, nx).contiguous())
-        elif isinstance(amg, AmgHierarchy):
+        elif mesh.banded and isinstance(amg, AmgHierarchy):
+            P_diag, P_off = assemble_pressure(mesh, state, params)
             frozen_amg = coarse_level_values(amg, P_diag, P_off)
 
     aa = _anderson_init(mesh, config, dev)
     # Krylov recycling across the outers (SolverConfig.fgmres_recycle): the
     # previous solve's basis is carried; outer 0 sees the zero seed, or the
     # previous step's basis when recycling across steps.
-    kry = _basis_init(state, config) if config.fgmres_recycle else None
-    cross_step = config.fgmres_recycle >= 2 and krylov is not None
+    kry = (_basis_init(mesh, state, config, amg) if config.fgmres_recycle
+           else None)
+    cross_step = (config.fgmres_recycle >= 2 and krylov is not None
+                  and kry is not None)
     if cross_step:
         kry = krylov
 
@@ -481,7 +530,6 @@ def outer_iteration(mesh: DeviceMesh, state: SolverState,
     """One outer corrector: (prepare) -> assemble -> solve -> update.
     Returns (state, diff_u, diff_p, aa) with the max-diffs as 0-d device
     tensors; ``aa`` is the Anderson history pair (or None)."""
-    _check_supported(mesh, config, amg)
     n_sweeps = config.pressure_sweeps(mesh.num_cells)
     if do_prepare:
         state = prepare(mesh, state, params, config)
@@ -740,12 +788,18 @@ class CoupledSolver:
             raise ValueError(f"unknown step mode {mode!r}")
         elif self.config.fgmres_recycle >= 2:
             # Cross-step Krylov recycling: the basis tuple is carried here,
-            # outside SolverState (2(m+1)·3N floats: not checkpointed).
+            # outside SolverState (2(m+1)·3N floats: not checkpointed).  On
+            # the block path there is none, and step() returns the state.
             if self._krylov is None:
-                self._krylov = _basis_init(self.state, self.config)
-            self.state, self._krylov = step(self.mesh, self.state,
-                                            self.params, self.config, amg,
-                                            self._krylov)
+                self._krylov = _basis_init(self.mesh, self.state,
+                                           self.config, amg)
+            if self._krylov is None:
+                self.state = step(self.mesh, self.state, self.params,
+                                  self.config, amg)
+            else:
+                self.state, self._krylov = step(self.mesh, self.state,
+                                                self.params, self.config,
+                                                amg, self._krylov)
         else:
             self.state = step(self.mesh, self.state, self.params,
                               self.config, amg)

@@ -21,8 +21,13 @@ the aggregate member lists) and the prolongation (a K = 1 gather through the
 aggregate map, fused with the update) through the CUDA kernels of
 :mod:`.banded_kernels`, on every level.
 
-Both end in a regularized dense LU at the coarsest level.  The multilevel
-(quadtree) embedding is not ported yet.
+**Multilevel embedding** (locally-refined quadtree meshes): the composite
+mesh is embedded in its finest uniform grid, a structured V-cycle
+preconditions the fine-grid Laplacian built per assembly from the spread
+rho*d_p field, and damped Jacobi on the true composite operator takes the
+cross-level error (:class:`MultilevelAmg`).
+
+All end in a regularized dense LU at the coarsest level.
 """
 
 from __future__ import annotations
@@ -365,15 +370,117 @@ def build_structured_hierarchy(mesh, min_coarse=_MIN_COARSE
                                   internal2=internal2)
 
 
+@dataclass(frozen=True)
+class MultilevelAmg:
+    """Pressure multigrid for multilevel (locally-refined quadtree) meshes.
+
+    The composite mesh is embedded in its finest uniform grid: every cell's
+    value is replicated over its 2^l x 2^l fine squares, a structured
+    V-cycle preconditions the fine-grid Laplacian (built per assembly from
+    the spread rho*d_p field), and the correction is averaged back.  The 2D
+    Poisson stencil is scale-invariant (area/dist = 1 at every level), so the
+    fine operator is spectrally close to the composite Schur operator.
+    Assumes the outlet lies on the domain's east edge (true for all
+    reference geometries)."""
+    fine: StructuredAmgHierarchy
+    ml_levels: tuple              # composite level grids, finest first
+    outlet_e2: torch.Tensor       # (ny0, nx0) f32: fine squares with an
+    #                               outlet east face
+
+
+def _ml_spread(ml_levels, x, extensive=False):
+    """Composite (N,) -> fine (ny0, nx0): each cell's value replicated over
+    its fine squares.  ``extensive`` divides level-l values by 4^l (for
+    quantities that are integrals over the cell, e.g. the continuity RHS)."""
+    grids = list(ml_levels)
+    out = None
+    off = 0
+    for li, (ny, nx) in enumerate(grids):
+        xg = x[off:off + ny * nx].reshape(ny, nx)
+        off += ny * nx
+        if extensive and li:
+            xg = xg / (4.0 ** li)
+        for k in range(li, 0, -1):
+            xg = sk.prolong2(xg, grids[k - 1])
+        out = xg if out is None else out + xg
+    return out
+
+
+def _ml_restrict_avg(ml_levels, xf):
+    """Fine (ny0, nx0) -> composite (N,): average over each cell's fine
+    squares (intensive restriction, the adjoint of _ml_spread up to 4^l)."""
+    grids = list(ml_levels)
+    parts = [xf.reshape(-1)]
+    cur = xf
+    for li in range(1, len(grids)):
+        cur = sk.restrict2(cur, grids[li])             # 2x2 sum
+        parts.append((cur / (4.0 ** li)).reshape(-1))
+    return torch.cat(parts)
+
+
+def build_multilevel_amg(mesh) -> MultilevelAmg | None:
+    """The fine-grid hierarchy and masks of a multilevel DeviceMesh, built
+    on the host from encode-time copies."""
+    if not mesh.multilevel:
+        return None
+    grids = mesh.ml_levels
+    ny0, nx0 = grids[0]
+
+    def spread_np(v):
+        out = np.zeros((ny0, nx0))
+        off = 0
+        for li, (ny, nx) in enumerate(grids):
+            g = v[off:off + ny * nx].reshape(ny, nx)
+            off += ny * nx
+            up = np.kron(g, np.ones((1 << li, 1 << li)))
+            out += up[:ny0, :nx0]
+        return out
+
+    fluid = spread_np(_host(mesh, "c_valid")) > 0          # (ny0, nx0)
+    internal2 = np.zeros((4, ny0, nx0), dtype=bool)
+    internal2[0, :, :-1] = fluid[:, :-1] & fluid[:, 1:]    # E
+    internal2[1, :, 1:] = fluid[:, 1:] & fluid[:, :-1]     # W
+    internal2[2, :-1, :] = fluid[:-1, :] & fluid[1:, :]    # N
+    internal2[3, 1:, :] = fluid[1:, :] & fluid[:-1, :]     # S
+    internal0 = np.moveaxis(internal2, 0, 2).reshape(-1, 4)
+
+    levels = _structured_levels(ny0, nx0, internal0, fluid.reshape(-1),
+                                mesh.device)
+    if not levels:
+        return None
+
+    def as_f(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=mesh.device)
+
+    fine = StructuredAmgHierarchy(levels=tuple(levels),
+                                  diag_valid2=as_f(fluid),
+                                  internal2=as_f(internal2))
+    has_outlet = ((_host(mesh, "ck_boundary") == 2)
+                  & (_host(mesh, "ck_mask") > 0)).any(axis=1)
+    outlet = spread_np(has_outlet.astype(np.float64)) > 0
+    outlet_e2 = np.zeros((ny0, nx0))
+    outlet_e2[:, -1] = (outlet & fluid)[:, -1]
+    return MultilevelAmg(fine=fine, ml_levels=tuple(grids),
+                         outlet_e2=as_f(outlet_e2))
+
+
 def build_hierarchy_for_mesh(mesh, agg_passes: int = 0):
     """The pressure hierarchy of a DeviceMesh: the geometric 2x2 multigrid on
-    structured meshes, the greedy aggregation AMG on generic ones.  None if
-    the mesh is too small.
+    structured meshes, the fine-grid-embedded multigrid on multilevel ones,
+    the greedy aggregation AMG otherwise, and also where the first two do
+    not build (a mesh too small for them).  None if the mesh is too small
+    for any.
 
     ``agg_passes=0`` (auto) resolves to 2 on the generic path, as in the JAX
     package (the shallower double-pass hierarchy)."""
     if mesh.structured:
-        return build_structured_hierarchy(mesh)
+        hier = build_structured_hierarchy(mesh)
+        if hier is not None:
+            return hier
+    if mesh.multilevel:
+        hier = build_multilevel_amg(mesh)
+        if hier is not None:
+            return hier
     hier = build_hierarchy(_host(mesh, "ck_neighbor"), _host(mesh, "ck_mask"),
                            _host(mesh, "c_valid"),
                            agg_passes=agg_passes or 2, device=mesh.device)
@@ -661,7 +768,8 @@ def v_cycle(hier: AmgHierarchy, level_values, mesh,
     """One V-cycle of the aggregation hierarchy.
 
     Per-level neighbor sums are fused banded dots over the level's ELL map
-    (level 0: the mesh's), restriction is a dot over the member lists with
+    (level 0: the mesh's; on a mesh without a banded map, level 0 takes
+    ``mesh.gather`` and a sum, as in the JAX package), restriction is a dot over the member lists with
     ``members_mask`` as coefficients, prolongation a K = 1 gather through
     the aggregate map fused with the update it feeds
     (:func:`.banded_kernels.banded_prolong_add`); all on
@@ -674,8 +782,12 @@ def v_cycle(hier: AmgHierarchy, level_values, mesh,
     def _ell_dot(idx):
         return lambda off, x: bk.banded_dot((x,), (off,), idx, _ONE_DOT)[0]
 
-    def _dot0(off, x):
-        return mesh.banded_dot((x,), (off,), _ONE_DOT)[0]
+    if mesh.banded:
+        def _dot0(off, x):
+            return mesh.banded_dot((x,), (off,), _ONE_DOT)[0]
+    else:
+        def _dot0(off, x):
+            return torch.sum(off * mesh.gather(x), dim=1)
 
     L = len(hier.levels)
     dots = [_dot0] + [_ell_dot(lvl.ell_neighbor) for lvl in hier.levels]
@@ -734,18 +846,69 @@ def coarse_level_values(hier: AmgHierarchy, P_diag, P_off):
     return tuple(level_values[1:]), factors
 
 
-def make_pressure_solve(hier: AmgHierarchy, mesh, sys, cycle_opts=None,
-                        frozen=None):
-    """pressure_solve(rhs_p) closure for the Schur preconditioner on the
-    aggregation hierarchy.  ``sys`` carries ``P_diag``, ``P_off`` and
-    ``diag_p_inv`` (an :class:`.ellsys.EllSystem`).
+_ML_OMEGA = 0.8      # damped Jacobi on the composite operator
 
-    ``cycle_opts``: extra kwargs for :func:`v_cycle` (smoother and
-    overcorrection variants).  ``frozen``: ``(coarse_vals, factors)`` from
-    :func:`coarse_level_values` — skip the per-call Galerkin re-coarsening
-    and use these level-1+ operators instead (level 0 stays current;
-    FGMRES is flexible, so the staleness never touches the solve contract).
+
+def _multilevel_pressure_solve(hier: MultilevelAmg, mesh, sys, coeff):
+    """FAC-style two-grid for a multilevel mesh: damped Jacobi on the true
+    composite operator around one fine-grid V-cycle of the Laplacian built
+    from the spread ``coeff`` (rho*d_p): area/dist = 1 per face, lam = 1/2,
+    Dirichlet p = 0 at the outlet column.  Identity on hole components,
+    matching the composite P's identity rows."""
+    from .blockell import scalar_spmv
+    grids = hier.ml_levels
+    ny0, nx0 = grids[0]
+    fh = hier.fine
+    valid = mesh.c_valid
+    # Mask composite holes before any spread: a level-l hole would
+    # otherwise upsample its junk into fine squares owned by other cells.
+    c2 = _ml_spread(grids, coeff * valid)
+    intl = fh.internal2
+    e, w, n, s = sk._shifts2(c2)
+    offE = -0.5 * (c2 + e) * intl[0]
+    offW = -0.5 * (c2 + w) * intl[1]
+    offN = -0.5 * (c2 + n) * intl[2]
+    offS = -0.5 * (c2 + s) * intl[3]
+    off2 = torch.stack([offE, offW, offN, offS])
+    diag2 = -(offE + offW + offN + offS) + hier.outlet_e2 * c2
+    lv2 = compute_structured_level_values2(fh, diag2, off2)
+    factors = _coarse_factors(fh, lv2)
+    dinv0 = torch.where(torch.abs(diag2) > 1e-30, 1.0 / diag2, 0.0)
+    Pd, Po, dpi = sys.P_diag, sys.P_off, sys.diag_p_inv
+
+    def fine_correct(r):
+        rf = _ml_spread(grids, r * valid, extensive=True)
+        zf = structured_v_cycle(fh, lv2, rf.reshape(-1),
+                                (dinv0 * rf).reshape(-1),
+                                coarse_factors=factors)
+        return _ml_restrict_avg(grids, zf.reshape(ny0, nx0))
+
+    def pressure_solve(rhs_p):
+        z = _ML_OMEGA * dpi * rhs_p
+        z = z + fine_correct(rhs_p - scalar_spmv(Pd, Po, mesh, z))
+        z = z + _ML_OMEGA * dpi * (rhs_p - scalar_spmv(Pd, Po, mesh, z))
+        return torch.where(valid > 0, z, rhs_p)
+
+    return pressure_solve
+
+
+def make_pressure_solve(hier, mesh, sys, coeff=None, cycle_opts=None,
+                        frozen=None):
+    """pressure_solve(rhs_p) closure for the Schur preconditioner.  ``sys``
+    carries ``P_diag``, ``P_off`` and ``diag_p_inv`` (an
+    :class:`.ellsys.EllSystem` or a :class:`.blockell.BlockSystem`).
+
+    ``hier``: an :class:`AmgHierarchy`, or a :class:`MultilevelAmg`, whose
+    solve needs ``coeff``, the composite rho*d_p field.  ``cycle_opts``:
+    extra kwargs for :func:`v_cycle` (smoother and overcorrection variants;
+    aggregation only).  ``frozen`` (aggregation only): ``(coarse_vals,
+    factors)`` from :func:`coarse_level_values` — skip the per-call Galerkin
+    re-coarsening and use these level-1+ operators instead (level 0 stays
+    current; FGMRES is flexible, so the staleness never touches the solve
+    contract).
     """
+    if isinstance(hier, MultilevelAmg):
+        return _multilevel_pressure_solve(hier, mesh, sys, coeff)
     if frozen is not None:
         coarse_vals, factors = frozen
         level_values = [(sys.P_diag, sys.P_off)] + list(coarse_vals)

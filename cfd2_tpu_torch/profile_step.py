@@ -6,7 +6,9 @@ channel mesh, structured multigrid, the developed state from
 ``bench_developed_1m.npz``, 3 untimed healing steps.  ``--mesh delaunay`` /
 ``--mesh voronoi``: the unstructured banded path from rest at ``--min-cell``
 (default 0.003: the 403,491-cell Delaunay mesh), aggregation AMG, 2 untimed
-warm-up steps.  Prints:
+warm-up steps; ``--mesh refined``: the refined quadtree mesh from
+``--min-cell`` to ``--max-cell`` (the multilevel layout at 0.0025 / 0.005),
+from rest the same way.  Prints:
 
 * per step: wall time, outer and FGMRES iterations, host reads, launches;
 * device busy time (the union of kernel intervals) against wall time, i.e.
@@ -17,6 +19,8 @@ Run from the repository root on a machine with a CUDA device:
 
     python -m cfd2_tpu_torch.profile_step [--steps 2]
     python -m cfd2_tpu_torch.profile_step --mesh delaunay --min-cell 0.003
+    python -m cfd2_tpu_torch.profile_step --mesh refined --min-cell 0.0025 \
+        --max-cell 0.005
 """
 
 from __future__ import annotations
@@ -103,10 +107,11 @@ def _structured_main_path(geo):
     return mesh, s, 3
 
 
-def _unstructured_main_path(geo, kind, min_cell):
+def _unstructured_main_path(geo, kind, min_cell, max_cell):
     gen = {"delaunay": generate_delaunay_mesh,
-           "voronoi": generate_voronoi_mesh}[kind]
-    mesh = gen(geo, min_cell, min_cell, 1.2, (3.0, 1.0))
+           "voronoi": generate_voronoi_mesh,
+           "refined": generate_cut_cell_mesh}[kind]
+    mesh = gen(geo, min_cell, max_cell, 1.2, (3.0, 1.0))
     s = CoupledSolver(mesh)
     s.set_dt(min(0.002, 0.4 * min_cell))
     s.set_precond_type(1)
@@ -119,10 +124,12 @@ def _unstructured_main_path(geo, kind, min_cell):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--mesh", choices=("cutcell", "delaunay", "voronoi"),
-                    default="cutcell")
+    ap.add_argument("--mesh", choices=("cutcell", "delaunay", "voronoi",
+                                       "refined"), default="cutcell")
     ap.add_argument("--min-cell", type=float, default=0.003,
                     help="cell size of the unstructured meshes")
+    ap.add_argument("--max-cell", type=float, default=None,
+                    help="largest cell size (default --min-cell)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -134,7 +141,8 @@ def main(argv=None) -> int:
     if args.mesh == "cutcell":
         mesh, s, warm = _structured_main_path(geo)
     else:
-        mesh, s, warm = _unstructured_main_path(geo, args.mesh, args.min_cell)
+        mesh, s, warm = _unstructured_main_path(
+            geo, args.mesh, args.min_cell, args.max_cell or args.min_cell)
     print(f"{args.mesh}: {mesh.num_cells} cells, N_dev {s.mesh.num_cells}, "
           f"K {s.mesh.max_faces}", flush=True)
     for _ in range(warm):

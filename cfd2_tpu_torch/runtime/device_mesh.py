@@ -6,21 +6,27 @@ Port of ``cfd2_tpu.runtime.device_mesh``:
   generating (ny, nx) grid with solid cells masked out, and slots 0..3 fixed
   to the E/W/N/S neighbors.  Every neighbor access is then an edge-clamped
   shift of the grid.
-* **generic path**: Delaunay / Voronoi meshes keep arbitrary (N, K) neighbor
-  indices.  Cells are ordered so that neighbors fall in narrow index bands,
-  the count is padded to a multiple of 128, each cell's slots are sorted by
-  neighbor id and trailing pad slots repeat the last real neighbor.  Every
-  neighbor access goes through the CUDA kernels of
-  :mod:`..ops.banded_kernels`, which take ``ck_neighbor`` itself.
+* **multilevel path**: a locally-refined quadtree mesh whose levels' full
+  grids stay within 6x its cell count is laid out as each level's own
+  (ny, nx) grid (holes masked), concatenated finest first.  Slots 0..3 are
+  E/W/N/S where a same-level grid neighbor holds them; hanging (cross-level)
+  faces take the remaining slots.
+* **generic path**: Delaunay / Voronoi meshes (and refined meshes beyond the
+  6x rule) keep arbitrary (N, K) neighbor indices.  Cells are ordered so
+  that neighbors fall in narrow index bands, the count is padded to a
+  multiple of 128, each cell's slots are sorted by neighbor id and trailing
+  pad slots repeat the last real neighbor.
+
+On the multilevel and generic layouts every neighbor access goes through
+the CUDA kernels of :mod:`..ops.banded_kernels`, which take ``ck_neighbor``
+itself; the JAX package's per-level shifts, exception scatter and TPU index
+maps give the same values there.
 
 The cell ordering, the ``banded`` decision and the slot cap ``bd_k`` are
 chosen exactly as the JAX package chooses them, by the walk costs of its TPU
-index maps (:mod:`..ops.banded_maps`): they decide the aggregation hierarchy
-and the smoother's arithmetic, so the port mirrors them to give the same
-iterations, although no kernel here reads such a map.
-
-The multilevel (refined quadtree) layout is not ported yet: ``encode_mesh``
-raises ``NotImplementedError`` for meshes that would take it.
+index maps (:mod:`..ops.banded_maps`): they decide the solve path, the
+aggregation hierarchy and the smoother's arithmetic, so the port mirrors
+them to give the same iterations, although no kernel here reads such a map.
 
 All geometric factors are computed on the host in float64 (the same NumPy
 code as the JAX package) and stored as float32 tensors; indices are int32.
@@ -120,9 +126,23 @@ class DeviceMesh:
     # Host copies for setup-time consumers (the AMG hierarchy build).
     amg_host: dict | None = None
 
-    # Generic layout: True when the JAX package would build a banded index
-    # map for this mesh (its banded solver path); False sends it to the
-    # block-ELL path there, which is not ported.
+    # --- multilevel layout (None elsewhere) ---
+    # Per-level (ny, nx) grids, finest first; device cells are the levels'
+    # grids concatenated.
+    ml_levels: tuple | None = None
+    # (N, K) f32: 1 where the W/S slot's flux mirrors the same-level
+    # partner's E/N slot value by shift (exact antisymmetry).
+    ck_mirror: torch.Tensor | None = None
+    # Entry pairs of the internal faces the mirror does not cover: the flux
+    # is computed on side a and scattered negated to side b.
+    ml_pair_cell_a: torch.Tensor | None = None
+    ml_pair_slot_a: torch.Tensor | None = None
+    ml_pair_cell_b: torch.Tensor | None = None
+    ml_pair_slot_b: torch.Tensor | None = None
+
+    # Multilevel and generic layouts: True when the JAX package would build
+    # a banded index map for this mesh (its banded ELL solver path); False
+    # sends the mesh to the block-ELL path.
     banded: bool = False
     # Slot cap (generic layout, K > 8 with at most 5% of cells occupying a
     # slot >= 8): the Jacobi-sweep smoother walks only the first bd_k slots.
@@ -134,15 +154,21 @@ class DeviceMesh:
     def structured(self) -> bool:
         return self.grid_shape is not None
 
+    @property
+    def multilevel(self) -> bool:
+        return self.ml_levels is not None
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Neighbor values per slot: (N, ...) -> (N, K, ...).
 
         Structured: four edge-clamped shifts of the (ny, nx) grid (clamped
         values are always masked by zero coefficients) + self for extra
-        slots.  Generic: one gather through ``ck_neighbor``
-        (:func:`..ops.banded_kernels.banded_gather`)."""
+        slots.  Multilevel and generic: one gather through ``ck_neighbor``
+        (:func:`..ops.banded_kernels.banded_gather`).  On a multilevel mesh
+        the JAX package takes per-level shifts plus the exception scatter
+        where it has no index map; those differ from ``ck_neighbor`` only on
+        boundary and unoccupied slots, whose coefficients are zero."""
         if not self.structured:
-            self._need_banded()
             from ..ops.banded_kernels import banded_gather
             return banded_gather(x.contiguous(), self.ck_neighbor)
         tail = tuple(x.shape[1:])
@@ -156,9 +182,8 @@ class DeviceMesh:
     def _need_banded(self) -> None:
         if not self.banded:
             raise NotImplementedError(
-                "this generic mesh admits no banded index map, which sends "
-                "it to the block-ELL path of the JAX package; that path is "
-                "not ported")
+                "this mesh admits no banded index map: it takes the "
+                "block-ELL path, which has no fused banded products")
 
     def banded_dot(self, xs, offs, prods):
         """Fused neighbor sums over the mesh map: out_j = sum over (oi, ci)
@@ -196,23 +221,31 @@ class DeviceMesh:
         return banded_jacobi_sweeps(rs, dinv, off, self.ck_neighbor, sweeps,
                                     k_cap=self.bd_k)
 
+    def _per_level(self, v: torch.Tensor, fn) -> torch.Tensor:
+        """``fn`` applied to each level's (ny, nx) grid of ``v`` (N,)."""
+        grids = [self.grid_shape] if self.structured else self.ml_levels
+        out, off = [], 0
+        for ny, nx in grids:
+            out.append(fn(v[off:off + ny * nx].reshape(ny, nx)).reshape(-1))
+            off += ny * nx
+        return torch.cat(out) if len(out) > 1 else out[0]
+
     def shift_from_west(self, v: torch.Tensor) -> torch.Tensor:
-        """(N,) value of the west neighbor (edge-clamped)."""
-        ny, nx = self.grid_shape
-        vg = v.reshape(ny, nx)
-        return torch.cat([vg[:, :1], vg[:, :-1]], dim=1).reshape(-1)
+        """(N,) value of the west neighbor on the cell's own level grid
+        (edge-clamped)."""
+        return self._per_level(
+            v, lambda vg: torch.cat([vg[:, :1], vg[:, :-1]], dim=1))
 
     def shift_from_south(self, v: torch.Tensor) -> torch.Tensor:
-        ny, nx = self.grid_shape
-        vg = v.reshape(ny, nx)
-        return torch.cat([vg[:1], vg[:-1]], dim=0).reshape(-1)
+        return self._per_level(
+            v, lambda vg: torch.cat([vg[:1], vg[:-1]], dim=0))
 
     def slot_fluxes(self, fluxes: torch.Tensor) -> torch.Tensor:
-        """Per-slot outward mass fluxes (N, K).  The structured and banded
-        paths store them in slot layout already; a face-major (F,) field
-        (one owner-outward value per face) is gathered per slot and signed
-        per side."""
-        if self.structured or fluxes.dim() == 2:
+        """Per-slot outward mass fluxes (N, K).  The structured, multilevel
+        and banded paths store them in slot layout already; a face-major
+        (F,) field (one owner-outward value per face, the generic path
+        without a banded map) is gathered per slot and signed per side."""
+        if self.structured or self.multilevel or fluxes.dim() == 2:
             return fluxes
         from ..ops.banded_kernels import banded_gather
         return banded_gather(fluxes.contiguous(), self.ck_face) * self.ck_sign
@@ -272,9 +305,7 @@ def _detect_uniform_grid(mesh: Mesh):
 def _multilevel_layout(mesh: Mesh):
     """Device layout for a locally-refined quadtree mesh: each refinement
     level is its own (ny, nx) uniform grid (holes masked), concatenated
-    finest-first.  Returns (shapes, offsets, N_dev, dev_of_host) or None.
-    The layout itself is not ported; ``encode_mesh`` uses this only to tell
-    a mesh that would take it from one that goes to the generic path."""
+    finest-first.  Returns (shapes, offsets, N_dev, dev_of_host) or None."""
     lev = mesh.cell_level
     if lev is None or lev.max() == lev.min():
         return None
@@ -453,13 +484,83 @@ def _banded_decision(ck_neighbor, occ, N_dev):
     return banded, (bd_k if banded else None)
 
 
+def _multilevel_banded(ck_neighbor, N_dev) -> bool:
+    """Whether the JAX package builds a multi-window index map for a
+    multilevel mesh (its banded ELL path; otherwise the block-ELL path): it
+    tries 2..6 windows and keeps the cheapest map that builds."""
+    from ..ops.banded_maps import build_banded_map2
+    return any(build_banded_map2(ck_neighbor, N_dev, n_windows=nw)
+               is not None for nw in (2, 3, 4, 5, 6))
+
+
+def _extra_slots(e_dev, keep, e_slot) -> int:
+    """Entries that won no direction slot take slots 4, 5, ... in entry
+    order within their cell; returns the number of extra slots."""
+    idxe = np.nonzero(~keep)[0]
+    if not len(idxe):
+        return 0
+    orde = np.argsort(e_dev[idxe], kind="stable")
+    sc = e_dev[idxe][orde]
+    change = np.ones(len(idxe), dtype=bool)
+    change[1:] = sc[1:] != sc[:-1]
+    grp_start = np.maximum.accumulate(
+        np.where(change, np.arange(len(idxe)), 0))
+    rank = np.arange(len(idxe)) - grp_start
+    e_slot[idxe[orde]] = 4 + rank
+    return int(rank.max()) + 1
+
+
+def _won_direction(e_dev, dir_slot, prio):
+    """Per entry: did it win its (cell, direction) slot?  Within each pair,
+    the lowest ``prio`` wins; entries without a direction win nothing."""
+    has_dir = dir_slot >= 0
+    keyd = e_dev * 4 + np.where(has_dir, dir_slot, 0)
+    ordk = np.lexsort((prio, keyd))
+    sk = keyd[ordk]
+    first = np.ones(len(keyd), dtype=bool)
+    first[1:] = sk[1:] != sk[:-1]
+    keep = np.zeros(len(keyd), dtype=bool)
+    keep[ordk] = first
+    return keep & has_dir
+
+
+def _multilevel_pairs(e_dev, e_slot, e_face, shiftable, internal, F, N_dev,
+                      K):
+    """The multilevel flux bookkeeping: the W/S mirror mask ck_mirror
+    (internal faces whose two entries both won their E/W or N/S direction
+    slots) and the (cell, slot) entry pairs of every other internal face
+    (side a = owner, side b = neighbor)."""
+    faces_idx = np.arange(F)
+    n_int = int(internal.sum())
+    ngh_entry = np.full(F, -1, dtype=np.int64)
+    ngh_entry[faces_idx[internal]] = F + np.arange(n_int)
+    a = np.nonzero(internal)[0]         # owner-side entry index == face id
+    b = ngh_entry[a]
+    sa, sb = e_slot[a], e_slot[b]
+    both = shiftable[a] & shiftable[b]
+    ew = both & (((sa == SLOT_E) & (sb == SLOT_W))
+                 | ((sa == SLOT_W) & (sb == SLOT_E)))
+    ns = both & (((sa == SLOT_N) & (sb == SLOT_S))
+                 | ((sa == SLOT_S) & (sb == SLOT_N)))
+    w_ent = np.where(sa == SLOT_W, a, b)[ew]
+    s_ent = np.where(sa == SLOT_S, a, b)[ns]
+    mirror = np.zeros((N_dev, K))
+    mirror[e_dev[w_ent], SLOT_W] = 1.0
+    mirror[e_dev[s_ent], SLOT_S] = 1.0
+    unm = ~(ew | ns)
+    pa, pb = a[unm], b[unm]
+    return mirror, (e_dev[pa], e_slot[pa], e_dev[pb], e_slot[pb])
+
+
 def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
                 pad_rows_to: int = 1, pad_cols_to: int = 1) -> DeviceMesh:
     """Encode a host mesh onto ``device`` (CUDA unless the caller names
     another; see :func:`resolve_device`).
 
     ``structured``: "auto" picks the stencil fast path when the mesh is a
-    uniform cut-cell grid; "never" forces the generic layout.
+    uniform cut-cell grid, or the multilevel layout when it carries
+    quadtree provenance within the 6x rule; "never" forces the generic
+    layout.
     ``pad_rows_to`` / ``pad_cols_to``: round ny / nx up to a multiple (the
     extra rows / columns are masked solid cells; structured layout only).
     """
@@ -480,10 +581,10 @@ def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
     f_ny = np.where(flip, -mesh.face_ny, mesh.face_ny)
 
     grid = _detect_uniform_grid(mesh) if structured == "auto" else None
-    if grid is None and structured == "auto" \
-            and _multilevel_layout(mesh) is not None:
-        raise NotImplementedError(
-            "the multilevel layout of refined quadtree meshes is not ported")
+    ml = None
+    if grid is None and structured == "auto":
+        ml = _multilevel_layout(mesh)
+    ml_levels = None
 
     # ------------------------------------------------------------------
     # Device cell layout.
@@ -496,6 +597,9 @@ def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
         N_dev = nx * ny
         dev_of_host = (jys * nx + ixs).astype(np.int64)
         grid_shape = (ny, nx)
+    elif ml is not None:
+        ml_levels, _, N_dev, dev_of_host = ml
+        grid_shape = None
     else:
         # Generic (unstructured) layout: order cells so neighbors fall in
         # narrow index bands, and pad the count to a multiple of 128 (the
@@ -546,41 +650,45 @@ def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
                       [SLOT_E, SLOT_W, SLOT_N, SLOT_S], default=-1),
             np.select([onx > 0.999, onx < -0.999, ony > 0.999, ony < -0.999],
                       [SLOT_E, SLOT_W, SLOT_N, SLOT_S], default=-1))
-        # Resolve conflicts / unassigned into extra slots (vectorized).
-        n_e = len(e_face)
-        e_slot = np.full(n_e, -1, dtype=np.int64)
-        has_dir = dir_slot >= 0
-        e_bnd = ~e_internal
-        keyd = e_dev * 4 + np.where(has_dir, dir_slot, 0)
-        # Within each (cell, direction), prefer the internal face.
-        ordk = np.lexsort((e_bnd, keyd))
-        sk = keyd[ordk]
-        first = np.ones(n_e, dtype=bool)
-        first[1:] = sk[1:] != sk[:-1]
-        keep = np.zeros(n_e, dtype=bool)
-        keep[ordk] = first
-        keep &= has_dir
-        if (e_internal & has_dir & ~keep).any() or (e_internal & ~has_dir).any():
+        # Within each (cell, direction), prefer the internal face; the rest
+        # take extra slots.
+        keep = _won_direction(e_dev, dir_slot, ~e_internal)
+        if (e_internal & ~keep).any():
             # Two internal faces share a direction slot / unassigned
             # internal face: not a uniform grid.  Take the generic layout.
             return encode_mesh(mesh, device=device, structured="never",
                                pad_rows_to=pad_rows_to,
                                pad_cols_to=pad_cols_to)
-        e_slot[keep] = dir_slot[keep]
-        # Extras: rank within cell.
-        idxe = np.nonzero(~keep)[0]
-        K_extra = 0
-        if len(idxe):
-            orde = np.argsort(e_dev[idxe], kind="stable")
-            sc = e_dev[idxe][orde]
-            change = np.ones(len(idxe), dtype=bool)
-            change[1:] = sc[1:] != sc[:-1]
-            grp_start = np.maximum.accumulate(
-                np.where(change, np.arange(len(idxe)), 0))
-            rank = np.arange(len(idxe)) - grp_start
-            e_slot[idxe[orde]] = 4 + rank
-            K_extra = int(rank.max()) + 1
-        K = 4 + K_extra
+        e_slot = np.where(keep, dir_slot, -1)
+        K = 4 + _extra_slots(e_dev, keep, e_slot)
+    elif ml is not None:
+        # Direction slots (E/W/N/S) go first to same-level grid-adjacent
+        # internal faces (resolvable by per-level shifts), then to other
+        # internal faces with an axis-aligned normal, then to boundary
+        # faces; the rest take extra slots.
+        lev_h = (mesh.cell_level - mesh.cell_level.min()).astype(np.int64)
+        gi_h = mesh.cell_gi.astype(np.int64)
+        gj_h = mesh.cell_gj.astype(np.int64)
+        oth_host = np.where(e_sign > 0, neigh_safe[e_face], owner[e_face])
+        e_internal = internal[e_face]
+        same_lev = e_internal & (lev_h[oth_host] == lev_h[e_host])
+        dix = np.where(same_lev, gi_h[oth_host] - gi_h[e_host], 0)
+        djy = np.where(same_lev, gj_h[oth_host] - gj_h[e_host], 0)
+        same_adj = same_lev & (np.abs(dix) + np.abs(djy) == 1)
+        onx = f_nx[e_face] * e_sign
+        ony = f_ny[e_face] * e_sign
+        dir_slot = np.where(
+            same_adj,
+            np.select([dix == 1, dix == -1, djy == 1, djy == -1],
+                      [SLOT_E, SLOT_W, SLOT_N, SLOT_S], default=-1),
+            np.select([onx > 0.999, onx < -0.999, ony > 0.999, ony < -0.999],
+                      [SLOT_E, SLOT_W, SLOT_N, SLOT_S], default=-1))
+        keep = _won_direction(e_dev, dir_slot,
+                              np.where(same_adj, 0, np.where(e_internal, 1, 2)))
+        e_slot = np.where(keep, dir_slot, -1)
+        K = 4 + _extra_slots(e_dev, keep, e_slot)
+        # Shift-resolvable: same-level adjacent and won its direction slot.
+        ml_shiftable = same_adj & keep
     else:
         # Generic: slots in the host CSR order (sorted by neighbor below).
         counts = np.diff(mesh.cell_face_offsets)
@@ -623,7 +731,7 @@ def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
     bdry = np.where(e_is_b, mesh.face_boundary[e_face], 0)
     ngh_dev = np.where(e_is_b, e_dev, dev_of_host[oth_host])
 
-    if grid is None:
+    if grid is None and ml is None:
         # Sort each cell's slots by neighbor device id: slot k then holds
         # the k-th order statistic of the cell's neighbors (the JAX
         # package's sorted-slot maps rely on it; here it fixes which slots
@@ -647,7 +755,16 @@ def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
 
     banded = False
     bd_k = None
-    if grid is None:
+    ml_arrays = {}
+    if ml is not None:
+        mirror, pairs = _multilevel_pairs(e_dev, e_slot, e_face,
+                                          ml_shiftable, internal, F, N_dev,
+                                          K)
+        ml_arrays = dict(
+            ml_pair_cell_a=pairs[0], ml_pair_slot_a=pairs[1],
+            ml_pair_cell_b=pairs[2], ml_pair_slot_b=pairs[3])
+        banded = _multilevel_banded(ck_neighbor, N_dev)
+    elif grid is None:
         # Padded trailing slots repeat the cell's last real neighbor;
         # sorted ranks are contiguous from slot 0, so occupancy is a prefix
         # and fully masked padding cells keep self.
@@ -683,6 +800,9 @@ def encode_mesh(mesh: Mesh, device=None, structured: str = "auto",
     return DeviceMesh(
         num_cells=N_dev, num_faces=F, max_faces=K, num_host_cells=N_host,
         grid_shape=grid_shape, device=device, banded=banded, bd_k=bd_k,
+        ml_levels=ml_levels,
+        ck_mirror=None if ml is None else as_f(mirror),
+        **{k: as_i(v) for k, v in ml_arrays.items()},
         f_owner=as_i(dev_of_host[owner]),
         f_neighbor=as_i(np.where(internal, dev_of_host[neigh_safe], -1)),
         f_neighbor_safe=as_i(dev_of_host[neigh_safe]),

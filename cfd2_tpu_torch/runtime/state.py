@@ -287,7 +287,7 @@ class SolverState:
     grad_p: torch.Tensor     # (N, 2)
     grad_u: torch.Tensor     # (N, 2)  d(u_x)/dx, d(u_x)/dy
     grad_v: torch.Tensor     # (N, 2)
-    fluxes: torch.Tensor     # (N, K) slot layout
+    fluxes: torch.Tensor     # (N, K) slot layout, or (F,) per face
     u_old: torch.Tensor      # (N, 2)  state at t^n
     u_old_old: torch.Tensor  # (N, 2)  state at t^{n-1} (BDF2)
     time: torch.Tensor       # f32 scalar
@@ -336,7 +336,11 @@ def initial_state(mesh, u0=None, p0=None,
         u=u, p=p, d_p=torch.zeros((N,), **f32),
         grad_p=torch.zeros((N, 2), **f32), grad_u=torch.zeros((N, 2), **f32),
         grad_v=torch.zeros((N, 2), **f32),
-        fluxes=torch.zeros((N, mesh.max_faces), **f32),
+        # Slot layout everywhere except the generic path without a banded
+        # map, which keeps one value per face (prepare_coupled.wgsl).
+        fluxes=torch.zeros((N, mesh.max_faces) if mesh.structured
+                           or mesh.multilevel or mesh.banded
+                           else (mesh.num_faces,), **f32),
         u_old=u, u_old_old=u, time=torch.zeros((), **f32),
         prev_u=u, degenerate_count=torch.zeros((), **i32),
         steady_count=torch.zeros((), **i32),

@@ -60,7 +60,26 @@ Phases (any failure exits non-zero):
    and 8 every option for one step on the card and on the CPU (equal outer
    counts, u within 1e-4 * max|u|).  Each structured run on the card must
    launch ``rbgs_leg``; per run it logs outers, FGMRES iterations per
-   outer, wall time and launches.
+   outer, wall time and launches;
+10. the generic-mesh paths: (a) the refined quadtree mesh 0.0025/0.005
+   (132,080 cells on the multilevel layout, levels 400x1200 and 200x600 =
+   600,000 device cells) from rest as bench_sweep.py starts its refined
+   rows, with the fine-grid-embedded multigrid, 3 steps, after holding the
+   banded kernels on its maps and ``rbgs_leg`` (every form, as in phase 2)
+   on each grid of its fine-grid multigrid: ``rbgs_leg`` (2 per fine level
+   per FGMRES iteration), ``banded_dot`` and ``banded_gather`` must be
+   launched;
+   (b) block-Jacobi (precond_type=2, fgmres_max_restarts=5) for one step on
+   phase 3's developed 1M state and on phase 6's Delaunay solver (whose
+   gather must launch ``banded_gather``); (c) card against CPU, one step
+   each: the multilevel 0.01/0.04 mesh (8,817 cells; it also launches
+   ``banded_jacobi_sweeps``), block-Jacobi and Chebyshev on the ~5k-cell
+   cut-cell mesh, the aggregation AMG on the ~5k-cell Delaunay mesh with
+   its banded map removed, the 75-cell channel too small for the structured
+   multigrid, and one SIMPLE step: equal outer counts (block-Jacobi: or one
+   apart where the later exit's last outer took 0 iterations), u within
+   1e-4 * max|u|.  Per run it logs outers, FGMRES iterations per outer,
+   host reads, wall time and launches.
 
 Then the kernels' JSON line and the result line are printed.
 
@@ -104,7 +123,10 @@ DELAUNAY_LEVELS = (59_490, 5_227, 550, 112, 62)
 VORONOI_MIN_CELL, VORONOI_CELLS = 0.004, 115_505
 BANDED_SRC = "cfd2_tpu_torch/csrc/banded.cu"
 BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+# Phase 10: the refined quadtree mesh on the multilevel layout.
+MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
+MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
 # Phase 9: one step of each SolverConfig option on the developed 1M state
 # and on the small meshes (the Delaunay ones take those that act on the
 # banded path, as in the JAX package).
@@ -613,21 +635,25 @@ def _half_sweep_call(sk, x, diag2, off2, b, parity):
             lambda: sk.rbgs_half_sweep_ref(*args).reshape(ny, nx))
 
 
-def phase_kernels(results):
-    """Each kernel against its plain version on the card; times at the
-    main paths' shapes."""
-    import torch
-    from cfd2_tpu_torch.ops import stencil_kernels as sk
-
-    # The fused forms are not in a --tree of an earlier round.
+def _leg_forms(sk):
+    """(fused, planar, forms) of the tree's wrappers: the fused forms are
+    not in a --tree of an earlier round, nor is the planar half-sweep."""
     fused = "restrict_to" in inspect.signature(sk.rbgs_leg).parameters
     planar = "grid_shape" not in inspect.signature(
         sk.rbgs_half_sweep).parameters
     forms = [f for f in LEG_FORMS if fused or f in ("smooth", "residual")]
-    grids, _ = level_grids(*MAIN_GRID)
-    cases = [(37, 53), (16, 24), (300, 128)] + grids
+    return fused, planar, forms
+
+
+def _hold_legs(phase, sk, cases):
+    """rbgs_leg (sweeps 1 and 2, with and without residual), its fused
+    forms and rbgs_half_sweep against their plain versions on random
+    systems at each (ny, nx) of ``cases``; logs and checks the max-abs
+    errors and returns them (leg, fused, half-sweep).  The caller takes
+    the launches made here off the counts."""
+    import torch
+    _, planar, forms = _leg_forms(sk)
     err_leg = err_fused = err_half = 0.0
-    before = dict(sk.LAUNCHES)
     for ci, (ny, nx) in enumerate(cases):
         diag2, off2, x, b = _grid_system(ny, nx, ci, "cuda")
         xc = _rand(coarse_of((ny, nx)), 200 + ci, "cuda")
@@ -651,16 +677,32 @@ def phase_kernels(results):
                 sk.rbgs_half_sweep(xi, diag2, off2, b, parity, in_place=True)
                 err_half = max(err_half, float((xi - ref).abs().max()))
     torch.cuda.synchronize()
-    log(f"phase 2: {len(cases)} grids; max-abs error leg {err_leg:.3e} "
-        f"(sweeps 1 and 2, with and without residual), fused legs "
-        f"{err_fused:.3e} (restricted residual, prolongation added), "
-        f"half-sweep {err_half:.3e} (tolerance {TOL:g})")
+    log(f"phase {phase}: {len(cases)} grids "
+        + ", ".join(f"{ny}x{nx}" for ny, nx in cases)
+        + f"; max-abs error leg {err_leg:.3e} (sweeps 1 and 2, with and "
+        f"without residual), fused legs {err_fused:.3e} (restricted "
+        f"residual, prolongation added), half-sweep {err_half:.3e} "
+        f"(tolerance {TOL:g})")
     check(err_leg <= TOL, f"rbgs_leg disagrees with its plain version: "
           f"{err_leg:.3e}")
     check(err_fused <= TOL, f"a fused form of rbgs_leg disagrees with the "
           f"plain leg and grid transfer: {err_fused:.3e}")
     check(err_half <= TOL, f"rbgs_half_sweep disagrees with its plain "
           f"version: {err_half:.3e}")
+    return err_leg, err_fused, err_half
+
+
+def phase_kernels(results):
+    """Each kernel against its plain version on the card; times at the
+    main paths' shapes."""
+    import torch
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+
+    fused, planar, forms = _leg_forms(sk)
+    grids, _ = level_grids(*MAIN_GRID)
+    cases = [(37, 53), (16, 24), (300, 128)] + grids
+    before = dict(sk.LAUNCHES)
+    err_leg, err_fused, err_half = _hold_legs(2, sk, cases)
 
     # The leg on every level grid of the main path, in every form, beside
     # the form's byte bound.  Flops per cell: 2 half-sweeps x 9 on half the
@@ -845,6 +887,7 @@ def phase_main(results, ctx):
     leg = sk.LAUNCHES["rbgs_leg"]
     if "rbgs_leg" in results:          # phase 2 ran and made the entry
         results["rbgs_leg"]["launches"] = leg
+    _path_launches(results, "structured (phase 3)", {"rbgs_leg": leg})
     check(leg > 0, "rbgs_leg was never launched on the main path")
     per_apply = 2 * len(grids)
     check(leg == per_apply * lin_total,
@@ -904,6 +947,8 @@ def phase_half_sweep(results, ctx):
             os.environ["CFD2_PALLAS"] = old
     if "rbgs_half_sweep" in results:
         results["rbgs_half_sweep"]["launches"] = counts["rbgs_half_sweep"]
+    _path_launches(results, "half-sweep (phase 4)",
+                   {"rbgs_half_sweep": counts["rbgs_half_sweep"]})
     per_apply = 2 * 2 * len(grids)   # 2 half-sweeps x 2 smooths per level
     log(f"phase 4: {MAIN_CELLS} cells, launches {counts} over {lin_total} "
         f"FGMRES iterations ({per_apply} half-sweeps per V-cycle)")
@@ -940,8 +985,9 @@ def _obstacle_geo():
 
 def _unstructured_solver(mesh, min_cell, device):
     """CoupledSolver set up as bench_sweep.py sets up its from-rest
-    unstructured cases: dt = min(0.002, 0.4 h), aggregation AMG, the inlet
-    column at u = 1."""
+    unstructured and refined cases: dt = min(0.002, 0.4 h), precond_type=1
+    (the aggregation AMG, or the embedded multigrid on a multilevel mesh),
+    the inlet column at u = 1."""
     from cfd2_tpu_torch import CoupledSolver
     s = CoupledSolver(mesh, device=device)
     s.set_dt(min(0.002, 0.4 * min_cell))
@@ -963,8 +1009,23 @@ def _hold_on_solver_maps(phase, s, results):
     import torch
     from cfd2_tpu_torch.ops import banded_kernels as bk
 
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.ops.amg import AmgHierarchy, MultilevelAmg
     before = dict(bk.LAUNCHES)
     dm, hier = s.mesh, s._get_amg()
+    if isinstance(hier, MultilevelAmg):
+        # The embedded multigrid's V-cycle runs rbgs_leg on every grid of
+        # its structured levels but the coarsest, which it solves directly:
+        # hold the leg there.  It has no ELL levels.
+        fine = hier.fine.levels
+        grids = [fine[0].fine_grid] + [lvl.grid for lvl in fine[:-1]]
+        leg_before = dict(sk.LAUNCHES)
+        err_leg, err_fused, _ = _hold_legs(phase, sk, grids)
+        sk.LAUNCHES.update(leg_before)
+        if "rbgs_leg" in results:
+            results["rbgs_leg"]["max_abs_err"] = max(
+                results["rbgs_leg"]["max_abs_err"], err_leg, err_fused)
+    levels = hier.levels if isinstance(hier, AmgHierarchy) else ()
     dev = dm.ck_neighbor.device
     n, K = dm.ck_neighbor.shape
     err = {"banded_gather": 0.0, "banded_dot": 0.0,
@@ -1006,7 +1067,7 @@ def _hold_on_solver_maps(phase, s, results):
 
     n_fine, k_fine = n, K
     one = DOT_FORMS["scalar"][2]
-    for li, lvl in enumerate(hier.levels):
+    for li, lvl in enumerate(levels):
         x_c = _rand((lvl.n,), 150 + li, dev)
         r_f = _rand((n_fine,), 160 + li, dev)
         dot((x_c,), (_rand((lvl.n, lvl.k), 170 + li, dev, 0.3),),
@@ -1192,6 +1253,7 @@ def phase_delaunay(results, ctx):
     for name, cnt in counts.items():
         if name in results:
             results[name]["launches"] = cnt
+    _path_launches(results, "Delaunay (phase 6)", counts)
     L = _check_prolongation(6, s)
     # Of the steps' gathers, L per FGMRES iteration are the V-cycle's
     # prolongations; the rest are the assembly's and the Galerkin sums'.
@@ -1277,15 +1339,17 @@ def _record_solves():
 def _timed_steps(s, n, mode="fused", step=None):
     """``n`` steps of ``s`` (or of ``step()``) with the launch counts zeroed
     just before and read just after; returns the rows (outers, FGMRES
-    iterations per outer, wall s) and the counts."""
+    iterations per outer, wall s, host reads) and the counts."""
     import torch
     from cfd2_tpu_torch.ops import banded_kernels as bk
     from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.runtime import host_reads
     rows = []
     sk.reset_launches()
     bk.reset_launches()
     for _ in range(n):
         its, restore = _record_solves()
+        host_reads.reset()
         torch.cuda.synchronize()
         t = time.perf_counter()
         try:
@@ -1297,16 +1361,17 @@ def _timed_steps(s, n, mode="fused", step=None):
         finally:
             restore()
         rows.append((int(s.state.outer_iters), its,
-                     time.perf_counter() - t))
+                     time.perf_counter() - t, host_reads.COUNT["reads"]))
         check(_finite(s), "non-finite fields")
     return rows, {**sk.LAUNCHES, **bk.LAUNCHES}
 
 
-def _log_run(label, rows, counts):
-    for i, (outer, its, wall) in enumerate(rows):
-        log(f"phase 9: {label} step {i}: outer_iters {outer}, FGMRES "
-            f"iterations {sum(its)} per outer {its}, wall {wall:.4f} s")
-    log(f"phase 9: {label} launches {counts}")
+def _log_run(label, rows, counts, phase=9):
+    for i, (outer, its, wall, reads) in enumerate(rows):
+        log(f"phase {phase}: {label} step {i}: outer_iters {outer}, FGMRES "
+            f"iterations {sum(its)} per outer {its}, wall {wall:.4f} s, "
+            f"host reads {reads}")
+    log(f"phase {phase}: {label} launches {counts}")
 
 
 def _options_card_vs_cpu(make, label, opts, mode="fused", structured=True):
@@ -1389,7 +1454,7 @@ def phase_options(ctx):
         restore(**opts)
         run(label)
     restore()
-    for i, (outer, _, _) in enumerate(run("host mode", 2, mode="host")):
+    for i, (outer, *_) in enumerate(run("host mode", 2, mode="host")):
         outer3 = main["timed"][i][0]
         check(abs(outer - outer3) <= 1, f"host-mode step {i}: {outer} "
               f"outer iterations, phase 3's timed step {i}: {outer3}")
@@ -1462,9 +1527,231 @@ def phase_options(ctx):
                 f"(limit {limit:.3e})")
 
 
+# ----------------------------------------------------------------------
+# Phase 10: the generic-mesh paths.
+
+
+def _path_launches(results, path, counts):
+    """Record one path's launches beside the kernels' main-path counts."""
+    for name, cnt in counts.items():
+        if name in results:
+            results[name].setdefault("launches_by_path", {})[path] = cnt
+
+
+def _refined(min_cell, max_cell):
+    from cfd2_tpu_torch import generate_cut_cell_mesh
+    return generate_cut_cell_mesh(_obstacle_geo(), min_cell, max_cell, 1.2,
+                                  (3.0, 1.0))
+
+
+def phase_multilevel(results):
+    """10(a): the refined quadtree mesh on the multilevel layout."""
+    import torch
+    from cfd2_tpu_torch.ops.amg import MultilevelAmg
+
+    h, h_max = MULTILEVEL_CELL
+    t0 = time.time()
+    mesh = _refined(h, h_max)
+    log(f"phase 10a: refined mesh {h}/{h_max}: {mesh.num_cells} cells in "
+        f"{time.time() - t0:.1f} s")
+    check(mesh.num_cells == MULTILEVEL_CELLS,
+          f"mesh has {mesh.num_cells} cells, expected {MULTILEVEL_CELLS}")
+    t0 = time.time()
+    s = _unstructured_solver(mesh, h, None)
+    dm = s.mesh
+    hier = s._get_amg()
+    torch.cuda.synchronize()
+    log(f"phase 10a: levels {dm.ml_levels}, N_dev {dm.num_cells}, K "
+        f"{dm.max_faces}, banded {dm.banded}, hanging-face pairs "
+        f"{dm.ml_pair_cell_a.numel()}; encode + hierarchy "
+        f"{time.time() - t0:.1f} s; fine-grid multigrid "
+        f"{[lvl.grid for lvl in hier.fine.levels]}")
+    check(dm.multilevel and dm.banded and dm.ml_levels == MULTILEVEL_GRIDS,
+          f"layout: multilevel {dm.multilevel}, banded {dm.banded}, "
+          f"levels {dm.ml_levels}")
+    check(isinstance(hier, MultilevelAmg), f"hierarchy {type(hier)}")
+    check(not dm.banded_sweeps_fit(2), "600,000 device cells take the "
+          "per-sweep dots (the 12 MiB rule)")
+    _hold_on_solver_maps("10a", s, results)
+    rows, counts = _timed_steps(s, 3)
+    _log_run("multilevel", rows, counts, phase="10a")
+    lin_total = sum(sum(its) for _, its, _, _ in rows)
+    per_apply = 2 * len(hier.fine.levels)
+    for name in ("rbgs_leg", "banded_dot", "banded_gather"):
+        check(counts[name] > 0, f"{name} was never launched on the "
+              "multilevel path")
+    check(counts["banded_jacobi_sweeps"] == 0, "the one-call sweeps ran "
+          "above the 12 MiB rule")
+    check(counts["rbgs_leg"] == per_apply * lin_total,
+          f"rbgs_leg launches {counts['rbgs_leg']} != {per_apply} per "
+          f"V-cycle x {lin_total} FGMRES iterations")
+    log(f"phase 10a: {lin_total} FGMRES iterations; per iteration "
+        + ", ".join(f"{counts[k] / lin_total:.2f} {k}"
+                    for k in ("rbgs_leg", "banded_dot", "banded_gather")))
+    _path_launches(results, "multilevel (phase 10a)", counts)
+
+
+def phase_block(results, ctx):
+    """10(b): block-Jacobi at full width on phase 3's developed state and
+    on phase 6's Delaunay solver."""
+    from dataclasses import replace
+
+    runs = []
+    if "main" in ctx:
+        main = ctx["main"]
+        runs.append(("developed 1M", main["solver"], main["state"],
+                     main["params"], ()))
+    else:
+        log("phase 10b: phase 3 did not run: no block-Jacobi step at 1M")
+    if "delaunay" in ctx:
+        d = ctx["delaunay"]
+        runs.append(("Delaunay 403k", d, d.state, d.params,
+                     ("banded_gather",)))
+    else:
+        log("phase 10b: phase 6 did not run: no Delaunay block-Jacobi step")
+    for label, s, state, params, kernels in runs:
+        base = s.config
+        s.state, s.params, s._krylov = state, params, None
+        s.config = replace(base, precond_type=2, fgmres_max_restarts=5,
+                           fgmres_basis_bf16=False, fgmres_recycle=0)
+        try:
+            rows, counts = _timed_steps(s, 1)
+        finally:
+            s.config = base
+            s.state, s.params = state, params
+        _log_run(f"{label} block-Jacobi", rows, counts, phase="10b")
+        for name in kernels:
+            check(counts[name] > 0, f"{name} was never launched on the "
+                  f"{label} block path")
+        if kernels:
+            _path_launches(results, f"{label} block-Jacobi (phase 10b)",
+                           {k: counts[k] for k in kernels})
+
+
+def _unbanded(s, mesh, min_cell):
+    """``s`` on its mesh with the banded map removed (the block path of a
+    generic mesh without one), restarted from the inlet column."""
+    from dataclasses import replace
+    from cfd2_tpu_torch.runtime.state import initial_state
+    s.mesh = replace(s.mesh, banded=False, bd_k=None)
+    s.state = initial_state(s.mesh)
+    u0 = np.zeros((mesh.num_cells, 2))
+    u0[mesh.cell_cx < min_cell * 2, 0] = 1.0
+    s.set_u(u0)
+    return s
+
+
+def _generic_runs():
+    """The 10(c) cases: (label, make(device), kernels the card must
+    launch, block-Jacobi)."""
+    from dataclasses import replace
+    from cfd2_tpu_torch import generate_delaunay_mesh
+    refined = _refined(0.01, 0.04)
+    channel = _channel(0.025)
+    tiny = _channel(0.2)
+    delaunay = generate_delaunay_mesh(_obstacle_geo(), 0.025, 0.025, 1.2,
+                                      (3.0, 1.0))
+
+    def cut(mesh, h, precond):
+        def make(dev):
+            s = _solver(mesh, h, dev)
+            s.config = replace(s.config, precond_type=precond)
+            return s
+        return make
+
+    return (
+        (f"multilevel 0.01/0.04 ({refined.num_cells} cells) AMG",
+         lambda dev: _unstructured_solver(refined, 0.01, dev),
+         ("rbgs_leg", "banded_gather", "banded_dot", "banded_jacobi_sweeps"),
+         False),
+        (f"cut-cell ({channel.num_cells} cells) block-Jacobi",
+         cut(channel, 0.025, 2), (), True),
+        (f"cut-cell ({channel.num_cells} cells) Chebyshev",
+         cut(channel, 0.025, 0), (), False),
+        (f"Delaunay without banded map ({delaunay.num_cells} cells) AMG",
+         lambda dev: _unbanded(_unstructured_solver(delaunay, 0.025, dev),
+                               delaunay, 0.025),
+         ("banded_gather", "banded_dot"), False),
+        (f"channel 0.2 ({tiny.num_cells} cells, no structured multigrid) "
+         "AMG", cut(tiny, 0.2, 1), (), False),
+    ), channel
+
+
+def _generic_card_vs_cpu(label, make, kernels, block_jacobi):
+    """One step of ``make(device)`` on the card and on the CPU: equal outer
+    counts (block-Jacobi may exit one outer later on an unchanged state:
+    the later exit's last solve then took 0 iterations), u within
+    1e-4 * max|u|, ``kernels`` launched on the card."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        s = make(dev)
+        if dev == "cuda":
+            rows, counts = _timed_steps(s, 1)
+            _log_run(label, rows, counts, phase="10c")
+        else:
+            s.step()
+        runs[dev] = (int(s.state.outer_iters), int(s.state.linear_iters),
+                     s.get_u())
+    (o_gpu, l_gpu, u_gpu), (o_cpu, l_cpu, u_cpu) = runs["cuda"], runs["cpu"]
+    limit = 1e-4 * float(np.abs(u_cpu).max())
+    err = float(np.abs(u_gpu - u_cpu).max())
+    log(f"phase 10c: {label}: outer_iters card {o_gpu} / cpu {o_cpu}, "
+        f"max|u_card - u_cpu| {err:.3e} (limit {limit:.3e})")
+    for name in kernels:
+        check(counts[name] > 0, f"{label}: {name} never launched")
+    noop = block_jacobi and abs(o_gpu - o_cpu) == 1 and (
+        l_gpu if o_gpu > o_cpu else l_cpu) == 0
+    check(o_gpu == o_cpu or noop,
+          f"{label}: outer iterations card {o_gpu}, cpu {o_cpu}")
+    check(np.isfinite(u_gpu).all() and err <= limit,
+          f"{label}: card and CPU velocities disagree")
+
+
+def _simple_card_vs_cpu(channel):
+    """One SIMPLE step of the cut-cell channel on the card and on the CPU:
+    equal corrector counts, u within 1e-4 * max|u|."""
+    from cfd2_tpu_torch.models.pressure_poisson import simple_step
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = _solver(channel, 0.025, dev)
+        t0 = time.perf_counter()
+        st = simple_step(s.mesh, s.state, s.params, s.config)
+        out[dev] = (int(st.outer_iters), int(st.linear_iters_total),
+                    s.mesh.to_host_order(st.u).cpu().numpy(),
+                    time.perf_counter() - t0)
+    (o_gpu, l_gpu, u_gpu, w_gpu), (o_cpu, l_cpu, u_cpu, _) = (out["cuda"],
+                                                              out["cpu"])
+    limit = 1e-4 * float(np.abs(u_cpu).max())
+    err = float(np.abs(u_gpu - u_cpu).max())
+    log(f"phase 10c: SIMPLE step ({channel.num_cells} cells): correctors "
+        f"{o_gpu} / {o_cpu}, Krylov iterations card {l_gpu} / cpu {l_cpu}, "
+        f"wall on the card {w_gpu:.4f} s, max|u_card - u_cpu| {err:.3e} "
+        f"(limit {limit:.3e})")
+    check(o_gpu == o_cpu, "SIMPLE corrector counts differ")
+    check(np.isfinite(u_gpu).all() and err <= limit,
+          "SIMPLE step: card and CPU velocities disagree")
+
+
+def phase_generic_cpu_match():
+    """10(c): the generic-mesh paths on the card against the CPU."""
+    cases, channel = _generic_runs()
+    for case in cases:
+        _generic_card_vs_cpu(*case)
+    _simple_card_vs_cpu(channel)
+
+
+def phase_generic(results, ctx):
+    for part, fn in (("a", lambda: phase_multilevel(results)),
+                     ("b", lambda: phase_block(results, ctx)),
+                     ("c", phase_generic_cpu_match)):
+        t0 = time.time()
+        fn()
+        log(f"# phase 10{part} done in {time.time() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--tree", metavar="PATH",
                     help="run phases 1 and 2 on the cfd2_tpu_torch of "
@@ -1498,7 +1785,8 @@ def main(argv=None) -> int:
              (6, lambda: phase_delaunay(results, ctx)),
              (7, lambda: phase_voronoi(results)),
              (8, phase_delaunay_cpu_match),
-             (9, lambda: phase_options(ctx))]
+             (9, lambda: phase_options(ctx)),
+             (10, lambda: phase_generic(results, ctx))]
     for num, fn in steps:
         if num in phases:
             t0 = time.time()

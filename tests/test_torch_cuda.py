@@ -348,3 +348,31 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     fresh.step()
     assert torch.equal(fresh.state.u, s.state.u)
     assert torch.equal(fresh.state.p, s.state.p)
+
+
+# ----------------------------------------------------------------------
+# The generic-mesh paths on the card (chip_smoke.py phase 10(c)'s
+# comparisons, through its own helpers).
+
+
+@pytest.fixture(scope="module")
+def generic_runs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return _SMOKE._generic_runs()
+
+
+@pytest.mark.parametrize("i", range(5), ids=[
+    "multilevel-amg", "cutcell-block-jacobi", "cutcell-chebyshev",
+    "unbanded-delaunay-amg", "tiny-grid-amg"])
+def test_generic_path_step_card_matches_cpu(cuda, generic_runs, i):
+    """One step on the card and on the CPU: equal outer counts (or one
+    0-iteration outer apart under block-Jacobi), u within 1e-4 * max|u|,
+    the path's kernels launched on the card."""
+    cases, _ = generic_runs
+    assert len(cases) == 5
+    _SMOKE._generic_card_vs_cpu(*cases[i])
+
+
+def test_simple_step_card_matches_cpu(cuda, generic_runs):
+    _SMOKE._simple_card_vs_cpu(generic_runs[1])

@@ -1,7 +1,8 @@
 """Guards of the port's boundaries: it never imports JAX or the JAX package,
-its entry points never quietly fall back to the CPU, the layouts and paths
-that are not ported raise instead of taking another path, and the
-developed-state loader reproduces bench.py's masking."""
+its entry points never quietly fall back to the CPU, every mesh takes the
+layout and path the JAX package gives it (the fused banded products refuse
+a mesh without a banded map), and the developed-state loader reproduces
+bench.py's masking."""
 
 import ast
 import json
@@ -56,7 +57,10 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.mesh.native, cfd2_tpu_torch.mesh.voronoi, "
             "cfd2_tpu_torch.runtime.checkpoint, "
             "cfd2_tpu_torch.runtime.async_reader, "
-            "cfd2_tpu_torch.profile_step; "
+            "cfd2_tpu_torch.profile_step, cfd2_tpu_torch.ops.blockell, "
+            "cfd2_tpu_torch.ops.schur, cfd2_tpu_torch.ops.krylov, "
+            "cfd2_tpu_torch.ops.host_krylov, "
+            "cfd2_tpu_torch.models.pressure_poisson; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -84,18 +88,29 @@ def test_new_modules_are_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"banded_kernels.py", "banded_maps.py", "ellsys.py", "native.py",
             "delaunay.py", "voronoi.py", "chip_smoke.py", "checkpoint.py",
-            "async_reader.py"} <= names
+            "async_reader.py", "blockell.py", "schur.py", "krylov.py",
+            "host_krylov.py", "pressure_poisson.py"} <= names
 
 
-def test_refined_quadtree_mesh_still_raises():
-    """The multilevel layout is not ported: encode_mesh must say so, not
-    send the mesh down the generic path."""
+def test_refined_quadtree_mesh_takes_the_multilevel_layout():
+    """encode_mesh lays a refined quadtree mesh out on its level grids, as
+    the JAX package does, and does not send it down the generic path: the
+    same levels, slot maps and banded decision."""
+    from cfd2_tpu.mesh import ChannelWithObstacle as JGeo
+    from cfd2_tpu.mesh import generate_cut_cell_mesh as jgen
+    from cfd2_tpu.runtime.device_mesh import encode_mesh as jencode
     geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
     mesh = generate_cut_cell_mesh(geo, 0.05, 0.2, 1.2, (3.0, 1.0))
     assert mesh.cell_level.max() != mesh.cell_level.min()
     assert tdm._multilevel_layout(mesh) is not None
-    with pytest.raises(NotImplementedError, match="multilevel"):
-        encode_mesh(mesh, device="cpu")
+    dm = encode_mesh(mesh, device="cpu")
+    jm = jencode(jgen(JGeo(3.0, 1.0, (1.0, 0.5), 0.2), 0.05, 0.2, 1.2,
+                      (3.0, 1.0)))
+    assert dm.multilevel and not dm.structured
+    assert dm.ml_levels == jm.ml_levels and dm.banded == jm.banded
+    for f in ("ck_neighbor", "ck_mirror", "ml_pair_cell_b", "grid_of_cell"):
+        assert np.array_equal(getattr(dm, f).numpy(),
+                              np.asarray(getattr(jm, f))), f
 
 
 def test_unbanded_index_map_is_detected():
@@ -113,27 +128,44 @@ def test_unbanded_index_map_is_detected():
     assert tdm._banded_decision(band[:, :3], occ[:, :3], n) == (True, None)
 
 
-def test_generic_mesh_without_banded_map_raises():
-    """Such a mesh takes the block-ELL path in the JAX package; the port
-    raises at every entry rather than taking another path."""
+def test_generic_mesh_without_banded_map_takes_the_block_path():
+    """Such a mesh takes the block-ELL path, as in the JAX package: its
+    gather runs through the banded gather (here its plain version), the
+    fused banded products still refuse it (the JAX package never calls them
+    there), and one step in either mode agrees with cfd2_tpu's (the
+    tolerances of tests/test_torch_block_steps.py)."""
+    from cfd2_tpu.mesh import ChannelWithObstacle as JGeo
+    from cfd2_tpu.mesh import generate_delaunay_mesh as jgen
+    from cfd2_tpu.models.coupled import CoupledSolver as JSolver
+    from torch_parity import assert_step_matches, clear_banded_pair
     geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
     mesh = generate_delaunay_mesh(geo, 0.1, 0.1, 1.2, (3.0, 1.0))
+    jmesh = jgen(JGeo(3.0, 1.0, (1.0, 0.5), 0.2), 0.1, 0.1, 1.2, (3.0, 1.0))
     s = CoupledSolver(mesh, device="cpu")
     assert s.mesh.banded
     s.mesh = replace(s.mesh, banded=False)
-    x = torch.zeros(s.mesh.num_cells)
+    x = torch.arange(s.mesh.num_cells, dtype=torch.float32)
     off = torch.zeros((s.mesh.num_cells, s.mesh.max_faces))
-    with pytest.raises(NotImplementedError):
-        s.mesh.gather(x)
+    assert torch.equal(s.mesh.gather(x), x[s.mesh.ck_neighbor.long()])
     with pytest.raises(NotImplementedError):
         s.mesh.banded_dot((x,), (off,), (((0, 0),),))
     with pytest.raises(NotImplementedError):
         s.mesh.banded_jacobi_sweeps((x,), x, off, 3)
     for precond in (0, 1):
-        s.set_precond_type(precond)
         for mode in ("fused", "host"):
-            with pytest.raises(NotImplementedError):
-                s.step(mode=mode)
+            js, t = JSolver(jmesh), CoupledSolver(mesh, device="cpu")
+            clear_banded_pair(js, t)
+            for sol, h in ((js, jmesh), (t, mesh)):
+                sol.set_dt(0.005)
+                sol.set_precond_type(precond)
+                u0 = np.zeros((h.num_cells, 2))
+                u0[h.cell_cx < 0.1, 0] = 1.0
+                sol.set_u(u0)
+            js.step(mode=mode)
+            t.step(mode=mode)
+            assert not t.mesh.banded and int(t.state.outer_iters) > 0
+            assert_step_matches(js, t, (precond, mode), lin_per_outer=2,
+                                p_rel=1e-3 if precond == 0 else 1e-4)
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
@@ -166,6 +198,30 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
         bk.banded_dot((x,), (off,), idx, (((0, 0),),))
     with pytest.raises(RuntimeError, match="nvcc"):
         bk.banded_jacobi_sweeps((x,), x, off, idx, 3)
+
+    # The gathers of the multilevel layout, of a generic mesh without a
+    # banded map and of its face-parallel fluxes go through the wrapper.
+    from cfd2_tpu_torch.models.assembly import compute_fluxes
+    from cfd2_tpu_torch.ops.blockell import scalar_spmv
+    from cfd2_tpu_torch.runtime.state import SolverParams, initial_state
+    geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
+    ml = encode_mesh(generate_cut_cell_mesh(geo, 0.05, 0.2, 1.2, (3.0, 1.0)),
+                     device="cpu")
+    gen = replace(encode_mesh(generate_delaunay_mesh(
+        geo, 0.1, 0.1, 1.2, (3.0, 1.0)), device="cpu"), banded=False)
+    for dm in (ml, gen):
+        xs = torch.zeros(dm.num_cells)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            dm.gather(xs)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            scalar_spmv(xs, torch.zeros((dm.num_cells, dm.max_faces)), dm,
+                        xs)
+    state = initial_state(gen)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        compute_fluxes(gen, state, SolverParams.default(device="cpu"),
+                       state.time)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        gen.slot_fluxes(state.fluxes)
 
 
 def test_load_developed_state(tmp_path, small_mesh):

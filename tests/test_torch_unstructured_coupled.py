@@ -19,8 +19,6 @@ Tolerances and why (fields are compared in host cell order):
   complement.
 """
 
-from dataclasses import replace
-
 import numpy as np
 import pytest
 import torch
@@ -149,13 +147,25 @@ def test_run_metrics(delaunay):
     assert s.get_d_p().shape == (delaunay.num_cells,)
 
 
-def test_unported_paths_raise(delaunay):
-    s = TSolver(delaunay, device="cpu")
-    _start(s, delaunay, 2)                     # block-Jacobi: block-ELL path
-    with pytest.raises(NotImplementedError):
-        s.step()
-    s = TSolver(delaunay, device="cpu")
-    _start(s, delaunay, 1)
-    s.mesh = replace(s.mesh, banded=False)     # no banded map: block-ELL path
-    with pytest.raises(NotImplementedError):
-        s.step()
+@pytest.mark.parametrize("precond,unbanded", [(2, False), (0, True)],
+                         ids=["block-jacobi", "unbanded-chebyshev"])
+def test_block_paths_match_jax(precond, unbanded):
+    """The two block-ELL entries of a Delaunay mesh against cfd2_tpu, one
+    step from this file's start: block-Jacobi (precond_type=2, which takes
+    the block path although the mesh has a banded map) and the Chebyshev
+    pressure relaxation with the banded map removed.  This file's
+    tolerances, except that block-Jacobi may end one outer apart when that
+    outer is a 0-iteration no-op (tests/test_torch_block_steps.py says
+    why)."""
+    from torch_parity import assert_step_matches, clear_banded_pair
+    jm, tm = _mesh(jmesh, "delaunay"), _mesh(tmesh, "delaunay")
+    js, t = JSolver(jm), TSolver(tm, device="cpu")
+    if unbanded:
+        clear_banded_pair(js, t)
+    _start(js, jm, precond)
+    _start(t, tm, precond)
+    js.step()
+    t.step()
+    assert t.mesh.banded != unbanded and int(t.state.outer_iters) > 0
+    assert_step_matches(js, t, precond, lin_per_outer=2,
+                        noop_outer=precond == 2)
