@@ -9,7 +9,11 @@ relaxation, or block-Jacobi preconditioning; plus the segregated SIMPLE
 stepper.  The red-black Gauss-Seidel smoother of the structured multigrids
 (``csrc/rbgs.cu``) and every neighbor access of the other meshes (gather,
 fused gather-dot, multi-sweep Jacobi; ``csrc/banded.cu``) run as CUDA
-kernels written for Hopper; everything else is plain PyTorch.
+kernels written for Hopper; everything else is plain PyTorch.  On top sit
+the application layer (``app``: the headless app and its CLI,
+``python -m cfd2_tpu_torch.app``), forces and metrics (``utils``), the
+profiling report (``runtime.profiling``), the renderer and viewers
+(``viz``) and batched cases (``parallel``).
 
 Module paths and function names follow ``cfd2_tpu`` so each counterpart is
 easy to find.  Entry points run on the GPU unless the caller passes

@@ -47,15 +47,14 @@ SLOT_E, SLOT_W, SLOT_N, SLOT_S = 0, 1, 2, 3
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
-    another.  With no GPU present, ``device=None`` raises instead of quietly
-    running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    another.  With no GPU present, ``device=None`` (or a CUDA device) raises
+    instead of quietly running on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return device
 
 
 def _shift_slots(xg: torch.Tensor):

@@ -22,3 +22,11 @@ def read(t: torch.Tensor) -> np.ndarray:
     """Copy ``t`` to the host (one synchronisation) as a numpy array."""
     COUNT["reads"] += 1
     return t.detach().cpu().numpy()
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` as a host array: a tensor is copied off its device, uncounted
+    (a metric, a field for a frame, not a convergence test)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

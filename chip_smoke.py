@@ -79,7 +79,21 @@ Phases (any failure exits non-zero):
    multigrid, and one SIMPLE step: equal outer counts (block-Jacobi: or one
    apart where the later exit's last outer took 0 iterations), u within
    1e-4 * max|u|.  Per run it logs outers, FGMRES iterations per outer,
-   host reads, wall time and launches.
+   host reads, wall time and launches;
+11. the application layer: (a) ``python -m cfd2_tpu_torch.app`` as a
+   subprocess at full width (the 996,558-cell channel smoothed as the app
+   smooths it, the structured layout asserted, ``--precond 1``, 5 steps
+   from the app's inlet-column start with adaptive dt, Cd/Cl each step):
+   ``rbgs_leg`` launched 14 times per FGMRES iteration, every field
+   finite; (b) one app step inside ``ProfilingStats.trace``, whose Chrome
+   trace must name ``rbgs_leg``; (c) Cd/Cl of the developed 1M state on
+   the card against the same formula in float64 on the host (each within
+   1e-4 relative); (d) ``sweep_step`` over two viscosities on that state,
+   each case equal to its single step (same outers, u within 1e-6); (e) the
+   app on a Delaunay mesh (0.01, 3 steps): all three banded kernels
+   launched; (f) the live server on a small mesh: the step advances and
+   pause freezes it (a frame is fetched where matplotlib imports).  (c)
+   and (d) take phase 3's state, or load it when phase 3 did not run.
 
 Then the kernels' JSON line and the result line are printed.
 
@@ -96,6 +110,12 @@ checkout's wrappers do not offer (the fused legs, ``dot_form``) is left out;
 where it has no fused prolongation, its gather, product and sum are timed in
 its place, and its flat-layout half-sweep gets the planes moved to (n, 4)
 outside the timed call.
+
+``--export-forces PATH`` makes phase 11(c) also write what the force
+formula reads of its state to ``PATH`` (``.npz``): the four face tensors of
+the obstacle mask, the wall faces with their owner cells' geometry, u, p and
+grad_p, the port's mask and its Cd/Cl.  ``tests/torch_forces_crosscheck.py``
+reads it with the JAX package's ``utils/forces.py`` on a CPU.
 """
 
 from __future__ import annotations
@@ -126,7 +146,15 @@ BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
 # Phase 10: the refined quadtree mesh on the multilevel layout.
 MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
 MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+# Phase 11: the app at full width (the main path's mesh, smoothed as the
+# app smooths it) and on a Delaunay mesh, as subprocesses of the CLI.
+APP_MAIN = ("--geometry", "channel", "--cell-size", "0.0017", "--precond",
+            "1", "--steps", "5", "--forces", "--profile", "--log-every", "1")
+APP_DELAUNAY = ("--geometry", "channel", "--cell-size", "0.01",
+                "--mesh-type", "delaunay", "--precond", "1", "--steps", "3",
+                "--profile", "--log-every", "1")
+SWEEP_VISCOSITIES = (0.01, 0.005)
 # Phase 9: one step of each SolverConfig option on the developed 1M state
 # and on the small meshes (the Delaunay ones take those that act on the
 # banded path, as in the JAX package).
@@ -192,7 +220,7 @@ def cuda_time_ms(fn, reps=50, flush="write"):
     of the buffer's dirty lines, whose write-back the timed kernel's loads
     wait for: 5-7 us at these sizes that are none of the kernel's bytes.
     ``flush="read"`` reads the buffer (a reduction) and leaves clean lines;
-    phase 2 prints its times beside the others for the leg and the dot.
+    phase 2 prints its times beside the others for every kernel.
     Either way the interval holds the launch itself and the two event
     records, about 6 us: the times of grids of a few hundred cells show
     that floor."""
@@ -535,6 +563,8 @@ def phase_banded_kernels(results):
         bk.banded_jacobi_sweeps_ref(rs, dinv, off, idx, sweeps)))
     s_ms = cuda_time_ms(lambda: bk.banded_jacobi_sweeps(rs, dinv, off, idx,
                                                         sweeps))
+    s_read = cuda_time_ms(lambda: bk.banded_jacobi_sweeps(
+        rs, dinv, off, idx, sweeps), flush="read")
     s_plain = cuda_time_ms(lambda: bk.banded_jacobi_sweeps_ref(
         rs, dinv, off, idx, sweeps))
     # Nothing stays resident between sweeps: the seed pass moves (2C+1) n
@@ -590,7 +620,8 @@ def phase_banded_kernels(results):
         "ms: " + "; ".join(f"{label} {ms:.4f} / {rd:.4f} / {bnd:.4f}"
                            for label, ms, rd, bnd in form_rows))
     log(f"phase 2: banded_jacobi_sweeps (C=2, 8 sweeps): {s_ms:.4f} ms, "
-        f"bound {s_bound:.4f} ms ({s_by}), plain {s_plain:.4f} ms")
+        f"{s_read:.4f} ms under the read flush, bound {s_bound:.4f} ms "
+        f"({s_by}), plain {s_plain:.4f} ms")
 
 
 # The forms of rbgs_leg: name -> planes moved per fine cell (x, diag, 4 off
@@ -1156,9 +1187,23 @@ def _check_prolongation(phase, s):
     """The V-cycle prolongs through the fused kernel: one launch per level,
     counted under banded_gather, and two fewer device kernels per level
     than the gather, product and sum, with the same bits."""
+    import torch
     L = len(s._get_amg().levels)
-    k_fused, k_eager, counted, same = _v_cycle_kernels(s)
-    n_f, n_e = sum(k_fused.values()), sum(k_eager.values())
+    # The process's first profiler session starts CUPTI, and a session has
+    # been seen to miss one kernel record (a V-cycle one kernel short, its
+    # bits equal): one session is spent first, and the pair is taken again,
+    # up to three times, until its totals differ by exactly 2 per level.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        k_fused, k_eager, counted, same = _v_cycle_kernels(s)
+        n_f, n_e = sum(k_fused.values()), sum(k_eager.values())
+        if n_e - n_f == 2 * L:
+            break
+        log(f"phase {phase}: profile pair {attempt}: {n_f} and {n_e} "
+            f"device kernels, {n_e - n_f} apart, not {2 * L}")
     n_prol = sum(c for k, c in k_fused.items() if "prolong_add" in k)
     n_gath = sum(c for k, c in k_fused.items() if "banded_gather" in k)
     log(f"phase {phase}: one V-cycle ({L} coarse levels): {n_f} device "
@@ -1749,10 +1794,341 @@ def phase_generic(results, ctx):
         log(f"# phase 10{part} done in {time.time() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the application layer.
+
+
+def _run_app(label, args, timeout=600):
+    """``python -m cfd2_tpu_torch.app --device cuda ARGS`` as a
+    subprocess of this checkout (it reuses phase 1's kernel build); returns
+    its parsed output: the mesh and layout lines, one dict per step line,
+    the kernel launches, host reads, the final-state line and the
+    profiling report."""
+    import re
+    cmd = [sys.executable, "-m", "cfd2_tpu_torch.app", "--device", "cuda",
+           *args]
+    t0 = time.time()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.time() - t0
+    check(out.returncode == 0,
+          f"{label}: the app exited {out.returncode}:\n"
+          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    text = out.stdout
+    num = r"([-+0-9.eE]+|nan|inf)"
+    steps = []
+    for m in re.finditer(
+            rf"^step (\d+): t={num} dt={num} outer=(\d+)"
+            rf"(?: Cd={num} Cl={num})? fgmres=(\d+) wall={num}s "
+            rf"host_reads=(\d+)$", text, re.M):
+        i, t, dt, outer, cd, cl, lin, w, reads = m.groups()
+        steps.append(dict(step=int(i), t=float(t), dt=float(dt),
+                          outer=int(outer), lin=int(lin), wall=float(w),
+                          reads=int(reads),
+                          cd=None if cd is None else float(cd),
+                          cl=None if cl is None else float(cl)))
+    get = lambda pat: re.search(pat, text, re.M)
+    mesh, layout = get(r"^mesh: (\d+) cells"), get(r"layout: (.+) \(")
+    launches, reads = get(r"^kernel launches: (.+)$"), \
+        get(r"^host reads: (\d+)$")
+    final = get(r"^final state: .* finite=(True|False)$")
+    check(all((mesh, layout, launches, reads, final)) and steps,
+          f"{label}: unexpected app output:\n{text[-3000:]}")
+    report = text[text.index("=== Profiling Report ==="):].splitlines()
+    return dict(cells=int(mesh.group(1)), layout=layout.group(1),
+                steps=steps, launches=json.loads(launches.group(1)),
+                reads=int(reads.group(1)), final=final.group(0),
+                finite=final.group(1) == "True", report=report, wall=wall,
+                stderr=out.stderr)
+
+
+def _log_app(part, label, run):
+    log(f"phase 11{part}: {label}: {run['cells']} cells, layout "
+        f"{run['layout']}, subprocess wall {run['wall']:.1f} s")
+    for st in run["steps"]:
+        forces = ("" if st["cd"] is None else
+                  f", Cd {st['cd']:.3f}, Cl {st['cl']:+.3f}")
+        log(f"phase 11{part}: step {st['step']}: dt {st['dt']:.4e}, outers "
+            f"{st['outer']}, FGMRES iterations {st['lin']}, wall "
+            f"{st['wall']:.4f} s, host reads {st['reads']}{forces}")
+    log(f"phase 11{part}: launches {run['launches']}, host reads "
+        f"{run['reads']}; {run['final']}")
+    top = [ln for ln in run["report"] if ln.strip()][:9]
+    log(f"phase 11{part}: profiling report (top lines):\n  "
+        + "\n  ".join(top))
+
+
+def phase_app_main(results):
+    """11(a): the app at full width: the 996,558-cell channel smoothed as
+    the app smooths it, from the app's inlet-column start, AMG."""
+    run = _run_app("app", APP_MAIN)
+    _log_app("a", "the app at full width", run)
+    grids, _ = level_grids(*MAIN_GRID)
+    check(run["cells"] == MAIN_CELLS, f"app mesh has {run['cells']} cells")
+    check(run["layout"] == f"structured {MAIN_GRID[0]}x{MAIN_GRID[1]}",
+          f"the app's mesh took the {run['layout']} layout")
+    check(len(run["steps"]) == 5, f"{len(run['steps'])} step lines")
+    check(run["finite"], "non-finite fields after the app's steps")
+    check(all(np.isfinite([st["cd"], st["cl"]]).all()
+              for st in run["steps"]), "non-finite Cd/Cl")
+    lin = sum(st["lin"] for st in run["steps"])
+    leg = run["launches"]["rbgs_leg"]
+    per_apply = 2 * len(grids)
+    check(leg > 0, "rbgs_leg was never launched on the app's path")
+    check(leg == per_apply * lin,
+          f"rbgs_leg launches {leg} != {per_apply} per V-cycle x {lin} "
+          "FGMRES iterations")
+    _path_launches(results, "app (phase 11)",
+                   {k: v for k, v in run["launches"].items() if v})
+    log(f"phase 11a: rbgs_leg launches {leg} = {per_apply} per V-cycle x "
+        f"{lin} FGMRES iterations")
+
+
+def phase_app_trace():
+    """11(b): one app step inside ``ProfilingStats.trace``; the Chrome
+    trace must name the rbgs_leg kernel."""
+    import tempfile
+    import torch
+    from cfd2_tpu_torch.app import Simulation
+    sim = Simulation(geometry="channel", cell_size=0.01, precond=1)
+    check(sim.solver.mesh.structured, "the 0.01 app mesh is not structured")
+    sim.run(1)                                   # warm-up
+    with tempfile.TemporaryDirectory() as logdir:
+        t0 = time.perf_counter()
+        with sim.profiling.trace(logdir):
+            sim.run(1)
+        wall = time.perf_counter() - t0
+        path = Path(logdir) / "trace.json"
+        size = path.stat().st_size
+        trace = json.loads(path.read_text())
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    legs = [k for k in kernels if "rbgs_leg" in k]
+    log(f"phase 11b: one app step of {sim.mesh.num_cells} cells traced in "
+        f"{wall:.2f} s: trace.json {size} bytes, {len(kernels)} device "
+        f"kernel events, {len(legs)} of rbgs_leg ({sorted(set(legs))}); "
+        f"{int(sim.solver.state.linear_iters_total)} FGMRES iterations")
+    check(legs, "the trace names no rbgs_leg kernel")
+    torch.cuda.synchronize()
+
+
+def _developed(ctx):
+    """Phase 3's solver with its state after healing, or (phase 3 not run)
+    a fresh one loaded with the developed state."""
+    if "main" in ctx:
+        m = ctx["main"]
+        return m["solver"], m["state"], m["params"]
+    from cfd2_tpu_torch.convert import load_developed_state
+    s = _solver(_channel(0.0017), 0.0017, None)
+    load_developed_state(s, ROOT / "bench_developed_1m.npz")
+    return s, s.state, s.params
+
+
+def _forces_f64(dm, state, params, mask, u_ref, d_ref):
+    """body_force's formula in float64 numpy from the same tensors, copied
+    to the host: the reference for the card's (Cd, Cl)."""
+    g = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    own = dm.f_owner.cpu().numpy().astype(np.int64)
+    w = np.asarray(mask, np.float64)
+    nx, ny, A = g(dm.f_nx), g(dm.f_ny), g(dm.f_area)
+    dx = g(dm.f_cx) - g(dm.c_cx)[own]
+    dy = g(dm.f_cy) - g(dm.c_cy)[own]
+    gp = g(state.grad_p)[own]
+    p_f = g(state.p)[own] + gp[:, 0] * dx + gp[:, 1] * dy
+    u = g(state.u)[own]
+    un = u[:, 0] * nx + u[:, 1] * ny
+    d = np.maximum(np.abs(dx * nx + dy * ny), 1e-12)
+    mu, rho = float(params.viscosity), float(params.density)
+    fx = np.sum(w * p_f * nx * A) + np.sum(w * mu * (u[:, 0] - un * nx)
+                                           / d * A)
+    fy = np.sum(w * p_f * ny * A) + np.sum(w * mu * (u[:, 1] - un * ny)
+                                           / d * A)
+    q = 0.5 * rho * u_ref ** 2 * d_ref
+    return fx / q, fy / q
+
+
+def phase_app_forces(ctx):
+    """11(c): Cd/Cl of the developed 1M state on the card against the same
+    formula in float64 on the host: each within 1e-4 relative."""
+    import torch
+    from cfd2_tpu_torch.utils.forces import force_coefficients, \
+        obstacle_face_mask
+    s, state, params = _developed(ctx)
+    mask = obstacle_face_mask(s.mesh)
+    t0 = time.perf_counter()
+    cd, cl = force_coefficients(s.mesh, state, params, mask, u_ref=1.0,
+                                d_ref=0.4)
+    card = torch.stack([cd, cl]).cpu().numpy().astype(np.float64)
+    wall = time.perf_counter() - t0
+    host = np.array(_forces_f64(s.mesh, state, params, mask, 1.0, 0.4))
+    err = float(np.abs(card - host).max())
+    limit = 1e-4 * float(np.abs(host).min())
+    log(f"phase 11c: developed {MAIN_CELLS}-cell state, {int(mask.sum())} "
+        f"obstacle faces: card Cd {card[0]:.7f} Cl {card[1]:+.7f} "
+        f"({wall * 1e3:.2f} ms with the mask upload and the read), host "
+        f"float64 Cd {host[0]:.7f} Cl {host[1]:+.7f}, max|diff| {err:.3e} "
+        f"(limit {limit:.3e})")
+    check(np.isfinite(card).all() and err <= limit,
+          "card and host force coefficients disagree")
+    if ctx.get("export_forces"):
+        _export_forces(ctx["export_forces"], s.mesh, state, params, mask,
+                       card)
+
+
+def _export_forces(path, dm, state, params, mask, card):
+    """What body_force reads, for a reading by the JAX package: the obstacle
+    mask's four face tensors in full, and the wall faces (the only faces a
+    mask can select) with their owner cells' geometry and fields."""
+    from cfd2_tpu_torch.mesh.structs import BOUNDARY_WALL
+    g = lambda t: t.detach().cpu().numpy()
+    fb = g(dm.f_boundary)
+    wall = np.flatnonzero(fb == BOUNDARY_WALL)
+    own = g(dm.f_owner)[wall]
+    cells, own_c = np.unique(own, return_inverse=True)
+    pick = lambda t: g(t)[cells]
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        path, f_boundary=fb.astype(np.int8), f_cx=g(dm.f_cx),
+        f_cy=g(dm.f_cy), f_area=g(dm.f_area), wall=wall,
+        wall_owner=own_c, wall_nx=g(dm.f_nx)[wall],
+        wall_ny=g(dm.f_ny)[wall], cell_ids=cells, c_cx=pick(dm.c_cx),
+        c_cy=pick(dm.c_cy), c_vol=pick(dm.c_vol), u=pick(state.u),
+        p=pick(state.p), grad_p=pick(state.grad_p),
+        viscosity=g(params.viscosity), density=g(params.density),
+        port_mask_faces=np.flatnonzero(mask), port_cd_cl=card)
+    log(f"phase 11c: wrote {path} ({path.stat().st_size / 2**20:.1f} MiB; "
+        f"{len(wall)} wall faces, {len(cells)} owner cells)")
+
+
+def phase_app_sweep(ctx):
+    """11(d): sweep_step over two viscosities on the developed 1M state;
+    each case equals a single step of that case (same outers, u within
+    1e-6)."""
+    from dataclasses import fields, replace
+    import torch
+    from cfd2_tpu_torch.models.coupled import step
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.parallel.batch import (batched_params, shard_batch,
+                                               sweep_step)
+    from cfd2_tpu_torch.runtime.state import SolverState
+    s, state, params = _developed(ctx)
+    amg = s._get_amg()
+    B = len(SWEEP_VISCOSITIES)
+    bstate = SolverState(**{f.name: torch.stack([getattr(state, f.name)] * B)
+                            for f in fields(SolverState)})
+    bstate = shard_batch(bstate, [s.device])
+    bparams = batched_params(params, {"viscosity": SWEEP_VISCOSITIES})
+    sk.reset_launches()
+    bk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep_step(s.mesh, bstate, bparams, s.config, amg=amg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    leg = sk.LAUNCHES["rbgs_leg"]
+    for i, nu in enumerate(SWEEP_VISCOSITIES):
+        ref = step(s.mesh, state, replace(params, viscosity=torch.tensor(
+            nu, dtype=torch.float32, device=s.device)), s.config, amg)
+        err = float((out.u[i] - ref.u).abs().max())
+        o_b, o_s = int(out.outer_iters[i]), int(ref.outer_iters)
+        log(f"phase 11d: viscosity {nu}: batched case outers {o_b}, FGMRES "
+            f"iterations {int(out.linear_iters_total[i])}; single step "
+            f"outers {o_s}, FGMRES iterations "
+            f"{int(ref.linear_iters_total)}; max|du| {err:.3e}")
+        check(o_b == o_s, f"viscosity {nu}: batched case {o_b} outers, "
+              f"single step {o_s}")
+        check(err <= 1e-6 and bool(torch.isfinite(out.u[i]).all()),
+              f"viscosity {nu}: batched case and single step differ by "
+              f"{err:.3e}")
+    log(f"phase 11d: sweep_step of {B} cases in {wall:.3f} s, rbgs_leg "
+        f"launches {leg}")
+    check(leg > 0, "the sweep launched no rbgs_leg")
+    check(float((out.u[0] - out.u[1]).abs().max()) > 0,
+          "the two viscosities gave the same field")
+
+
+def phase_app_delaunay(results):
+    """11(e): the app on a Delaunay mesh: the three banded kernels."""
+    run = _run_app("app on a Delaunay mesh", APP_DELAUNAY)
+    _log_app("e", "the app on a Delaunay mesh", run)
+    check(run["layout"] == "generic (banded)",
+          f"the Delaunay app mesh took the {run['layout']} layout")
+    check(run["finite"], "non-finite fields after the Delaunay app steps")
+    for name in ("banded_gather", "banded_dot", "banded_jacobi_sweeps"):
+        check(run["launches"][name] > 0,
+              f"{name} never launched on the Delaunay app path")
+    _path_launches(results, "app Delaunay (phase 11e)",
+                   {k: v for k, v in run["launches"].items() if v})
+
+
+def phase_app_live():
+    """11(f): the live server on a small mesh: the step advances, pause
+    freezes it; a frame only where matplotlib imports."""
+    import importlib.util
+    import urllib.request
+    from cfd2_tpu_torch.app import Simulation
+    from cfd2_tpu_torch.viz.live_server import LiveServer
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.read()
+
+    def status():
+        return json.loads(get(base + "status"))
+
+    sim = Simulation(geometry="channel", cell_size=0.02, precond=1)
+    server = LiveServer(sim, port=0).start()
+    base = server.url
+    try:
+        deadline, st = time.time() + 60, status()
+        while st["step"] < 3 and time.time() < deadline:
+            time.sleep(0.2)
+            st = status()
+        check(st["step"] >= 3, f"the live solver did not advance: {st}")
+        get(base + "control?pause")
+        time.sleep(0.5)
+        s1 = status()
+        time.sleep(1.0)
+        s2 = status()
+        check(s1["paused"] and s2["step"] == s1["step"],
+              f"pause did not freeze the step: {s1['step']} -> "
+              f"{s2['step']}")
+        if importlib.util.find_spec("matplotlib") is None:
+            frame = "matplotlib does not import here: no frame fetched"
+        else:
+            png = get(base + "frame.png")
+            check(png[:4] == b"\x89PNG", "the frame is not a PNG")
+            frame = f"frame.png {len(png)} bytes"
+        log(f"phase 11f: live server on {sim.mesh.num_cells} cells: step "
+            f"{st['step']} (t={st['time']:.4f}, outers "
+            f"{st['outer_iters']}, Cd {st['cd']}) then paused at "
+            f"{s1['step']} = {s2['step']} a second later; {frame}")
+    finally:
+        server.stop()
+    check(not server.worker.is_alive(), "the live solver thread still runs")
+
+
+def phase_app(results, ctx):
+    for part, fn in (("a", lambda: phase_app_main(results)),
+                     ("b", phase_app_trace),
+                     ("c", lambda: phase_app_forces(ctx)),
+                     ("d", lambda: phase_app_sweep(ctx)),
+                     ("e", lambda: phase_app_delaunay(results)),
+                     ("f", phase_app_live)):
+        t0 = time.time()
+        fn()
+        log(f"# phase 11{part} done in {time.time() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--export-forces", metavar="PATH",
+                    help="phase 11(c) also writes what the force formula "
+                    "reads of its state to PATH (.npz)")
     ap.add_argument("--tree", metavar="PATH",
                     help="run phases 1 and 2 on the cfd2_tpu_torch of "
                     "another checkout, unpacked inside this one")
@@ -1776,7 +2152,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 basis dots
 
     log(card_line())
-    results, ctx = {}, {}
+    results, ctx = {}, {"export_forces": args.export_forces}
     t_all = time.time()
     steps = [(1, phase_build), (2, lambda: phase_kernels(results)),
              (3, lambda: phase_main(results, ctx)),
@@ -1786,7 +2162,8 @@ def main(argv=None) -> int:
              (7, lambda: phase_voronoi(results)),
              (8, phase_delaunay_cpu_match),
              (9, lambda: phase_options(ctx)),
-             (10, lambda: phase_generic(results, ctx))]
+             (10, lambda: phase_generic(results, ctx)),
+             (11, lambda: phase_app(results, ctx))]
     for num, fn in steps:
         if num in phases:
             t0 = time.time()

@@ -376,3 +376,89 @@ def test_generic_path_step_card_matches_cpu(cuda, generic_runs, i):
 
 def test_simple_step_card_matches_cpu(cuda, generic_runs):
     _SMOKE._simple_card_vs_cpu(generic_runs[1])
+
+
+# ----------------------------------------------------------------------
+# The application layer on the card (chip_smoke.py phase 11's checks at
+# small sizes): forces, the Simulation, batched cases and the CLI.
+
+
+def test_forces_card_match_cpu(cuda):
+    """The same state on both devices: (Fx, Fy) within 1e-5 of the larger
+    component (float32 sums in another order)."""
+    from cfd2_tpu_torch.utils.forces import body_force, obstacle_face_mask
+    make = _SMOKE._small_solvers()[0][0]
+    s = make("cuda")
+    s.step()
+    cpu = make("cpu")
+    cpu.state = type(s.state)(**{k: v.cpu() for k, v in
+                                 vars(s.state).items()})
+    mask = obstacle_face_mask(s.mesh)
+    np.testing.assert_array_equal(mask, obstacle_face_mask(cpu.mesh))
+    f_gpu = body_force(s.mesh, s.state, s.params, mask).cpu().numpy()
+    f_cpu = body_force(cpu.mesh, cpu.state, cpu.params, mask).numpy()
+    assert f_gpu[0] > 0
+    assert np.abs(f_gpu - f_cpu).max() <= 1e-5 * np.abs(f_cpu).max()
+
+
+def test_app_simulation_card_matches_cpu(cuda):
+    """Two app steps with dt pinned on the card and on the CPU: equal
+    outers, u within 1e-4 * max|u|, rbgs_leg launched on the card, and
+    Cd/Cl within 1e-3 of the drag: the pressure, which carries the force,
+    agrees to 1e-3 of its maximum (tests/torch_parity.py says why)."""
+    from cfd2_tpu_torch.app import Simulation
+    kw = dict(geometry="channel", cell_size=0.025, adaptive=False, precond=1)
+    gpu, cpu = Simulation(device="cuda", **kw), Simulation(device="cpu", **kw)
+    sk.reset_launches()
+    for i in range(2):
+        gpu.run(1)
+        cpu.run(1)
+        og, oc = (int(s.solver.state.outer_iters) for s in (gpu, cpu))
+        assert og == oc, (i, og, oc)
+        ug, uc = gpu.solver.get_u(), cpu.solver.get_u()
+        err, lim = np.abs(ug - uc).max(), 1e-4 * np.abs(uc).max()
+        assert err <= lim, (i, err, lim)
+    assert sk.LAUNCHES["rbgs_leg"] > 0
+    (cdg, clg), (cdc, clc) = gpu.force_coefficients(), \
+        cpu.force_coefficients()
+    assert abs(cdg - cdc) <= 1e-3 * abs(cdc), (cdg, cdc)
+    assert abs(clg - clc) <= 1e-3 * abs(cdc), (clg, clc, cdc)
+
+
+def test_batched_step_on_the_card_equals_single_steps(cuda):
+    from dataclasses import fields
+    from cfd2_tpu_torch.models.coupled import step
+    from cfd2_tpu_torch.parallel import batched_step, shard_batch
+    make = _SMOKE._small_solvers()[0][0]
+    s = make("cuda")
+    amg = s._get_amg()
+    states = [s.state]
+    s.step()
+    states.append(s.state)
+    b = type(s.state)(**{f.name: torch.stack([getattr(st, f.name)
+                                              for st in states])
+                         for f in fields(type(s.state))})
+    out = batched_step(s.mesh, shard_batch(b, ["cuda"]), s.params,
+                       s.config, amg=amg)
+    for i, st in enumerate(states):
+        ref = step(s.mesh, st, s.params, s.config, amg)
+        assert int(out.outer_iters[i]) == int(ref.outer_iters)
+        assert float((out.u[i] - ref.u).abs().max()) <= 1e-6
+
+
+def test_app_cli_on_the_card(cuda):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    out = subprocess.run(
+        [sys.executable, "-m", "cfd2_tpu_torch.app", "--cell-size", "0.05",
+         "--precond", "1", "--steps", "2", "--forces", "--profile"],
+        cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "device: cuda" in out.stdout and "Cd=" in out.stdout
+    assert "finite=True" in out.stdout
+    launches = json.loads(
+        out.stdout.split("kernel launches: ")[1].splitlines()[0])
+    assert launches["rbgs_leg"] > 0

@@ -1,13 +1,15 @@
 """The port's packages export the names of their JAX counterparts: the top
-level and the ``mesh``, ``models``, ``ops`` and ``runtime`` sub-packages
-have equal ``__all__``, and every exported name resolves."""
+level and the ``mesh``, ``models``, ``ops``, ``runtime``, ``app``,
+``utils``, ``viz`` and ``parallel`` sub-packages have equal ``__all__``, and
+every exported name resolves."""
 
 import importlib
 
 import pytest
 
 
-@pytest.mark.parametrize("sub", ["", ".mesh", ".models", ".ops", ".runtime"])
+@pytest.mark.parametrize("sub", ["", ".mesh", ".models", ".ops", ".runtime",
+                                 ".app", ".utils", ".viz", ".parallel"])
 def test_all_matches_the_jax_package(sub):
     ref = importlib.import_module("cfd2_tpu" + sub)
     port = importlib.import_module("cfd2_tpu_torch" + sub)

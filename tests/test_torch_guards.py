@@ -60,7 +60,12 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.profile_step, cfd2_tpu_torch.ops.blockell, "
             "cfd2_tpu_torch.ops.schur, cfd2_tpu_torch.ops.krylov, "
             "cfd2_tpu_torch.ops.host_krylov, "
-            "cfd2_tpu_torch.models.pressure_poisson; "
+            "cfd2_tpu_torch.models.pressure_poisson, "
+            "cfd2_tpu_torch.app, cfd2_tpu_torch.app.__main__, "
+            "cfd2_tpu_torch.utils, cfd2_tpu_torch.utils.forces, "
+            "cfd2_tpu_torch.runtime.profiling, cfd2_tpu_torch.viz, "
+            "cfd2_tpu_torch.viz.live_server, cfd2_tpu_torch.parallel, "
+            "cfd2_tpu_torch.parallel.batch; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -89,7 +94,10 @@ def test_new_modules_are_scanned():
     assert {"banded_kernels.py", "banded_maps.py", "ellsys.py", "native.py",
             "delaunay.py", "voronoi.py", "chip_smoke.py", "checkpoint.py",
             "async_reader.py", "blockell.py", "schur.py", "krylov.py",
-            "host_krylov.py", "pressure_poisson.py"} <= names
+            "host_krylov.py", "pressure_poisson.py", "forces.py",
+            "metrics.py", "profiling.py", "driver.py", "fluids.py",
+            "__main__.py", "renderer.py", "html_viewer.py", "live_server.py",
+            "batch.py"} <= names
 
 
 def test_refined_quadtree_mesh_takes_the_multilevel_layout():
