@@ -132,16 +132,11 @@ def compute_slot_fluxes(mesh: DeviceMesh, state: SolverState,
     the other through the ``ml_pair`` entry pairs, so per-face antisymmetry
     is exact there too.
     """
-    if mesh.structured:
-        u_n = mesh.gather(state.u)          # (N, K, 2)
-        p_n = mesh.gather(state.p)          # (N, K)
-        dp_n = mesh.gather(state.d_p)
-        gp_n = mesh.gather(state.grad_p)    # (N, K, 2)
-    else:
-        # One multi-component gather (the kernel loads each index once).
-        g = mesh.gather(torch.cat([state.u, state.p[:, None],
-                                   state.d_p[:, None], state.grad_p], dim=1))
-        u_n, p_n, dp_n, gp_n = g[..., 0:2], g[..., 2], g[..., 3], g[..., 4:6]
+    # One multi-component gather: the kernel loads each index once, and a
+    # row-sharded mesh exchanges its ghost rows once.
+    g = mesh.gather(torch.cat([state.u, state.p[:, None],
+                               state.d_p[:, None], state.grad_p], dim=1))
+    u_n, p_n, dp_n, gp_n = g[..., 0:2], g[..., 2], g[..., 3], g[..., 4:6]
 
     lam = mesh.ck_lam
     u_face = lam[..., None] * state.u[:, None, :] + (1.0 - lam[..., None]) * u_n
@@ -301,16 +296,11 @@ def _deferred_correction(mesh, state, flux, config):
     (coupled_assembly_merged.wgsl:229-293).  Returns (corr_u, corr_v) summed
     over internal slots, to be subtracted from the RHS."""
     upwind_own = flux > 0.0
-    if mesh.structured:
-        u_other2 = mesh.gather(state.u)      # (N, K, 2)
-        gu_other = mesh.gather(state.grad_u)
-        gv_other = mesh.gather(state.grad_v)
-    else:
-        # One shared multi-component gather (the kernel loads each index
-        # once for all six components).
-        packed = torch.cat([state.u, state.grad_u, state.grad_v], dim=1)
-        g = mesh.gather(packed)              # (N, K, 6)
-        u_other2, gu_other, gv_other = g[..., 0:2], g[..., 2:4], g[..., 4:6]
+    # One shared multi-component gather (the kernel loads each index once
+    # for all six components; a row-sharded mesh exchanges once).
+    packed = torch.cat([state.u, state.grad_u, state.grad_v], dim=1)
+    g = mesh.gather(packed)                  # (N, K, 6)
+    u_other2, gu_other, gv_other = g[..., 0:2], g[..., 2:4], g[..., 4:6]
     u_this = state.u[:, 0][:, None]
     v_this = state.u[:, 1][:, None]
     u_other = u_other2[..., 0]
@@ -540,7 +530,7 @@ def assemble_stencil(mesh: DeviceMesh, state: SolverState,
         return a.reshape(ny, nx)
 
     return StencilSystem(
-        grid=(ny, nx),
+        grid=(ny, nx), decomp=mesh.decomp,
         off_mom=off2(c["off_mom"]), off_up=off2(c["off_up"]),
         off_vp=off2(c["off_vp"]), off_pu=off2(c["off_pu"]),
         off_pv=off2(c["off_pv"]), off_pp=off2(c["off_pp"]),

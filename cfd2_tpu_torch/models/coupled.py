@@ -40,6 +40,13 @@ Three solve paths, chosen as the JAX package chooses them:
   preconditioning (``precond_type=2``) on every mesh, and the Schur
   preconditioner on meshes that fit neither path above (no banded map, or a
   structured mesh too small for the structured multigrid).
+
+On a row-sharded structured mesh (parallel/spatial.py: one process per
+rank, each with its block of rows) the same functions step the stencil
+path: the shifts exchange ghost rows, and every value behind a decision
+(the outer max-diffs, ``check_evolution``'s sums, the CFL max, FGMRES's
+dots and norms) is reduced across the ranks, so every rank takes the same
+branches.  The options that are not sharded raise (:func:`_check_sharded`).
 """
 
 from __future__ import annotations
@@ -82,6 +89,39 @@ def _use_stencil_path(mesh: DeviceMesh, config: SolverConfig, amg) -> bool:
     if config.precond_type == PRECOND_AMG:
         return isinstance(amg, StructuredAmgHierarchy)
     return True
+
+
+def _check_sharded(mesh: DeviceMesh, config: SolverConfig, amg) -> None:
+    """A row-sharded mesh takes the stencil path with ``precond_type`` 0 or
+    1 (with a structured hierarchy) under the default options; the others
+    raise, naming the option."""
+    if mesh.decomp is None:
+        return
+    if not _use_stencil_path(mesh, config, amg):
+        raise NotImplementedError(
+            "under a row-sharded mesh only the stencil path is sharded: "
+            "precond_type=2, and precond_type=1 without a structured "
+            "multigrid hierarchy, take the block-ELL path")
+    off = [name for name, on in (
+        ("precond_mom_adi", config.precond_mom_adi > 0),
+        ("precond_bf16", config.precond_bf16),
+        ("fgmres_basis_bf16", config.fgmres_basis_bf16),
+        ("fgmres_mixed_phase", config.fgmres_mixed_phase),
+        ("fgmres_recycle", config.fgmres_recycle > 0),
+        ("anderson_depth", config.anderson_depth > 0)) if on]
+    if off:
+        raise NotImplementedError(
+            f"{', '.join(off)}: not sharded under a row-sharded mesh")
+
+
+def _reduce(mesh: DeviceMesh):
+    """The cross-rank sum of a row-sharded mesh, else None."""
+    return None if mesh.decomp is None else mesh.decomp.all_reduce_sum
+
+
+def _max_all(mesh: DeviceMesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a max over this rank's cells) maxed over the ranks."""
+    return t if mesh.decomp is None else mesh.decomp.all_reduce_max(t)
 
 
 def _use_banded_path(mesh: DeviceMesh, config: SolverConfig) -> bool:
@@ -200,8 +240,8 @@ def _presolve(ss, b2, x0p, ps, config, n_sweeps, mom_sweeps, tol,
     if presolve_ok is False:
         return x0p
     r0 = b2 - st.spmv_planar(ss, x0p)
-    r0n_t = torch.linalg.vector_norm(r0)
-    r0n, bn = read(torch.stack([r0n_t, torch.linalg.vector_norm(b2)]))
+    r0n_t = st.norm(ss, r0)
+    r0n, bn = read(torch.stack([r0n_t, st.norm(ss, b2)]))
     target = max(np.float32(tol) * bn, np.float32(config.fgmres_abstol))
     if not r0n > np.float32(config.presolve_threshold) * target:
         return x0p
@@ -211,7 +251,7 @@ def _presolve(ss, b2, x0p, ps, config, n_sweeps, mom_sweeps, tol,
                           mom_sweeps=mom_sweeps,
                           mom_adi=config.precond_mom_adi)
     rn = r0 - st.spmv_planar(ss, corr)
-    return torch.where(torch.linalg.vector_norm(rn) < r0n_t, x0p + corr, x0p)
+    return torch.where(st.norm(ss, rn) < r0n_t, x0p + corr, x0p)
 
 
 def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
@@ -238,10 +278,10 @@ def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
                             x0)
     ss = assemble_stencil(mesh, state, params, config)
     ps = (st.make_pressure_solve2(
-              amg, ss, n_cycles=config.pressure_vcycles(mesh.num_cells),
+              amg, ss, n_cycles=config.pressure_vcycles(mesh.total_cells),
               frozen=frozen_amg)
           if config.precond_type == PRECOND_AMG else None)
-    ms = config.mom_sweeps(mesh.num_cells)
+    ms = config.mom_sweeps(mesh.total_cells)
     precond = lambda r: st.schur_precond_planar(
         ss, r, config.precond_omega, n_sweeps, pressure_solve=ps,
         mom_sweeps=ms, mom_adi=config.precond_mom_adi)
@@ -270,7 +310,7 @@ def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
     result = fgmres_solve(matvec, pc, b2, x0p, tol=tol,
                           abstol=config.fgmres_abstol, basis_dtype=bd,
                           recycle=recycle, return_basis=recycle is not None,
-                          **kw)
+                          reduce=_reduce(mesh), **kw)
     if config.fgmres_mixed_phase:
         result = replace(result, iterations=r1.iterations + result.iterations)
     return replace(result, x=st.from_planar(ss, result.x))
@@ -372,21 +412,29 @@ def _plateau_update(du_ok, dp_ref, diff_u, diff_p, config: SolverConfig):
 
 
 def check_evolution(state: SolverState, config: SolverConfig,
-                    valid: torch.Tensor | None = None) -> SolverState:
+                    valid: torch.Tensor | None = None,
+                    decomp=None) -> SolverState:
     """Steady-state / degeneracy classifier (reference
     coupled_solver.rs:501-580): current velocity variance plus the
     RMSE-vs-previous-step evolution test and consecutive-hit counters.
-    ``valid`` masks out structured-layout solid cells."""
+    ``valid`` masks out structured-layout solid cells; ``decomp``: the
+    fields are one rank's rows, and the sums are summed across the ranks
+    (one reduction)."""
     u = state.u
     w = torch.ones((u.shape[0],), dtype=u.dtype, device=u.device) \
         if valid is None else valid
-    n = torch.sum(w)
-    mean = torch.sum(u * w[:, None], dim=0) / n
-    var = torch.sum(u * u * w[:, None], dim=0) / n - mean * mean
+    sums = torch.cat([
+        torch.sum(w)[None], torch.sum(u * w[:, None], dim=0),
+        torch.sum(u * u * w[:, None], dim=0),
+        torch.sum(torch.sum((u - state.prev_u) ** 2, dim=1) * w)[None]])
+    if decomp is not None:
+        sums = decomp.all_reduce_sum(sums)
+    n = sums[0]
+    mean = sums[1:3] / n
+    var = sums[3:5] / n - mean * mean
     var = torch.clamp(var, min=0.0)
 
-    rmse = torch.sqrt(torch.sum(torch.sum((u - state.prev_u) ** 2, dim=1)
-                                * w) / n)
+    rmse = torch.sqrt(sums[5] / n)
 
     evolving = rmse >= config.evolution_threshold
     uniform = (var[0] < config.variance_threshold) \
@@ -415,8 +463,13 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     ``krylov``: with ``config.fgmres_recycle >= 2``, the previous step's
     Krylov basis tuple (or a zero seed): the first outer's solve then
     recycles it, and the step returns ``(state, krylov')`` instead of
-    ``state``."""
-    n_sweeps = config.pressure_sweeps(mesh.num_cells)
+    ``state``.
+
+    On a row-sharded mesh every rank calls it with its own rows of the
+    state (the same ``amg``, built on the whole mesh) and gets its own rows
+    back."""
+    _check_sharded(mesh, config, amg)
+    n_sweeps = config.pressure_sweeps(mesh.total_cells)
     dev = state.u.device
 
     # History rotation (coupled_solver.rs:43-71), initial prepare (:74-107).
@@ -436,7 +489,7 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
             ny, nx = mesh.grid_shape
             frozen_amg = st.coarse_level_values2_planes(
                 amg, P_diag.reshape(ny, nx),
-                P_off[:, :4].T.reshape(4, ny, nx).contiguous())
+                P_off[:, :4].T.reshape(4, ny, nx).contiguous(), mesh.decomp)
         elif mesh.banded and isinstance(amg, AmgHierarchy):
             P_diag, P_off = assemble_pressure(mesh, state, params)
             frozen_amg = coarse_level_values(amg, P_diag, P_off)
@@ -473,8 +526,9 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
 
         u_new, p_new, aa = _relaxed_update(state, params, config, result.x,
                                            it, aa)
-        diffs = torch.stack([torch.max(torch.abs(u_new - state.u)),
-                             torch.max(torch.abs(p_new - state.p))])
+        diffs = _max_all(mesh, torch.stack([
+            torch.max(torch.abs(u_new - state.u)),
+            torch.max(torch.abs(p_new - state.p))]))
         state = replace(state, u=u_new, p=p_new,
                         outer_residual_u=diffs[0], outer_residual_p=diffs[1],
                         outer_iters=torch.tensor(it + 1, dtype=torch.int32,
@@ -501,7 +555,8 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
                     linear_residual=torch.tensor(lr, dtype=torch.float32,
                                                  device=dev),
                     linear_iters_total=torch.tensor(lt, **i32))
-    state = check_evolution(state, config, valid=mesh.c_valid)
+    state = check_evolution(state, config, valid=mesh.c_valid,
+                            decomp=mesh.decomp)
     if cross_step:
         return state, kry
     return state
@@ -530,7 +585,8 @@ def outer_iteration(mesh: DeviceMesh, state: SolverState,
     """One outer corrector: (prepare) -> assemble -> solve -> update.
     Returns (state, diff_u, diff_p, aa) with the max-diffs as 0-d device
     tensors; ``aa`` is the Anderson history pair (or None)."""
-    n_sweeps = config.pressure_sweeps(mesh.num_cells)
+    _check_sharded(mesh, config, amg)
+    n_sweeps = config.pressure_sweeps(mesh.total_cells)
     if do_prepare:
         state = prepare(mesh, state, params, config)
     x_guess = (_extrapolated_guess(state, params)
@@ -539,8 +595,9 @@ def outer_iteration(mesh: DeviceMesh, state: SolverState,
                                  lin_tol, x_guess=x_guess)
     u_new, p_new, aa = _relaxed_update(state, params, config, result.x, it,
                                        aa if config.anderson_depth else None)
-    diff_u = torch.max(torch.abs(u_new - state.u))
-    diff_p = torch.max(torch.abs(p_new - state.p))
+    diff_u, diff_p = _max_all(mesh, torch.stack([
+        torch.max(torch.abs(u_new - state.u)),
+        torch.max(torch.abs(p_new - state.p))]))
     i32 = dict(dtype=torch.int32, device=state.u.device)
     state = replace(state, u=u_new, p=p_new,
                     outer_residual_u=diff_u, outer_residual_p=diff_p,
@@ -556,7 +613,8 @@ def outer_iteration(mesh: DeviceMesh, state: SolverState,
 def finish_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
                 config: SolverConfig) -> SolverState:
     state = replace(state, time=state.time + params.dt)
-    return check_evolution(state, config, valid=mesh.c_valid)
+    return check_evolution(state, config, valid=mesh.c_valid,
+                           decomp=mesh.decomp)
 
 
 def step_host(mesh: DeviceMesh, state: SolverState, params: SolverParams,
@@ -605,8 +663,8 @@ def step_host(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     return finish_step(mesh, state, params, config)
 
 
-def _max_vel(u: torch.Tensor) -> torch.Tensor:
-    return torch.max(torch.linalg.vector_norm(u, dim=1))
+def _max_vel(mesh: DeviceMesh, u: torch.Tensor) -> torch.Tensor:
+    return _max_all(mesh, torch.max(torch.linalg.vector_norm(u, dim=1)))
 
 
 def multi_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
@@ -624,7 +682,7 @@ def multi_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
                      "linear_iters_total": state.linear_iters_total,
                      "linear_residual": state.linear_residual,
                      "outer_residual_u": state.outer_residual_u,
-                     "max_vel": _max_vel(state.u),
+                     "max_vel": _max_vel(mesh, state.u),
                      "should_stop": state.should_stop})
         params = replace(params, dt_old=params.dt)
     return state, _stack_rows(rows)
@@ -640,7 +698,7 @@ def multi_step_adaptive(mesh: DeviceMesh, state: SolverState,
     max|u| <= 1e-6.  Returns (state, params, metrics)."""
     rows = []
     for _ in range(num_steps):
-        max_vel = _max_vel(state.u)
+        max_vel = _max_vel(mesh, state.u)
         new_dt = torch.clamp(
             torch.full_like(max_vel, target_cfl * min_cell_size)
             / torch.clamp(max_vel, min=1e-6), 1e-5, 0.1)
@@ -758,7 +816,7 @@ class CoupledSolver:
         """max |u| as an unfetched 0-d device tensor: a host loop hands it
         to :class:`..runtime.async_reader.AsyncFieldReader` and overlaps the
         4-byte read with the next step (reference async_buffer.rs)."""
-        return _max_vel(self.state.u)
+        return _max_vel(self.mesh, self.state.u)
 
     def get_p(self) -> np.ndarray:
         return self.mesh.to_host_order(self.state.p).cpu().numpy()

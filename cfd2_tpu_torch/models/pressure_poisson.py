@@ -114,6 +114,9 @@ def simple_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     from .assembly import assemble_coupled, prepare
     from .coupled import check_evolution
 
+    if mesh.decomp is not None:
+        raise NotImplementedError("the SIMPLE stepper is not sharded over "
+                                  "rows")
     dev = state.u.device
     i32 = dict(dtype=torch.int32, device=dev)
     state = replace(state, u_old_old=state.u_old, u_old=state.u,

@@ -553,9 +553,39 @@ class _GridOps:
         return sk.prolong2(xcg, (self.ny, self.nx))
 
 
+def split_level(hier: StructuredAmgHierarchy, decomp) -> int:
+    """The first level of ``hier`` that a row-sharded V-cycle runs whole on
+    every rank.  A level stays sharded while each rank's block of its rows
+    is even, so that ``restrict2``'s 2x2 pairs never straddle two ranks
+    (every block then starts on an even row, which also keeps the
+    red-black colours of the block's own indices the global ones), and at
+    least as deep as the legs' ghost rows; the coarsest level, with its
+    dense solve, is always whole."""
+    grids = [hier.levels[0].fine_grid] + [lvl.grid for lvl in hier.levels]
+    split = 0
+    while split < len(hier.levels):
+        ny = grids[split][0]
+        block = ny // decomp.world
+        if ny % decomp.world or block % 2 or block < decomp.ghost:
+            break
+        split += 1
+    return split
+
+
+def _level0_values2(P_diag2, P_off2, decomp=None, whole=False):
+    """Level 0's smoother values: the shifted diagonal and the four
+    directional planes; ``whole`` gathers a row-sharded system's rows from
+    every rank (a V-cycle whose split is level 0)."""
+    d0, off0 = P_diag2 + _NULL_SHIFT * torch.abs(P_diag2), P_off2[:4]
+    if whole:
+        d0 = decomp.all_gather_rows(d0)
+        off0 = decomp.all_gather_rows(off0.contiguous(), dim=1)
+    return d0, off0
+
+
 def compute_structured_level_values2(hier: StructuredAmgHierarchy,
                                      P_diag2: torch.Tensor,
-                                     P_off2: torch.Tensor):
+                                     P_off2: torch.Tensor, decomp=None):
     """Galerkin-coarsen values down the structured hierarchy as 2D stencil
     sums.  For 2x2 piecewise-constant aggregation of a 5-point stencil, a
     fine E entry at even x couples cells of the same block (-> coarse
@@ -566,28 +596,40 @@ def compute_structured_level_values2(hier: StructuredAmgHierarchy,
     pressure operator's constant mode is near-null (Dirichlet only at the
     outlet), and the shift caps the condition.  Takes ``P_diag2`` (ny, nx),
     ``P_off2`` (4+, ny, nx); returns ``[(diag2, off2), ...]`` per level,
-    coarsest last."""
-    d0 = P_diag2 + _NULL_SHIFT * torch.abs(P_diag2)
-    vals = [(d0, P_off2[:4])]
+    coarsest last.
+
+    With ``decomp`` (a row-sharded system's rows): the levels below
+    :func:`split_level` hold this rank's rows, coarsened locally (their
+    blocks start on even rows), and the split level and those below it the
+    whole grid, gathered once here."""
+    split = len(hier.levels) if decomp is None else split_level(hier, decomp)
+    vals = [_level0_values2(P_diag2, P_off2, decomp, whole=split == 0)]
     for li, lvl in enumerate(hier.levels):
         d, off = vals[-1]
         if li == 0:
             # The masks apply to the level-0 -> 1 transition only; level-0
             # values themselves stay raw for the fine smoother.
-            d = d * hier.diag_valid2
-            off = off * hier.internal2
-        nyf, nxf = lvl.fine_grid
-        ops = _GridOps(lvl.fine_grid)
+            dv, it = hier.diag_valid2, hier.internal2
+            if split > 0 and decomp is not None:
+                dv, it = decomp.own_rows(dv), decomp.own_rows(it, dim=1)
+            d = d * dv
+            off = off * it
+        nyf, nxf = d.shape
+        ops = _GridOps((nyf, nxf))
+        cgrid = ((nyf + 1) // 2, lvl.grid[1])
         evx = (torch.arange(nxf, device=d.device) % 2 == 0).to(d.dtype)[None, :]
         evy = (torch.arange(nyf, device=d.device) % 2 == 0).to(d.dtype)[:, None]
         odx = 1.0 - evx
         ody = 1.0 - evy
         within = off[0] * evx + off[1] * odx + off[2] * evy + off[3] * ody
-        dc = ops.restrict2(lvl.grid, d + within)
-        oc = torch.stack([ops.restrict2(lvl.grid, off[0] * odx),
-                          ops.restrict2(lvl.grid, off[1] * evx),
-                          ops.restrict2(lvl.grid, off[2] * ody),
-                          ops.restrict2(lvl.grid, off[3] * evy)])
+        dc = ops.restrict2(cgrid, d + within)
+        oc = torch.stack([ops.restrict2(cgrid, off[0] * odx),
+                          ops.restrict2(cgrid, off[1] * evx),
+                          ops.restrict2(cgrid, off[2] * ody),
+                          ops.restrict2(cgrid, off[3] * evy)])
+        if li + 1 == split and decomp is not None:
+            dc = decomp.all_gather_rows(dc)
+            oc = decomp.all_gather_rows(oc, dim=1)
         vals.append((dc, oc))
     return vals
 
@@ -677,6 +719,98 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
             x = xs[i] + ops[i].prolong2(grids[i + 1], xs[i + 1])
             xs[i] = smooth(i, x, bs[i])
     return xs[0].reshape(-1)
+
+
+def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
+                    coarse_factors, decomp):
+    """:func:`structured_v_cycle` on a row-sharded system, as a function
+    ``cycle(b0, x0)`` of this rank's (rows, nx) grids; ``level_values``
+    from :func:`compute_structured_level_values2` with the same
+    ``decomp``.
+
+    Below :func:`split_level` each leg is one fused
+    :func:`~.stencil_kernels.rbgs_leg` launch on the rank's block plus
+    ghost rows, a contiguous slice of the level's grid: the down leg with
+    ``decomp.ghost`` (4) rows on each inner side, of which its two
+    half-sweeps and the residual spoil three, so the restricted residual of
+    the block's own rows is exact; the up leg with 2, which its two
+    half-sweeps spoil, on the down leg's iterate (exact there) plus the
+    prolongated coarse correction (the coarse block with one ghost row).
+    The ghost rows are even in number, so every extended block starts on an
+    even row and the kernel's colours stay the global ones.  The split
+    level's right-hand side is gathered from every rank; from there the
+    cycle runs whole on every rank (the same kernels on the same values),
+    the coarsest dense solve included, and each rank takes its own rows of
+    the correction on the way up.  Exchanges per cycle: one per sharded
+    level down, one per sharded level below the last up, and one gather;
+    the coefficient planes' ghost rows are exchanged here, once."""
+    if sk.smoother_level(decomp.device) != 2:
+        raise NotImplementedError("a row-sharded V-cycle runs the fused leg "
+                                  "kernel only (CFD2_PALLAS=2)")
+    L = len(hier.levels)
+    grids = [hier.levels[0].fine_grid] + [lvl.grid for lvl in hier.levels]
+    split = split_level(hier, decomp)
+    lv2 = structured_level_values_2d(hier, level_values)
+    g = decomp.ghost
+    down, up = [], []
+    for i in range(split):
+        planes, lo = decomp.extend(
+            torch.cat([lv2[i][0][None], lv2[i][1]]), g, dim=1)
+        down.append((planes[0], planes[1:], lo))
+        u = decomp.trim(planes, g, 2, dim=1).contiguous()
+        up.append((u[0], u[1:]))
+    rest = StructuredAmgHierarchy(levels=hier.levels[split:])
+
+    def whole(b, x):
+        """The cycle from the split level on, whole on every rank."""
+        if split == L:
+            return _dense_solve_factored(coarse_factors, b.reshape(-1)
+                                         ).reshape(grids[L])
+        return structured_v_cycle(rest, lv2[split:], b.reshape(-1),
+                                  x.reshape(-1), coarse_factors
+                                  ).reshape(grids[split])
+
+    def cycle(b0: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        if split == 0:
+            x = whole(decomp.all_gather_rows(b0),
+                      decomp.all_gather_rows(x0))
+            return decomp.own_rows(x)
+        xs, bs = [], []
+        b = b0
+        for i in range(split):
+            d_e, o_e, lo = down[i]
+            if i == 0:
+                xb, _ = decomp.extend(torch.stack([x0, b0]), g, dim=1)
+                x_e, b_e = xb[0], xb[1]
+            else:
+                b_e, _ = decomp.extend(b, g)
+                x_e = torch.zeros_like(b_e)
+            x_e, rc_e = sk.rbgs_leg(x_e, d_e, o_e, b_e,
+                                    restrict_to=(b_e.shape[0] // 2,
+                                                 grids[i + 1][1]))
+            xs.append(x_e)
+            bs.append(b_e)
+            b = rc_e[lo // 2:lo // 2 + b.shape[0] // 2]
+        b = decomp.all_gather_rows(b)
+        xc = whole(b, torch.zeros_like(b))
+        for i in reversed(range(split)):
+            if i + 1 == split:       # the whole coarse grid: slice it
+                n = grids[i + 1][0] // decomp.world
+                lo = decomp.rank * n - (1 if decomp.rank > 0 else 0)
+                hi = (decomp.rank + 1) * n \
+                    + (1 if decomp.rank < decomp.world - 1 else 0)
+                xc_e = xc[lo:hi]
+            else:
+                xc_e, _ = decomp.extend(xc, 1)
+            d_u, o_u = up[i]
+            x = sk.rbgs_leg(decomp.trim(xs[i], g, 2).contiguous(), d_u, o_u,
+                            decomp.trim(bs[i], g, 2).contiguous(),
+                            add_prolong=xc_e.contiguous())
+            lo2 = 2 if decomp.rank > 0 else 0
+            xc = x[lo2:lo2 + grids[i][0] // decomp.world]
+        return xc
+
+    return cycle
 
 
 # ----------------------------------------------------------------------

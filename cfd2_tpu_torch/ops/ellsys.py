@@ -24,6 +24,8 @@ from dataclasses import dataclass
 
 import torch
 
+from . import banded_kernels as bk
+
 
 @dataclass
 class EllSystem:
@@ -51,13 +53,24 @@ class EllSystem:
 def spmv(es: EllSystem, mesh, x: torch.Tensor) -> torch.Tensor:
     """y = A x, x (3, N) component-major; one fused banded dot shares the
     u/v/p neighbor reads and never materializes the (N, K, 3) gather."""
+    mesh._need_banded()
+    return spmv_window(es, x, x, mesh.ck_neighbor)
+
+
+def spmv_window(es: EllSystem, x: torch.Tensor, xw: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """:func:`spmv` with the neighbor values read from ``xw`` (3, M)
+    through ``idx`` (N, K): the whole vector and ``ck_neighbor``, or one
+    rank's window of its cells and their halo and a map made local to it
+    (parallel/spatial.py)."""
     xu, xv, xp = x[0], x[1], x[2]
     du = es.diag_u * xu + es.diag_up * xp
     dv = es.diag_u * xv + es.diag_vp * xp
     dp_ = es.diag_pu * xu + es.diag_pv * xv + es.diag_pp * xp
-    su, sv, sp = mesh.banded_dot(
-        (xu, xv, xp),
+    su, sv, sp = bk.banded_dot(
+        (xw[0], xw[1], xw[2]),
         (es.off_mom, es.off_up, es.off_vp, es.off_pu, es.off_pv, es.off_pp),
+        idx,
         (((0, 0), (1, 2)),            # A_uu gu + G_u gp
          ((0, 1), (2, 2)),            # A_vv gv + G_v gp
          ((3, 0), (4, 1), (5, 2))))   # D_u gu + D_v gv + C gp

@@ -19,6 +19,12 @@ the residual estimate on the host anyway.  Each Arnoldi iteration therefore
 makes one device-to-host read (its Hessenberg column), each cycle one more
 (the true residual), and each solve one at entry (the norms of b and r0),
 plus two for a recycled warm start; see :mod:`..runtime.host_reads`.
+
+With ``reduce`` (a sum across ranks, ``RowDecomposition.all_reduce_sum`` of
+parallel/spatial.py) each rank holds its own rows of every vector: the
+Gram-Schmidt dots and every norm are summed across the ranks before they
+are used, so every rank computes the same Hessenberg column and rotations
+and takes the same exits.
 """
 
 from __future__ import annotations
@@ -52,14 +58,19 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v)
 
 
-def make_norm(f64_norms: bool, dtype=torch.float32):
+def make_norm(f64_norms: bool, dtype=torch.float32, reduce=None):
     """Norm used for the residuals and the convergence tests.
 
     With ``f64_norms`` the sum of squares accumulates in float64 and the
     norm comes back as ``dtype``: the stiff cases (water at rho=1000, whose
     squared f32 magnitudes saturate) need it.  The JAX package does the same
     only under ``jax_enable_x64`` and silently stays f32 without it; the
-    port always does what the option says."""
+    port always does what the option says.  ``reduce``: the vector's rows
+    are one rank's, and the sum of squares is summed across the ranks."""
+    if reduce is not None:
+        acc = torch.float64 if f64_norms else dtype
+        return lambda v: torch.sqrt(
+            reduce(torch.sum(v.to(acc) * v.to(acc)))).to(dtype)
     if not f64_norms:
         return _norm
 
@@ -154,6 +165,7 @@ def fgmres_solve(
     incycle_tol: float = 0.02,
     recycle: tuple | None = None,
     return_basis: bool = False,
+    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> FgmresResult:
     """Solve A x = b for vectors of any fixed shape (b.shape).
 
@@ -175,12 +187,17 @@ def fgmres_solve(
     ``recycle``: a previous solve's ``FgmresResult.basis``; the initial
     guess is first improved by :func:`_recycled_start`.  ``return_basis``:
     return this solve's last cycle in ``FgmresResult.basis`` (a zero basis
-    when no cycle ran)."""
+    when no cycle ran).
+
+    ``reduce``: see the module docstring; recycling is not sharded."""
+    if reduce is not None and (recycle is not None or return_basis):
+        raise NotImplementedError("Krylov recycling is not sharded over "
+                                  "ranks")
     m = restart
     shape = b.shape
     dtype = b.dtype
     bd = dtype if basis_dtype is None else basis_dtype
-    nrm = make_norm(f64_norms, dtype)
+    nrm = make_norm(f64_norms, dtype, reduce)
     bf = b.reshape(-1)
     D = bf.numel()
     mv = lambda xf: matvec(xf.view(shape)).reshape(-1)
@@ -219,6 +236,8 @@ def fgmres_solve(
             w = mv(z)
             Vj = V[:j + 1].to(dtype)
             dots = torch.mv(Vj, w)
+            if reduce is not None:
+                dots = reduce(dots)
             w = w - torch.mv(Vj.T, dots)
             hnorm = nrm(w)
             V[j + 1] = _safe_scale(w, hnorm)

@@ -13,6 +13,11 @@ pressure CG (``pcg_pressure``, ``schur_guess``) lives here too.
 Off-diagonal coefficients are identically zero at boundary/extra slots (the
 assembly multiplies them by the internal-face mask), so edge-clamped shifts
 never contribute.
+
+On a row-sharded mesh (parallel/spatial.py) the system holds this rank's
+rows and its ``decomp``: every shift takes the neighbouring ranks' edge rows
+(one exchange per shifted group of planes), and every sum and norm is
+reduced across the ranks.
 """
 
 from __future__ import annotations
@@ -21,12 +26,43 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from .stencil_kernels import _shifts2
-
 
 def _dot4(off: torch.Tensor, sh) -> torch.Tensor:
     """sum_s off[s] * sh[s] for the 4 directional slots."""
     return off[0] * sh[0] + off[1] * sh[1] + off[2] * sh[2] + off[3] * sh[3]
+
+
+def _shifts(ss, x: torch.Tensor):
+    """Edge-clamped E, W, N, S neighbour planes of ``x`` (..., ny, nx); on a
+    row-sharded system N and S read across an inner block edge from the
+    neighbouring ranks, one exchange for all leading planes."""
+    if ss.decomp is None:
+        below, above = x[..., :1, :], x[..., -1:, :]
+    else:
+        below, above = ss.decomp.halo_rows(x, 1, dim=x.dim() - 2)
+    e = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
+    w = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+    n = torch.cat([x[..., 1:, :], above], dim=-2)
+    s = torch.cat([below, x[..., :-1, :]], dim=-2)
+    return e, w, n, s
+
+
+def _plane(sh, i: int):
+    """Plane ``i``'s four shifts out of the shifts of a stack of planes."""
+    return tuple(t[i] for t in sh)
+
+
+def _sum(ss, x: torch.Tensor) -> torch.Tensor:
+    """Sum over every cell (of every rank on a row-sharded system)."""
+    t = torch.sum(x)
+    return t if ss.decomp is None else ss.decomp.all_reduce_sum(t)
+
+
+def norm(ss, x: torch.Tensor) -> torch.Tensor:
+    """2-norm over every cell (of every rank on a row-sharded system)."""
+    if ss.decomp is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(ss.decomp.all_reduce_sum(torch.sum(x * x)))
 
 
 @dataclass
@@ -59,6 +95,9 @@ class StencilSystem:
     diag_u_inv2: torch.Tensor
     diag_p_inv2: torch.Tensor
     rhs: torch.Tensor            # (N, 3)
+    # The mesh's row decomposition when row-sharded (parallel/spatial.py),
+    # else None.
+    decomp: object | None = None
 
 
 def cast_coeffs(ss: StencilSystem, dtype) -> StencilSystem:
@@ -66,7 +105,7 @@ def cast_coeffs(ss: StencilSystem, dtype) -> StencilSystem:
     (``grid`` and ``rhs`` kept): the bf16 Schur preconditioner reads it
     (SolverConfig.precond_bf16) while the matvec keeps the f32 system."""
     return StencilSystem(**{
-        f.name: (getattr(ss, f.name) if f.name in ("grid", "rhs")
+        f.name: (getattr(ss, f.name) if f.name in ("grid", "rhs", "decomp")
                  else getattr(ss, f.name).to(dtype))
         for f in fields(StencilSystem)})
 
@@ -87,9 +126,8 @@ def spmv(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
 def spmv_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
     """y = A x with x, y of shape (3, ny, nx) (component planes)."""
     xu, xv, xp = x[0], x[1], x[2]
-    su = _shifts2(xu)
-    sv = _shifts2(xv)
-    sp = _shifts2(xp)
+    sh = _shifts(ss, x)
+    su, sv, sp = _plane(sh, 0), _plane(sh, 1), _plane(sh, 2)
 
     yu = ss.diag_u2 * xu + ss.diag_up2 * xp \
         + _dot4(ss.off_mom, su) + _dot4(ss.off_up, sp)
@@ -108,7 +146,7 @@ def chebyshev_pressure_solve2(ss: StencilSystem, rhs_p2: torch.Tensor,
     x_prev = torch.zeros_like(rhs_p2)
     x_cur = ss.diag_p_inv2 * rhs_p2
     for _ in range(n_sweeps):
-        sigma = _dot4(ss.P_off2, _shifts2(x_cur))
+        sigma = _dot4(ss.P_off2, _shifts(ss, x_cur))
         hat = ss.diag_p_inv2 * (rhs_p2 - sigma)
         x_prev, x_cur = x_cur, x_prev + omega * (hat - x_prev)
     return x_cur
@@ -125,17 +163,20 @@ def _momentum_solve(ss: StencilSystem, r_u, r_v, sweeps: int,
     z_v = ss.diag_u_inv2 * r_v
     if not rbgs:
         for _ in range(sweeps - 1):
-            z_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _shifts2(z_u)))
-            z_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _shifts2(z_v)))
+            sh = _shifts(ss, torch.stack([z_u, z_v]))
+            z_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _plane(sh, 0)))
+            z_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _plane(sh, 1)))
         return z_u, z_v
     ny, nx = ss.grid
     dev = r_u.device
-    color = (torch.arange(ny, device=dev)[:, None]
+    row0 = 0 if ss.decomp is None else ss.decomp.r0    # the global colour
+    color = (torch.arange(row0, row0 + ny, device=dev)[:, None]
              + torch.arange(nx, device=dev)[None, :]) % 2
     for _ in range(sweeps - 1):
         for c in (0, 1):
-            zn_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _shifts2(z_u)))
-            zn_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _shifts2(z_v)))
+            sh = _shifts(ss, torch.stack([z_u, z_v]))
+            zn_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _plane(sh, 0)))
+            zn_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _plane(sh, 1)))
             z_u = torch.where(color == c, zn_u, z_u)
             z_v = torch.where(color == c, zn_v, z_v)
     return z_u, z_v
@@ -183,6 +224,10 @@ def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
     """ADI line-relaxation momentum predict: implicit tridiagonal solves
     (truncated PCR) along x, then along y, the transverse coupling taken
     explicitly.  Slots: off_mom[0]=E (x+1), [1]=W, [2]=N (y+1), [3]=S."""
+    if ss.decomp is not None:
+        raise NotImplementedError("the ADI momentum predict (precond_mom_adi)"
+                                  " solves along whole columns and is not "
+                                  "sharded over rows")
     cE, cW, cN, cS = (ss.off_mom[0], ss.off_mom[1], ss.off_mom[2],
                       ss.off_mom[3])
     b = 1.0 / ss.diag_u_inv2
@@ -190,10 +235,10 @@ def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
     z_v = torch.zeros_like(r_v)
     for _ in range(passes):
         # implicit in x, explicit in y
-        rhs_u = r_u - _dot4(ss.off_mom, _shifts2(z_u)) \
+        rhs_u = r_u - _dot4(ss.off_mom, _shifts(ss, z_u)) \
             + cE * _shift_along(z_u, 1, 1, 0.0) \
             + cW * _shift_along(z_u, -1, 1, 0.0)
-        rhs_v = r_v - _dot4(ss.off_mom, _shifts2(z_v)) \
+        rhs_v = r_v - _dot4(ss.off_mom, _shifts(ss, z_v)) \
             + cE * _shift_along(z_v, 1, 1, 0.0) \
             + cW * _shift_along(z_v, -1, 1, 0.0)
         z_u = pcr_line_solve(cW, b, cE, rhs_u, axis=1, steps=steps)
@@ -220,13 +265,14 @@ def _momentum_predict(ss: StencilSystem, mom_sweeps: int, mom_rbgs: bool,
 
 def _schur_rhs(ss: StencilSystem, rp, z_u, z_v):
     """r_p - D z: the pressure right-hand side after the momentum predict."""
+    sh = _shifts(ss, torch.stack([z_u, z_v]))
     return rp - ss.diag_pu2 * z_u - ss.diag_pv2 * z_v \
-        - _dot4(ss.off_pu, _shifts2(z_u)) - _dot4(ss.off_pv, _shifts2(z_v))
+        - _dot4(ss.off_pu, _plane(sh, 0)) - _dot4(ss.off_pv, _plane(sh, 1))
 
 
 def _gradient(ss: StencilSystem, z_p):
     """G z_p, the (u, v) rows' pressure coupling."""
-    sp = _shifts2(z_p)
+    sp = _shifts(ss, z_p)
     return (ss.diag_up2 * z_p + _dot4(ss.off_up, sp),
             ss.diag_vp2 * z_p + _dot4(ss.off_vp, sp))
 
@@ -263,7 +309,7 @@ def schur_precond(ss: StencilSystem, r: torch.Tensor, omega: float,
 
 def pressure_apply(ss: StencilSystem, x2: torch.Tensor) -> torch.Tensor:
     """Scalar pressure (Schur) operator on an (ny, nx) grid: P x."""
-    return ss.P_diag2 * x2 + _dot4(ss.P_off2, _shifts2(x2))
+    return ss.P_diag2 * x2 + _dot4(ss.P_off2, _shifts(ss, x2))
 
 
 def pcg_pressure(ss: StencilSystem, rhs2: torch.Tensor, pressure_solve,
@@ -276,15 +322,15 @@ def pcg_pressure(ss: StencilSystem, rhs2: torch.Tensor, pressure_solve,
     r = rhs2
     z = pressure_solve(r)
     p = z
-    rz = torch.sum(r * z)
+    rz = _sum(ss, r * z)
     for _ in range(iters):
         Ap = pressure_apply(ss, p)
-        denom = torch.sum(p * Ap)
+        denom = _sum(ss, p * Ap)
         alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = pressure_solve(r)
-        rz_new = torch.sum(r * z)
+        rz_new = _sum(ss, r * z)
         beta = torch.where(torch.abs(rz) > 1e-30, rz_new / rz, 0.0)
         rz = rz_new
         p = z + beta * p
@@ -322,16 +368,18 @@ def from_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
 
 def coarse_level_values2(hier, ss: StencilSystem):
     """:func:`coarse_level_values2_planes` from an assembled system."""
-    return coarse_level_values2_planes(hier, ss.P_diag2, ss.P_off2)
+    return coarse_level_values2_planes(hier, ss.P_diag2, ss.P_off2,
+                                       ss.decomp)
 
 
-def coarse_level_values2_planes(hier, P_diag2, P_off2):
+def coarse_level_values2_planes(hier, P_diag2, P_off2, decomp=None):
     """Galerkin-coarsen once from the planar pressure matrix, returning
     ``(coarse_vals, factors)`` for :func:`make_pressure_solve2`'s
     ``frozen=``: the level-1+ stencil values and the coarsest dense LU.  The
-    fused step calls it once per timestep (SolverConfig.amg_freeze_coarse)."""
+    fused step calls it once per timestep (SolverConfig.amg_freeze_coarse).
+    ``decomp``: the planes are a row-sharded system's rows."""
     from .amg import _coarse_factors, compute_structured_level_values2
-    lv2 = compute_structured_level_values2(hier, P_diag2, P_off2)
+    lv2 = compute_structured_level_values2(hier, P_diag2, P_off2, decomp)
     return tuple(lv2[1:]), _coarse_factors(hier, lv2)
 
 
@@ -342,26 +390,35 @@ def make_pressure_solve2(hier, ss: StencilSystem, n_cycles: int = 1,
 
     With ``frozen`` (from :func:`coarse_level_values2_planes`) level 0 is
     re-derived from the current assembly and only the level-1+ Galerkin
-    products and the coarsest LU are reused."""
-    from .amg import (_NULL_SHIFT, StructuredAmgHierarchy, _coarse_factors,
-                      compute_structured_level_values2, structured_v_cycle)
+    products and the coarsest LU are reused.  On a row-sharded system each
+    cycle is :func:`.amg.sharded_v_cycle`."""
+    from .amg import (StructuredAmgHierarchy, _coarse_factors,
+                      _level0_values2, compute_structured_level_values2,
+                      sharded_v_cycle, split_level, structured_v_cycle)
 
     if not isinstance(hier, StructuredAmgHierarchy):
         raise TypeError("make_pressure_solve2 needs a StructuredAmgHierarchy")
+    decomp = ss.decomp
     if frozen is not None:
         coarse_vals, factors = frozen
-        d0 = ss.P_diag2 + _NULL_SHIFT * torch.abs(ss.P_diag2)
-        lv2 = [(d0, ss.P_off2[:4])] + list(coarse_vals)
+        whole = decomp is not None and split_level(hier, decomp) == 0
+        lv2 = [_level0_values2(ss.P_diag2, ss.P_off2, decomp, whole)] \
+            + list(coarse_vals)
     else:
-        lv2 = compute_structured_level_values2(hier, ss.P_diag2, ss.P_off2)
+        lv2 = compute_structured_level_values2(hier, ss.P_diag2, ss.P_off2,
+                                               decomp)
         factors = _coarse_factors(hier, lv2)
+    if decomp is None:
+        cycle = lambda b, x: structured_v_cycle(
+            hier, lv2, b.reshape(-1), x.reshape(-1),
+            coarse_factors=factors).reshape(ss.grid)
+    else:
+        cycle = sharded_v_cycle(hier, lv2, factors, decomp)
 
     def pressure_solve(rhs_p2):
         x = ss.diag_p_inv2 * rhs_p2
         for _ in range(n_cycles):
-            x = structured_v_cycle(hier, lv2, rhs_p2.reshape(-1),
-                                   x.reshape(-1),
-                                   coarse_factors=factors).reshape(ss.grid)
+            x = cycle(rhs_p2, x)
         return x
 
     return pressure_solve

@@ -14,9 +14,13 @@ stepped by :func:`..models.coupled.step` and written back.  Each case is
 exactly its own single step; this is not a speed feature.
 
 :func:`shard_batch` places a batched state on its device.  One mesh lives
-on one device, so the batch must lie on the mesh's device (on one H100 that
-is ``cuda:0``); splitting a batch over several devices is the work of the
-multi-device slice.
+on one device, so in one process the batch must lie on the mesh's device
+(on one H100 that is ``cuda:0``).  Over several devices the cases are split
+over ``torch.distributed`` ranks (parallel/launch.py): given a
+:class:`~.spatial.RowDecomposition` of the B cases, :func:`shard_batch`
+gives each rank its own contiguous share, which it steps on its device with
+its own copy of the mesh (no collective: the cases are independent), and
+:func:`gather_batch` brings every case back to every rank.
 
 Unlike the JAX functions, the stepping functions take the multigrid
 hierarchy as an optional ``amg`` (the JAX ones step without one, which
@@ -33,6 +37,7 @@ import torch
 
 from ..models.coupled import multi_step, step
 from ..runtime.state import SolverParams, SolverState, initial_state
+from .spatial import RowDecomposition
 
 
 def _case(bstate: SolverState, i: int) -> SolverState:
@@ -79,15 +84,40 @@ def batched_initial_state(mesh, batch: int, u0=None, p0=None) -> SolverState:
     return _stack([one] * batch)
 
 
-def shard_batch(bstate: SolverState, devices) -> SolverState:
-    """Place a batched state on ``devices``: one device for now (a list of
-    one), which takes every case."""
+def shard_batch(bstate, devices):
+    """Place a batched state (or batched params) on ``devices``:
+
+    * a list of one device, which takes every case;
+    * a :class:`~.spatial.RowDecomposition` of the B cases over the ranks
+      of a group: this rank's cases (a (B, ...) field cut to them, a 0-d
+      field copied, as the JAX package shards ``x.ndim >= 1``) on the
+      rank's device."""
+    if isinstance(devices, RowDecomposition):
+        d = devices
+        cases = {getattr(bstate, f.name).shape[0] for f in fields(bstate)
+                 if getattr(bstate, f.name).ndim >= 1}
+        if cases - {d.rows}:
+            raise ValueError(f"{sorted(cases)} cases, the decomposition "
+                             f"covers {d.rows}")
+        return type(bstate)(**{
+            f.name: (v[d.r0:d.r1] if v.ndim >= 1 else v).to(d.device)
+            for f in fields(bstate) for v in [getattr(bstate, f.name)]})
     devices = [torch.device(d) for d in devices]
     if len(devices) != 1:
-        raise ValueError(f"{len(devices)} devices: a batch is placed on one "
-                         "device until the multi-device slice")
+        raise ValueError(f"{len(devices)} devices: one process places a "
+                         "batch on one device; over several devices the "
+                         "cases are split over ranks (pass a "
+                         "RowDecomposition of the cases)")
     return SolverState(**{f.name: getattr(bstate, f.name).to(devices[0])
                           for f in fields(SolverState)})
+
+
+def gather_batch(bstate, decomp: RowDecomposition):
+    """Every case of a batch split by :func:`shard_batch` over ``decomp``,
+    on every rank (one all-gather per field)."""
+    return type(bstate)(**{
+        f.name: (decomp.all_gather_rows(v) if v.ndim >= 1 else v)
+        for f in fields(bstate) for v in [getattr(bstate, f.name)]})
 
 
 def batched_step(mesh, bstate: SolverState, params: SolverParams, config,

@@ -57,12 +57,23 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _shift_slots(xg: torch.Tensor):
-    """Edge-clamped E, W, N, S shifts of an (ny, nx, ...) grid."""
+def _south_north(xg: torch.Tensor, decomp):
+    """The rows below and above an (ny, nx, ...) grid: its edge rows (the
+    clamp), or on a row-sharded mesh the neighbouring ranks' edge rows."""
+    if decomp is None:
+        return xg[:1], xg[-1:]
+    return decomp.halo_rows(xg, 1)
+
+
+def _shift_slots(xg: torch.Tensor, decomp=None):
+    """Edge-clamped E, W, N, S shifts of an (ny, nx, ...) grid; on a
+    row-sharded mesh N and S read across an inner block edge from the
+    neighbouring ranks (one exchange)."""
+    below, above = _south_north(xg, decomp)
     e = torch.cat([xg[:, 1:], xg[:, -1:]], dim=1)
     w = torch.cat([xg[:, :1], xg[:, :-1]], dim=1)
-    n = torch.cat([xg[1:], xg[-1:]], dim=0)
-    s = torch.cat([xg[:1], xg[:-1]], dim=0)
+    n = torch.cat([xg[1:], above], dim=0)
+    s = torch.cat([below, xg[:-1]], dim=0)
     return e, w, n, s
 
 
@@ -148,6 +159,11 @@ class DeviceMesh:
     # gather() and banded_dot() stay exact: they walk all K slots, whose pad
     # entries repeat a real neighbor and carry zero coefficients.
     bd_k: int | None = None
+    # Row decomposition of a structured mesh sharded over ranks
+    # (parallel/spatial.py: shard_mesh): the cell-major tensors then hold
+    # this rank's rows, grid_shape is its block's and num_cells its count.
+    # None on one device.
+    decomp: object | None = None
 
     @property
     def structured(self) -> bool:
@@ -157,12 +173,21 @@ class DeviceMesh:
     def multilevel(self) -> bool:
         return self.ml_levels is not None
 
+    @property
+    def total_cells(self) -> int:
+        """Device cells of the whole mesh (num_cells on every rank when
+        sharded): the size the solver's size-dependent choices read."""
+        if self.decomp is None:
+            return self.num_cells
+        return self.decomp.rows * self.decomp.row_size
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Neighbor values per slot: (N, ...) -> (N, K, ...).
 
         Structured: four edge-clamped shifts of the (ny, nx) grid (clamped
         values are always masked by zero coefficients) + self for extra
-        slots.  Multilevel and generic: one gather through ``ck_neighbor``
+        slots; on a row-sharded mesh N and S take the neighbouring ranks'
+        edge rows.  Multilevel and generic: one gather through ``ck_neighbor``
         (:func:`..ops.banded_kernels.banded_gather`).  On a multilevel mesh
         the JAX package takes per-level shifts plus the exception scatter
         where it has no index map; those differ from ``ck_neighbor`` only on
@@ -173,7 +198,7 @@ class DeviceMesh:
         tail = tuple(x.shape[1:])
         ny, nx = self.grid_shape
         xg = x.reshape((ny, nx) + tail)
-        e, w, n, s = _shift_slots(xg)
+        e, w, n, s = _shift_slots(xg, self.decomp)
         slots = [e, w, n, s] + [xg] * (self.max_faces - 4)
         return torch.stack(slots, dim=2).reshape((ny * nx, self.max_faces)
                                                  + tail)
@@ -236,8 +261,8 @@ class DeviceMesh:
             v, lambda vg: torch.cat([vg[:, :1], vg[:, :-1]], dim=1))
 
     def shift_from_south(self, v: torch.Tensor) -> torch.Tensor:
-        return self._per_level(
-            v, lambda vg: torch.cat([vg[:1], vg[:-1]], dim=0))
+        return self._per_level(v, lambda vg: torch.cat(
+            [_south_north(vg, self.decomp)[0], vg[:-1]], dim=0))
 
     def slot_fluxes(self, fluxes: torch.Tensor) -> torch.Tensor:
         """Per-slot outward mass fluxes (N, K).  The structured, multilevel
@@ -250,16 +275,20 @@ class DeviceMesh:
         return banded_gather(fluxes.contiguous(), self.ck_face) * self.ck_sign
 
     def to_host_order(self, x: torch.Tensor) -> torch.Tensor:
-        """Device cell field -> host mesh cell order."""
+        """Device cell field -> host mesh cell order (of the whole mesh:
+        on a row-sharded mesh ``x`` is gathered from every rank first)."""
+        if self.decomp is not None:
+            x = self.decomp.all_gather_rows(x)
         return x[self.grid_of_cell.long()]
 
     def from_host_order(self, x: torch.Tensor) -> torch.Tensor:
-        """Host mesh cell field -> device layout (solids get zeros)."""
+        """Host mesh cell field -> device layout (solids get zeros); on a
+        row-sharded mesh this rank's rows of it."""
         x = torch.as_tensor(x, device=self.device)
-        out = torch.zeros((self.num_cells,) + tuple(x.shape[1:]),
+        out = torch.zeros((self.total_cells,) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=self.device)
         out[self.grid_of_cell.long()] = x
-        return out
+        return out if self.decomp is None else out[self.decomp.cells]
 
 
 def _detect_uniform_grid(mesh: Mesh):

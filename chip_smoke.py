@@ -93,7 +93,34 @@ Phases (any failure exits non-zero):
    app on a Delaunay mesh (0.01, 3 steps): all three banded kernels
    launched; (f) the live server on a small mesh: the step advances and
    pause freezes it (a frame is fetched where matplotlib imports).  (c)
-   and (d) take phase 3's state, or load it when phase 3 did not run.
+   and (d) take phase 3's state, or load it when phase 3 did not run;
+12. the row-sharded paths (``cfd2_tpu_torch/parallel/spatial.py``) on 4
+   ranks sharing the card through ``parallel/launch.py``'s ``run_ranks``,
+   with the gloo transport, CUDA tensors staged through host memory (the
+   transport is printed): (a) at full width, the main path's mesh encoded
+   with ``pad_rows_to=4`` (589 -> 592 rows, 148 per rank), precond_type=1,
+   started from ``bench_developed_1m.npz`` (padded with solid rows) healed
+   by 3 one-process steps, as phase 3 runs it (the first healing step is
+   also run in one process with and without the ranks' reduction order):
+   one ``step`` and two ``multi_step_adaptive`` steps (CFL 0.5, h 0.0017), each
+   against one process on the same padded mesh in the same call: equal outer
+   counts, u within 1e-4 * max|u|, dt within 1e-9, ``rbgs_leg`` launched on
+   every rank; per rank FGMRES iterations, exchanges and all-reduces per
+   FGMRES iteration, bytes per exchange, walls; (b) ``banded_spmv_sharded``
+   on phase 6's Delaunay mesh (403,584 device cells in 4 ranges of 100,896,
+   halo = ``banded_bandwidth``) within 1e-5 * scale of ``ellsys.spmv`` on
+   the card, and a sharded FGMRES solve (restart 20, 3 restarts, tol 1e-5):
+   finite, > 0 iterations, ``banded_dot`` launched on every rank; (c)
+   ``sweep_step`` of 4 viscosities on (a)'s start state, one case per rank
+   (``shard_batch`` over the cases), each case bit-equal to its one-process
+   step; (d) a distributed checkpoint of (a)'s stepped row-sharded state
+   written by the 4 ranks and loaded here: bit-equal to the gathered state
+   and to the ``.npz`` written from it; (e) the 4,636-cell mesh sharded over
+   4 ranks on the card and over 4 ranks on the CPU: equal outer counts;
+   and which gloo collectives take CUDA tensors (logged).  The
+   mesh is built once here and the ranks get its encoded arrays through a
+   file; four CUDA contexts time-share the card and every halo crosses the
+   host, so the walls show correctness work, not speed.
 
 Then the kernels' JSON line and the result line are printed.
 
@@ -146,7 +173,7 @@ BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
 # Phase 10: the refined quadtree mesh on the multilevel layout.
 MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
 MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
 # Phase 11: the app at full width (the main path's mesh, smoothed as the
 # app smooths it) and on a Delaunay mesh, as subprocesses of the CLI.
 APP_MAIN = ("--geometry", "channel", "--cell-size", "0.0017", "--precond",
@@ -155,6 +182,13 @@ APP_DELAUNAY = ("--geometry", "channel", "--cell-size", "0.01",
                 "--mesh-type", "delaunay", "--precond", "1", "--steps", "3",
                 "--profile", "--log-every", "1")
 SWEEP_VISCOSITIES = (0.01, 0.005)
+# Phase 12: the row-sharded paths on 4 ranks sharing the card.
+SHARD_WORLD = 4
+SHARD_GRID = (592, 1765)
+SHARD_VISCOSITIES = (0.0025, 0.005, 0.01, 0.02)
+SHARD_SMALL_CELL, SHARD_SMALL_CELLS = 0.025, 4636
+# The ranks' inputs (a few hundred MiB), removed when the phase ends.
+SHARD_DIR = ROOT / ".phase12"
 # Phase 9: one step of each SolverConfig option on the developed 1M state
 # and on the small meshes (the Delaunay ones take those that act on the
 # banded path, as in the JAX package).
@@ -887,6 +921,7 @@ def phase_main(results, ctx):
         f"{len(grids)} smoothed levels, coarsest {coarsest}; "
         f"viscosity {meta['viscosity']}")
 
+    ctx["main_mesh"] = mesh             # phase 12 encodes it again, padded
     n = mesh.num_cells
     sk.reset_launches()
     lin_total = 0
@@ -2122,9 +2157,547 @@ def phase_app(results, ctx):
         log(f"# phase 11{part} done in {time.time() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the row-sharded paths.  The rank functions live at module level:
+# the spawned ranks import this script by its path and look them up by name.
+
+
+def _moved(tree, device):
+    """``tree`` (a dataclass, tuple, list or dict of tensors, nested) with
+    every tensor on ``device``."""
+    import dataclasses
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _moved(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)
+            if getattr(tree, f.name) is not None and f.name != "amg_host"})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_moved(v, device) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    return tree
+
+
+def _timed(fn):
+    """``fn()`` with the launch, exchange and read counts zeroed just
+    before and read just after: (result, wall s, rbgs_leg launches,
+    banded_dot launches, exchange and collective counts, host reads)."""
+    import torch
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.parallel import spatial as sp
+    from cfd2_tpu_torch.runtime import host_reads
+    sk.reset_launches()
+    bk.reset_launches()
+    sp.reset_counts()
+    host_reads.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t, sk.LAUNCHES["rbgs_leg"],
+            bk.LAUNCHES["banded_dot"], dict(sp.COUNT),
+            host_reads.COUNT["reads"])
+
+
+def _p12_rank(rank, world, device, path):
+    """12(a, c, d) on one rank: the padded 1M mesh's rows of this rank, one
+    step and two adaptive steps, the distributed checkpoint of the stepped
+    state, and this rank's case of the viscosity sweep."""
+    import pickle
+    from dataclasses import replace
+    import torch
+    from cfd2_tpu_torch.models.coupled import multi_step_adaptive, step
+    from cfd2_tpu_torch.ops.amg import split_level
+    from cfd2_tpu_torch.parallel import spatial as sp
+    from cfd2_tpu_torch.parallel.batch import (batched_params, gather_batch,
+                                               shard_batch, sweep_step)
+    from cfd2_tpu_torch.runtime.checkpoint import (save_checkpoint,
+                                                   save_checkpoint_dcp)
+    from cfd2_tpu_torch.runtime.state import SolverState
+    with open(path / "inputs.pkl", "rb") as f:
+        inp = pickle.load(f)
+    dm, amg, state0, params, config = (inp[k] for k in (
+        "mesh", "amg", "state", "params", "config"))
+    ny, nx = dm.grid_shape
+    decomp = sp.RowDecomposition(ny, nx, transport="gloo", device=device)
+    mesh = sp.shard_mesh(dm, decomp)
+    state = sp.shard_state(dm, state0, decomp)
+    amg_r = sp.shard_cellwise(amg, dm.num_cells, decomp)
+    params_r = sp.shard_cellwise(params, dm.num_cells, decomp)
+    out = dict(transport=decomp.describe(), rows=(decomp.r0, decomp.r1),
+               split=split_level(amg, decomp))
+
+    s1, wall, leg, _, counts, reads = _timed(
+        lambda: step(mesh, state, params_r, config, amg_r))
+    out["step"] = dict(u=s1.u.cpu().numpy(), outer=int(s1.outer_iters),
+                       lin=int(s1.linear_iters_total), wall=wall, leg=leg,
+                       counts=counts, reads=reads)
+    for kind, dt0 in (("adaptive", None), ("adaptive, dt capped", 1e-4)):
+        p0 = params_r if dt0 is None else replace(
+            params_r, dt=torch.full_like(params_r.dt, dt0))
+        (s2, _, m2), wall, leg, _, counts, reads = _timed(
+            lambda: multi_step_adaptive(mesh, state, p0, config, 2, 0.5,
+                                        0.0017, amg_r))
+        out[kind] = dict(u=s2.u.cpu().numpy(), dt=m2["dt"].cpu().numpy(),
+                         max_vel=m2["max_vel"].cpu().numpy(),
+                         outer=m2["outer_iters"].cpu().numpy(),
+                         wall=wall, leg=leg, counts=counts, reads=reads)
+
+    t = time.perf_counter()
+    save_checkpoint_dcp(path / "ck", s1, params_r, decomp)
+    whole = sp.gather_cellwise(s1, decomp)
+    if rank == 0:
+        save_checkpoint(path / "gathered.npz", whole, params_r)
+    out["checkpoint_s"] = time.perf_counter() - t
+
+    # 12(c): the cases of a viscosity sweep over the ranks, one each, each
+    # stepped with the rank's own copy of the whole mesh.
+    cases = sp.RowDecomposition(world, 1, transport="gloo", device=device)
+    dmd, amgd = _moved(dm, device), _moved(amg, device)
+    s0 = _moved(state0, device)
+    bstate = SolverState(**{k: torch.stack([v] * world)
+                            for k, v in vars(s0).items()})
+    bparams = batched_params(_moved(params, device),
+                             {"viscosity": SHARD_VISCOSITIES})
+    mine = shard_batch(bstate, cases)
+    (sw, wall, leg, _, _, _) = _timed(lambda: sweep_step(
+        dmd, mine, shard_batch(bparams, cases), config, amgd))
+    both = gather_batch(sw, cases)
+    out["sweep"] = dict(u=both.u.cpu().numpy() if rank == 0 else None,
+                        outer=both.outer_iters.cpu().numpy(),
+                        lin=both.linear_iters_total.cpu().numpy(),
+                        local=mine.u.shape[0], wall=wall, leg=leg)
+    return out
+
+
+def _p12_banded_rank(rank, world, device, path):
+    """12(b) on one rank: its range of the Delaunay mesh's cells."""
+    import pickle
+    import torch
+    from cfd2_tpu_torch.ops.fgmres import fgmres_solve
+    from cfd2_tpu_torch.parallel import spatial as sp
+    with open(path / "banded.pkl", "rb") as f:
+        inp = pickle.load(f)
+    nb, es, x, b, halo = (inp[k] for k in ("mesh", "es", "x", "b", "halo"))
+    N = nb.num_cells
+    decomp = sp.RowDecomposition(N, 1, transport="gloo", device=device)
+    es_r = sp.shard_cellwise(es, N, decomp)
+    loc = sp.local_banded_map(nb, decomp, halo)
+    own = lambda v: v[:, decomp.cells].to(device).contiguous()
+    mv = lambda v: sp.banded_spmv_sharded(es_r, loc, v, decomp, halo)
+    y, wall_mv, _, dots_mv, _, _ = _timed(lambda: mv(own(x)))
+    dinv = torch.stack([es_r.diag_u_inv, es_r.diag_u_inv, es_r.diag_p_inv])
+    res, wall, _, dots, counts, reads = _timed(lambda: fgmres_solve(
+        mv, lambda r: r * dinv, own(b), torch.zeros_like(own(b)),
+        restart=20, max_restarts=3, tol=1e-5, reduce=decomp.all_reduce_sum))
+    return dict(y=y.cpu().numpy(), cells=(decomp.cells.start,
+                                          decomp.cells.stop),
+                finite=bool(torch.isfinite(res.x).all()),
+                iterations=res.iterations, dots=dots_mv + dots,
+                wall_mv=wall_mv, wall=wall, counts=counts, reads=reads,
+                transport=decomp.describe())
+
+
+def _p12_small_rank(rank, world, device, host_mesh, u0):
+    """12(e) on one rank: one step of the 4,636-cell mesh, row-sharded."""
+    from cfd2_tpu_torch.models.coupled import step
+    from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh
+    from cfd2_tpu_torch.parallel import spatial as sp
+    from cfd2_tpu_torch.runtime.device_mesh import encode_mesh
+    from cfd2_tpu_torch.runtime.state import (SolverConfig, SolverParams,
+                                              initial_state)
+    dm = encode_mesh(host_mesh, device="cpu", pad_rows_to=world)
+    amg = build_hierarchy_for_mesh(dm)
+    ny, nx = dm.grid_shape
+    decomp = sp.RowDecomposition(ny, nx, transport="gloo", device=device)
+    out = step(sp.shard_mesh(dm, decomp),
+               sp.shard_state(dm, initial_state(dm, u0=u0), decomp),
+               SolverParams.default(dt=0.001, device=device),
+               SolverConfig(precond_type=1),
+               sp.shard_cellwise(amg, dm.num_cells, decomp))
+    return dict(u=out.u.cpu().numpy(), outer=int(out.outer_iters),
+                lin=int(out.linear_iters_total))
+
+
+def _p12_gloo_probe(rank, world, device, op):
+    """One gloo collective on a small CUDA tensor of each of 2 ranks: its
+    result as rank 0 sees it."""
+    import torch
+    import torch.distributed as dist
+    t = torch.full((4,), float(rank + 1), device=device)
+    if op == "all_reduce":
+        dist.all_reduce(t)
+        return t[0].item()
+    if op == "broadcast":
+        dist.broadcast(t, 0)
+        return t[0].item()
+    if op == "all_gather":
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return [p[0].item() for p in parts]
+    x = torch.empty_like(t)
+    for req in (dist.isend(t, 1 - rank), dist.irecv(x, 1 - rank)):
+        req.wait()
+    return x[0].item()
+
+
+def _failure_summary(msg: str) -> str:
+    """A ``run_ranks`` error in one line: each exit code, and each
+    traceback's last line."""
+    parts = []
+    for block in msg.split("\nrank ")[1:]:
+        lines = [ln.strip() for ln in block.splitlines() if ln.strip()]
+        parts.append("rank " + (lines[0] if "exited" in lines[0]
+                                else f"{lines[0]} {lines[-1]}"))
+    return " | ".join(parts)
+
+
+def _gloo_cuda_probe() -> dict:
+    """Which gloo collectives take CUDA tensors here, each in a group of
+    its own (a rank that aborts takes only its own op down)."""
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    out = {}
+    for op in ("all_reduce", "broadcast", "all_gather", "isend/irecv"):
+        try:
+            got = run_ranks(_p12_gloo_probe, 2, device="cuda", timeout=90,
+                            args=(op,), collective_timeout=30)[0]
+            out[op] = f"ok, {got}"
+        except RuntimeError as e:
+            out[op] = f"fails: {_failure_summary(str(e))}"[:300]
+    return out
+
+
+def _padded_developed(dm, path):
+    """``bench_developed_1m.npz`` on the padded grid (its rows, then solid
+    rows), masked and loaded as ``convert.load_developed_state`` loads it:
+    (state, meta)."""
+    from dataclasses import replace
+    import torch
+    from cfd2_tpu_torch.runtime.state import initial_state
+    with np.load(path) as d:
+        meta = json.loads(str(d["meta"]))
+        u = d["u"].astype(np.float32)
+        p = d["p"].astype(np.float32)
+    ny, nx = dm.grid_shape
+    check(tuple(meta["grid"]) == (u.shape[0], nx) and u.shape[0] <= ny,
+          f"checkpoint grid {meta['grid']} does not pad to {dm.grid_shape}")
+    pad = ny - u.shape[0]
+    u = np.concatenate([u, np.zeros((pad, nx, 2), np.float32)])
+    p = np.concatenate([p, np.zeros((pad, nx), np.float32)])
+    valid = dm.c_valid
+    u = torch.as_tensor(u.reshape(-1, 2), device=dm.device) * valid[:, None]
+    p = torch.as_tensor(p.reshape(-1), device=dm.device) * valid
+    st = initial_state(dm)
+    return replace(st, u=u, u_old=u, u_old_old=u, prev_u=u, p=p), meta
+
+
+def _rank_line(part, rank, lin, counts, wall, leg=None):
+    per = max(lin, 1)
+    ex = counts["exchanges"]
+    sides = (rank > 0) + (rank < SHARD_WORLD - 1)
+    line = (f"phase 12{part}: rank {rank}: FGMRES iterations {lin}, per "
+            f"iteration {ex / per:.2f} exchanges, "
+            f"{counts['allreduces'] / per:.2f} all-reduces, "
+            f"{counts['allgathers'] / per:.2f} all-gathers; "
+            f"{counts['exchange_bytes'] / max(ex * sides, 1):.0f} bytes "
+            f"sent to each neighbour per exchange; wall {wall:.3f} s")
+    if leg is not None:
+        line += f"; rbgs_leg {leg} ({leg / per:.2f} per iteration)"
+    log(line)
+
+
+def phase_sharded_main(results, ctx, path):
+    """12(a, c, d)."""
+    import pickle
+    import shutil
+    import torch
+    from dataclasses import replace
+    from cfd2_tpu_torch.models.coupled import multi_step_adaptive, step
+    from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh
+    from cfd2_tpu_torch.parallel import spatial as sp
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    from cfd2_tpu_torch.runtime.checkpoint import (load_checkpoint,
+                                                   load_checkpoint_dcp)
+    from cfd2_tpu_torch.runtime.device_mesh import encode_mesh
+    from cfd2_tpu_torch.runtime.state import (STATE_FIELDS, SolverConfig,
+                                              SolverParams)
+
+    t0 = time.time()
+    mesh = ctx["main_mesh"] if "main_mesh" in ctx else _channel(0.0017)
+    dm = encode_mesh(mesh, pad_rows_to=SHARD_WORLD)
+    check(tuple(dm.grid_shape) == SHARD_GRID,
+          f"padded grid {dm.grid_shape} != {SHARD_GRID}")
+    amg = build_hierarchy_for_mesh(dm)
+    loaded, meta = _padded_developed(dm, ROOT / "bench_developed_1m.npz")
+    params = SolverParams.default(dt=min(0.002, 0.4 * 0.0017),
+                                  viscosity=meta["viscosity"])
+    config = SolverConfig(precond_type=1, fgmres_max_restarts=5)
+    torch.cuda.synchronize()
+    log(f"phase 12a: padded mesh {dm.grid_shape} ({dm.num_cells} device "
+        f"cells, {mesh.num_cells} fluid) and hierarchy "
+        f"{[tuple(l.grid) for l in amg.levels]} in {time.time() - t0:.1f} s")
+
+    # The reduction order alone, in one process: the first healing step of
+    # the state as loaded (20 outers, the cap: it does not converge) with a
+    # one-rank decomposition, whose norms and dots are summed as the ranks
+    # sum them, against the same step without one.
+    one_rank = sp.RowDecomposition(*dm.grid_shape, transport="gloo",
+                                   device=dm.device)
+    plain = step(dm, loaded, params, config, amg)
+    ordered = step(sp.shard_mesh(dm, one_rank),
+                   sp.shard_state(dm, loaded, one_rank), params, config,
+                   sp.shard_cellwise(amg, dm.num_cells, one_rank))
+    log(f"phase 12a: the as-loaded state's first healing step, one process: "
+        f"outers {int(plain.outer_iters)} / {int(ordered.outer_iters)}, "
+        f"FGMRES iterations {int(plain.linear_iters_total)} / "
+        f"{int(ordered.linear_iters_total)} without / with the ranks' "
+        f"reduction order; max|du| "
+        f"{float((plain.u - ordered.u).abs().max()):.3e} (max|u| "
+        f"{float(plain.u.abs().max()):.4f})")
+    # The start: the state as phase 3 runs it, after 3 healing steps.
+    state0 = plain
+    for _ in range(2):
+        state0 = step(dm, state0, params, config, amg)
+    log(f"phase 12a: healed in 3 one-process steps; the last took "
+        f"{int(state0.outer_iters)} outers, "
+        f"{int(state0.linear_iters_total)} FGMRES iterations")
+
+    one, wall1, leg1, _, _, _ = _timed(
+        lambda: step(dm, state0, params, config, amg))
+    # Two adaptive runs: from the step's dt, where dt = 0.5 h / max|u|
+    # decides each step, and from dt 1e-4, where the 1.2x growth limit
+    # decides both, the regime of the JAX package's sharded test
+    # (tests/test_structured.py:162-209).
+    adaptive = {}
+    for kind, dt0 in (("adaptive", None), ("adaptive, dt capped", 1e-4)):
+        p0 = params if dt0 is None else replace(
+            params, dt=torch.full_like(params.dt, dt0))
+        (one2, _, m1), wall2, _, _, _, _ = _timed(
+            lambda: multi_step_adaptive(dm, state0, p0, config, 2, 0.5,
+                                        0.0017, amg))
+        adaptive[kind] = (one2, m1)
+    refs = [step(dm, state0, replace(params, viscosity=torch.tensor(
+        nu, dtype=torch.float32, device=dm.device)), config, amg)
+        for nu in SHARD_VISCOSITIES]
+    log(f"phase 12a: one process: step outers {int(one.outer_iters)}, "
+        f"FGMRES iterations {int(one.linear_iters_total)}, wall "
+        f"{wall1:.3f} s, rbgs_leg {leg1}; " + "; ".join(
+            f"{k}: outers {m['outer_iters'].tolist()}, dt "
+            f"{m['dt'].tolist()}" for k, (_, m) in adaptive.items()))
+
+    t0 = time.time()
+    with open(path / "inputs.pkl", "wb") as f:
+        pickle.dump(dict(mesh=_moved(dm, "cpu"), amg=_moved(amg, "cpu"),
+                         state=_moved(state0, "cpu"),
+                         params=_moved(params, "cpu"), config=config), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    log(f"phase 12a: rank inputs written in {time.time() - t0:.1f} s "
+        f"({(path / 'inputs.pkl').stat().st_size / 2**20:.0f} MiB)")
+    t0 = time.time()
+    res = run_ranks(_p12_rank, SHARD_WORLD, device="cuda", timeout=900,
+                    args=(path,), collective_timeout=300)
+    log(f"phase 12a: {SHARD_WORLD} ranks in {time.time() - t0:.1f} s "
+        f"(spawn and set-up included); transport: {res[0]['transport']}; "
+        f"V-cycle levels below {res[0]['split']} sharded")
+
+    refs_a = [("step", one.u.cpu().numpy(), [int(one.outer_iters)])] + [
+        (k, o.u.cpu().numpy(), m["outer_iters"].tolist())
+        for k, (o, m) in adaptive.items()]
+    for kind, ref_u, ref_outer in refs_a:
+        u = np.concatenate([r[kind]["u"] for r in res])
+        scale = float(np.abs(ref_u).max())
+        err = float(np.abs(u - ref_u).max())
+        for k, r in enumerate(res):
+            rr = r[kind]
+            outer = [rr["outer"]] if kind == "step" else rr["outer"].tolist()
+            # The adaptive metrics carry no FGMRES count: one V-cycle (two
+            # legs per level) per FGMRES iteration gives it.
+            lin = rr["lin"] if kind == "step" else \
+                rr["leg"] // (2 * len(amg.levels))
+            _rank_line("a", k, lin, rr["counts"], rr["wall"], rr["leg"])
+            check(outer == ref_outer, f"{kind}: rank {k} outers {outer}, "
+                  f"one process {ref_outer}")
+            check(rr["leg"] > 0, f"{kind}: rbgs_leg never launched on rank "
+                  f"{k}")
+        log(f"phase 12a: {kind}: outers {ref_outer} on every rank and in "
+            f"one process; max|du| {err:.3e} (max|u| {scale:.4f})")
+        check(np.isfinite(u).all() and err <= 1e-4 * scale,
+              f"{kind}: sharded u differs by {err:.3e}")
+    for kind, (_, m1) in adaptive.items():
+        dt1, mv1 = m1["dt"].cpu().numpy(), m1["max_vel"].cpu().numpy()
+        dterr = max(float(np.abs(r[kind]["dt"] - dt1).max()) for r in res)
+        mverr = max(float(np.abs(r[kind]["max_vel"] - mv1).max())
+                    for r in res)
+        log(f"phase 12a: {kind}: dt {res[0][kind]['dt'].tolist()}, max "
+            f"diff {dterr:.3e}; max|u| before each step "
+            f"{res[0][kind]['max_vel'].tolist()}, max diff {mverr:.3e}")
+        if kind == "adaptive":
+            # dt = 0.5 h / max|u|: the first from the same start state,
+            # each later one as far apart as the max|u| it reads.
+            check(dterr <= float((dt1 * mverr / mv1).max()) * 1.01 + 1e-12
+                  and all(r[kind]["dt"][0] == dt1[0] for r in res),
+                  f"{kind}: dt differs by {dterr:.3e}, more than max|u| "
+                  "explains")
+        else:
+            check(dterr <= 1e-9, f"{kind}: dt differs by {dterr:.3e}")
+    legs = [r["step"]["leg"] for r in res]
+    _path_launches(results, "row-sharded 1M step, 4 ranks (phase 12a)",
+                   {"rbgs_leg": sum(legs)})
+    log(f"phase 12a: rbgs_leg per rank {legs} in the step (one process "
+        f"{leg1})")
+
+    # 12(c): the sweep, one case per rank.
+    sweep = res[0]["sweep"]
+    for k, r in enumerate(res):
+        check(r["sweep"]["local"] == 1, f"rank {k} stepped "
+              f"{r['sweep']['local']} cases")
+        check(r["sweep"]["leg"] > 0, f"the sweep launched no rbgs_leg on "
+              f"rank {k}")
+    for i, (nu, ref) in enumerate(zip(SHARD_VISCOSITIES, refs)):
+        same = np.array_equal(sweep["u"][i], ref.u.cpu().numpy())
+        err = float(np.abs(sweep["u"][i] - ref.u.cpu().numpy()).max())
+        log(f"phase 12c: viscosity {nu}: rank {i}'s case outers "
+            f"{int(sweep['outer'][i])}, FGMRES iterations "
+            f"{int(sweep['lin'][i])}, rbgs_leg {res[i]['sweep']['leg']}, "
+            f"wall {res[i]['sweep']['wall']:.3f} s; "
+            f"one process outers {int(ref.outer_iters)}; bit-equal {same} "
+            f"(max|du| {err:.3e})")
+        check(same and int(sweep["outer"][i]) == int(ref.outer_iters),
+              f"viscosity {nu}: the rank's case differs from one process")
+
+    # 12(d): the distributed checkpoint of the stepped sharded state.
+    t0 = time.time()
+    ck, ck_p = load_checkpoint_dcp(path / "ck")
+    npz, npz_p = load_checkpoint(path / "gathered.npz")
+    u_all = np.concatenate([r["step"]["u"] for r in res])
+    for f in STATE_FIELDS:
+        check(torch.equal(getattr(ck, f), getattr(npz, f)),
+              f"checkpoint field {f} differs from the gathered .npz")
+    check(np.array_equal(ck.u.cpu().numpy(), u_all),
+          "the checkpoint's u differs from the ranks' rows")
+    check(all(torch.equal(getattr(ck_p, f), getattr(npz_p, f))
+              for f in vars(ck_p)), "checkpoint params differ")
+    log(f"phase 12d: checkpoint written by {SHARD_WORLD} ranks in "
+        f"{max(r['checkpoint_s'] for r in res):.2f} s, loaded here in "
+        f"{time.time() - t0:.2f} s: every field bit-equal to the gathered "
+        f".npz and u to the ranks' rows")
+    shutil.rmtree(path / "ck", ignore_errors=True)
+
+
+def phase_sharded_banded(results, ctx, path):
+    """12(b)."""
+    import pickle
+    import types
+    import torch
+    from cfd2_tpu_torch import generate_delaunay_mesh
+    from cfd2_tpu_torch.models.assembly import assemble_ell, prepare
+    from cfd2_tpu_torch.ops import ellsys as el
+    from cfd2_tpu_torch.ops.fgmres import fgmres_solve
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    from cfd2_tpu_torch.parallel.spatial import banded_bandwidth
+
+    s = ctx.get("delaunay")
+    if s is None:
+        mesh = generate_delaunay_mesh(_obstacle_geo(), DELAUNAY_MIN_CELL,
+                                      DELAUNAY_MIN_CELL, 1.2, (3.0, 1.0))
+        s = _unstructured_solver(mesh, DELAUNAY_MIN_CELL, None)
+    dm = s.mesh
+    state = prepare(dm, s.state, s.params, s.config)
+    es = assemble_ell(dm, state, s.params, s.config)
+    halo = banded_bandwidth(dm)
+    N = dm.num_cells
+    check(N % SHARD_WORLD == 0 and halo <= N // SHARD_WORLD,
+          f"N_dev {N}, halo {halo}: not 4 ranges with one exchange")
+    g = torch.Generator(device="cpu").manual_seed(12)
+    x = torch.randn(3, N, generator=g)
+    b = torch.randn(3, N, generator=g)
+    y_ref = el.spmv(es, dm, x.to(dm.device)).cpu().numpy()
+    dinv = torch.stack([es.diag_u_inv, es.diag_u_inv, es.diag_p_inv])
+    one = fgmres_solve(lambda v: el.spmv(es, dm, v), lambda r: r * dinv,
+                       b.to(dm.device), torch.zeros_like(b, device=dm.device),
+                       restart=20, max_restarts=3, tol=1e-5)
+    with open(path / "banded.pkl", "wb") as f:
+        pickle.dump(dict(mesh=types.SimpleNamespace(
+            num_cells=N, ck_neighbor=dm.ck_neighbor.cpu()),
+            es=_moved(es, "cpu"), x=x, b=b, halo=halo), f,
+            protocol=pickle.HIGHEST_PROTOCOL)
+    t0 = time.time()
+    res = run_ranks(_p12_banded_rank, SHARD_WORLD, device="cuda",
+                    timeout=600, args=(path,), collective_timeout=300)
+    y = np.concatenate([r["y"] for r in res], axis=1)
+    scale = max(float(np.abs(y_ref).max()), 1.0)
+    err = float(np.abs(y - y_ref).max())
+    log(f"phase 12b: {SHARD_WORLD} ranks in {time.time() - t0:.1f} s; "
+        f"{N} cells in ranges of {N // SHARD_WORLD}, halo {halo} cells; "
+        f"transport: {res[0]['transport']}; SpMV max err {err:.3e} (scale "
+        f"{scale:.3e}); one-range FGMRES {one.iterations} iterations")
+    check(err <= 1e-5 * scale, f"sharded SpMV differs by {err:.3e}")
+    its = {r["iterations"] for r in res}
+    check(len(its) == 1, f"the ranks took different iteration counts {its}")
+    for k, r in enumerate(res):
+        _rank_line("b", k, r["iterations"], r["counts"], r["wall"])
+        log(f"phase 12b: rank {k}: banded_dot {r['dots']}, SpMV wall "
+            f"{r['wall_mv'] * 1e3:.2f} ms, host reads {r['reads']}")
+        check(r["finite"] and r["iterations"] > 0,
+              f"rank {k}: FGMRES x finite {r['finite']}, iterations "
+              f"{r['iterations']}")
+        check(r["dots"] > 0, f"banded_dot never launched on rank {k}")
+    _path_launches(results, "banded sharded SpMV + FGMRES, 4 ranks "
+                   "(phase 12b)", {"banded_dot": sum(r["dots"] for r in res)})
+
+
+def phase_sharded_small():
+    """12(e): the 4,636-cell mesh over 4 ranks on the card and on the CPU;
+    then which gloo collectives take CUDA tensors (the reason the
+    decomposition stages them through host memory), logged."""
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    log("phase 12e: gloo with CUDA tensors, 2 ranks: " + "; ".join(
+        f"{k} {v}" for k, v in _gloo_cuda_probe().items()))
+    mesh = _channel(SHARD_SMALL_CELL)
+    check(mesh.num_cells == SHARD_SMALL_CELLS,
+          f"mesh has {mesh.num_cells} cells")
+    u0 = np.zeros((mesh.num_cells, 2))
+    u0[mesh.cell_cx < SHARD_SMALL_CELL, 0] = 1.0
+    runs = {dev: run_ranks(_p12_small_rank, SHARD_WORLD, device=dev,
+                           timeout=300, args=(mesh, u0))
+            for dev in ("cuda", "cpu")}
+    outers = {dev: [r["outer"] for r in rs] for dev, rs in runs.items()}
+    lins = {dev: [r["lin"] for r in rs] for dev, rs in runs.items()}
+    err = float(np.abs(np.concatenate([r["u"] for r in runs["cuda"]])
+                       - np.concatenate([r["u"] for r in runs["cpu"]])).max())
+    log(f"phase 12e: {SHARD_SMALL_CELLS} cells over {SHARD_WORLD} ranks: "
+        f"outers card {outers['cuda']}, CPU {outers['cpu']}; FGMRES "
+        f"iterations card {lins['cuda']}, CPU {lins['cpu']}; max|du| "
+        f"{err:.3e}")
+    check(len(set(outers["cuda"] + outers["cpu"])) == 1,
+          "card and CPU ranks took different outer counts")
+
+
+def phase_sharded(results, ctx):
+    import shutil
+    path = SHARD_DIR
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    try:
+        for part, fn in (("a, c, d", lambda: phase_sharded_main(results, ctx,
+                                                                path)),
+                         ("b", lambda: phase_sharded_banded(results, ctx,
+                                                            path)),
+                         ("e", phase_sharded_small)):
+            t0 = time.time()
+            fn()
+            log(f"# phase 12{part} done in {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
@@ -2163,7 +2736,8 @@ def main(argv=None) -> int:
              (8, phase_delaunay_cpu_match),
              (9, lambda: phase_options(ctx)),
              (10, lambda: phase_generic(results, ctx)),
-             (11, lambda: phase_app(results, ctx))]
+             (11, lambda: phase_app(results, ctx)),
+             (12, lambda: phase_sharded(results, ctx))]
     for num, fn in steps:
         if num in phases:
             t0 = time.time()

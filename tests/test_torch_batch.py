@@ -186,3 +186,63 @@ def test_sweep_step_equals_jax_sweep_step(jax_sweep):
             assert np.abs(got - ref).max() <= rel * np.abs(ref).max(), (i, f)
         assert float(out.time[i]) == pytest.approx(float(want["time"][i]))
     assert np.abs(want["u"][0] - want["u"][-1]).max() > 1e-5
+
+
+# ----------------------------------------------------------------------
+# Cases over ranks: tests/test_parallel.py:37-57 shards 8 cases over 8
+# devices; here 8 cases split over 4 gloo ranks on the CPU (2 each).
+
+RANK_CASES, RANK_WORLD = 8, 4
+RANK_VISCS = [0.001, 0.002, 0.005, 0.01, 0.02, 0.03, 0.05, 0.1]
+
+
+def test_cases_over_ranks_equal_single_steps_and_jax():
+    """Each rank steps its own cases with its own mesh; gathered back,
+    every rank sees every case, each bit-equal to the port's single step of
+    that case (same code, same inputs, one CPU thread) and within 1e-5 of
+    the JAX package's batched_step sharded over 8 devices (the JAX test's
+    bound)."""
+    from jax.sharding import Mesh as JMesh
+    import torch_spatial_ranks as ranks
+    from cfd2_tpu.parallel.batch import batched_step as j_batched_step
+    from cfd2_tpu.parallel.batch import shard_batch as j_shard_batch
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+
+    geo = JRectangularChannel(length=2.0, height=1.0)
+    mesh = j_generate(geo, 0.125, 0.125, 1.2, (2.0, 1.0))
+    u0s = []
+    for k in range(RANK_CASES):
+        u0 = np.zeros((mesh.num_cells, 2))
+        u0[mesh.cell_cx < 0.25, 0] = 1.0 + 0.25 * k
+        u0s.append(u0)
+    res = run_ranks(ranks.batch_cases, RANK_WORLD, timeout=180,
+                    args=(mesh, u0s, RANK_VISCS))
+    for r in res:
+        assert r["batched"]["local"] == RANK_CASES // RANK_WORLD
+        for kind in ("batched", "sweep"):
+            for key in ("u", "p", "outer", "lin"):
+                np.testing.assert_array_equal(r[kind][key], res[0][kind][key])
+    got = res[0]
+
+    dm = encode_mesh(mesh, device="cpu")
+    config = SolverConfig()
+    for k, u0 in enumerate(u0s):
+        s = initial_state(dm, u0=u0)
+        one = step(dm, s, SolverParams.default(dt=0.01, device="cpu"),
+                   config)
+        np.testing.assert_array_equal(got["batched"]["u"][k], one.u.numpy())
+        assert got["batched"]["outer"][k] == int(one.outer_iters) > 0
+        nu = step(dm, s, SolverParams.default(dt=0.01, viscosity=RANK_VISCS[k],
+                                              device="cpu"), config)
+        np.testing.assert_array_equal(got["sweep"]["u"][k], nu.u.numpy())
+
+    jm = jencode(mesh)
+    jb = jax.tree.map(lambda *xs: jax.numpy.stack(xs),
+                      *[js.initial_state(jm, u0=u0) for u0 in u0s])
+    devs = JMesh(np.array(jax.devices("cpu")[:8]), axis_names=("batch",))
+    jout = j_batched_step(jm, j_shard_batch(jb, devs),
+                          js.SolverParams.default(dt=0.01), js.SolverConfig())
+    ju = np.asarray(jout.u)
+    np.testing.assert_array_equal(np.asarray(jout.outer_iters),
+                                  got["batched"]["outer"])
+    assert np.abs(got["batched"]["u"] - ju).max() < 1e-5

@@ -462,3 +462,37 @@ def test_app_cli_on_the_card(cuda):
     launches = json.loads(
         out.stdout.split("kernel launches: ")[1].splitlines()[0])
     assert launches["rbgs_leg"] > 0
+
+
+def test_row_sharded_step_on_the_card_equals_one_process(cuda):
+    """Two gloo ranks sharing the card step the 4,636-cell mesh row-sharded
+    (blocks of 20 rows, structured multigrid): equal outer counts on both
+    ranks and against one process on the card, u within 1e-5, and every
+    rank launched rbgs_leg."""
+    import torch_spatial_ranks as ranks
+    from cfd2_tpu_torch.mesh import ChannelWithObstacle, \
+        generate_cut_cell_mesh
+    from cfd2_tpu_torch.models.coupled import step
+    from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    from cfd2_tpu_torch.runtime.device_mesh import encode_mesh
+    from cfd2_tpu_torch.runtime.state import SolverConfig, SolverParams, \
+        initial_state
+    geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
+    mesh = generate_cut_cell_mesh(geo, 0.025, 0.025, 1.2, (3.0, 1.0))
+    u0 = np.zeros((mesh.num_cells, 2))
+    u0[mesh.cell_cx < 0.025, 0] = 1.0
+    dm = encode_mesh(mesh, device=cuda, pad_rows_to=2)
+    one = step(dm, initial_state(dm, u0=u0),
+               SolverParams.default(dt=0.001, device=cuda),
+               SolverConfig(precond_type=1), build_hierarchy_for_mesh(dm))
+    res = run_ranks(ranks.sharded_steps_over, 2, device="cuda", timeout=300,
+                    args=((2,), (), mesh, 2, u0, 0.001,
+                          dict(precond_type=1), True))
+    rs = [r[2] for r in res]
+    assert "staged through host memory" in rs[0]["transport"]
+    assert rs[0]["outer"] == rs[1]["outer"] == int(one.outer_iters)
+    assert rs[0]["lin"] == rs[1]["lin"]
+    assert all(r["rbgs_leg"] > 0 for r in rs)
+    u = np.concatenate([r["u"] for r in rs])
+    assert np.abs(u - one.u.cpu().numpy()).max() < 1e-5

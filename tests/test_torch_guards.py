@@ -65,7 +65,8 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.utils, cfd2_tpu_torch.utils.forces, "
             "cfd2_tpu_torch.runtime.profiling, cfd2_tpu_torch.viz, "
             "cfd2_tpu_torch.viz.live_server, cfd2_tpu_torch.parallel, "
-            "cfd2_tpu_torch.parallel.batch; "
+            "cfd2_tpu_torch.parallel.batch, cfd2_tpu_torch.parallel.spatial, "
+            "cfd2_tpu_torch.parallel.launch; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -97,7 +98,7 @@ def test_new_modules_are_scanned():
             "host_krylov.py", "pressure_poisson.py", "forces.py",
             "metrics.py", "profiling.py", "driver.py", "fluids.py",
             "__main__.py", "renderer.py", "html_viewer.py", "live_server.py",
-            "batch.py"} <= names
+            "batch.py", "spatial.py", "launch.py"} <= names
 
 
 def test_refined_quadtree_mesh_takes_the_multilevel_layout():
