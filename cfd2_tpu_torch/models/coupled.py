@@ -42,11 +42,14 @@ Three solve paths, chosen as the JAX package chooses them:
   structured mesh too small for the structured multigrid).
 
 On a row-sharded structured mesh (parallel/spatial.py: one process per
-rank, each with its block of rows) the same functions step the stencil
-path: the shifts exchange ghost rows, and every value behind a decision
-(the outer max-diffs, ``check_evolution``'s sums, the CFL max, FGMRES's
-dots and norms) is reduced across the ranks, so every rank takes the same
-branches.  The options that are not sharded raise (:func:`_check_sharded`).
+rank, each with its block of rows) the same functions step the stencil and
+block paths under every option: the shifts and gathers exchange ghost rows,
+the ADI predict's column solves take deep ghost rows, and every value behind
+a decision (the outer max-diffs, ``check_evolution``'s sums, the CFL max,
+FGMRES's dots and norms, the recycled projection, Anderson's normal
+equations, the presolve gate) is reduced across the ranks, so every rank
+takes the same branches.  Only the aggregation-AMG fallback is not sharded
+(:func:`_check_sharded`).
 """
 
 from __future__ import annotations
@@ -92,26 +95,15 @@ def _use_stencil_path(mesh: DeviceMesh, config: SolverConfig, amg) -> bool:
 
 
 def _check_sharded(mesh: DeviceMesh, config: SolverConfig, amg) -> None:
-    """A row-sharded mesh takes the stencil path with ``precond_type`` 0 or
-    1 (with a structured hierarchy) under the default options; the others
-    raise, naming the option."""
-    if mesh.decomp is None:
-        return
-    if not _use_stencil_path(mesh, config, amg):
+    """A row-sharded mesh takes every option and ``precond_type``, except
+    ``precond_type=1`` without a structured hierarchy (the aggregation-AMG
+    fallback), which raises."""
+    if (mesh.decomp is not None and config.precond_type == PRECOND_AMG
+            and not isinstance(amg, StructuredAmgHierarchy)):
         raise NotImplementedError(
-            "under a row-sharded mesh only the stencil path is sharded: "
-            "precond_type=2, and precond_type=1 without a structured "
-            "multigrid hierarchy, take the block-ELL path")
-    off = [name for name, on in (
-        ("precond_mom_adi", config.precond_mom_adi > 0),
-        ("precond_bf16", config.precond_bf16),
-        ("fgmres_basis_bf16", config.fgmres_basis_bf16),
-        ("fgmres_mixed_phase", config.fgmres_mixed_phase),
-        ("fgmres_recycle", config.fgmres_recycle > 0),
-        ("anderson_depth", config.anderson_depth > 0)) if on]
-    if off:
-        raise NotImplementedError(
-            f"{', '.join(off)}: not sharded under a row-sharded mesh")
+            "under a row-sharded mesh precond_type=1 needs the structured "
+            "multigrid hierarchy: the aggregation-AMG fallback is not "
+            "sharded")
 
 
 def _reduce(mesh: DeviceMesh):
@@ -199,7 +191,7 @@ def _solve_block(mesh, state, params, config, amg, n_sweeps, tol, x0):
         if config.precond_mom_sweeps > 0:
             ms = config.precond_mom_sweeps
         elif mesh.banded:
-            ms = config.mom_sweeps(mesh.num_cells)
+            ms = config.mom_sweeps(mesh.total_cells)
         else:
             ms = 1
         precond = lambda r: schur_preconditioner(
@@ -209,7 +201,7 @@ def _solve_block(mesh, state, params, config, amg, n_sweeps, tol, x0):
         lambda x: block_spmv(sys, mesh, x), precond, sys.rhs, x0, tol=tol,
         abstol=config.fgmres_abstol,
         basis_dtype=torch.bfloat16 if config.fgmres_basis_bf16 else None,
-        **_fgmres_kwargs(config))
+        reduce=_reduce(mesh), **_fgmres_kwargs(config))
 
 
 def _bf16_precond(ss, ps, config, n_sweeps, mom_sweeps):
@@ -305,7 +297,8 @@ def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
                           tol=max(float(np.float32(tol) * np.float32(30.0)),
                                   1e-3),
                           abstol=config.fgmres_abstol * 100.0,
-                          basis_dtype=torch.bfloat16, **kw)
+                          basis_dtype=torch.bfloat16, reduce=_reduce(mesh),
+                          **kw)
         x0p = r1.x
     result = fgmres_solve(matvec, pc, b2, x0p, tol=tol,
                           abstol=config.fgmres_abstol, basis_dtype=bd,
@@ -316,14 +309,20 @@ def _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
     return replace(result, x=st.from_planar(ss, result.x))
 
 
-def _anderson_mix(g, x, Gh, Fh, it: int, config: SolverConfig):
+def _anderson_mix(g, x, Gh, Fh, it: int, config: SolverConfig,
+                  reduce=None):
     """One Anderson (type-II) mixing step of the outer fixed point
     x -> G(x): ``g`` = G(x_k) and ``x`` = x_k flattened, ``Gh`` / ``Fh`` the
     last depth+1 map outputs / residuals, newest first.  The depth x depth
     normal equations are Tikhonov-regularized and solved on the device
     (``solve_ex``: no singularity check, so no host read); the update falls
     back to ``g`` when the coefficients are not finite or exceed
-    ``anderson_gamma_max``.  Returns (x_next, Gh, Fh)."""
+    ``anderson_gamma_max``.  Returns (x_next, Gh, Fh).
+
+    ``reduce``: the vectors and history hold one rank's rows; the Gram
+    matrix and right-hand side are summed across the ranks (one
+    reduction), so every rank solves the same system and takes the same
+    fallback."""
     m = config.anderson_depth
     f = g - x
     Gh = torch.cat([g[None], Gh[:-1]])
@@ -336,6 +335,9 @@ def _anderson_mix(g, x, Gh, Fh, it: int, config: SolverConfig):
     dG = torch.where(mask[:, None], Gh[0][None] - Gh[1:], 0.0)
     gram = dF @ dF.T                                              # (m, m)
     rhs = dF @ f
+    if reduce is not None:
+        both = reduce(torch.cat([gram.reshape(-1), rhs]))
+        gram, rhs = both[:m * m].reshape(m, m), both[m * m:]
     # Masked rows become identity rows with zero rhs -> gamma_i = 0.
     eye = torch.eye(m, dtype=gram.dtype, device=g.device)
     scale = torch.clamp(torch.trace(gram) / m, min=1e-30)
@@ -364,10 +366,10 @@ def _lin_tol(config: SolverConfig, it: int):
     return max(config.fgmres_tol, 10.0 ** -(3 + it))
 
 
-def _relaxed_update(state, params, config, x, it: int, aa):
+def _relaxed_update(state, params, config, x, it: int, aa, reduce=None):
     """Under-relaxed field update (update_fields_from_coupled.wgsl) with the
-    alpha ramp, then Anderson mixing when ``aa`` holds its history.
-    Returns (u_new, p_new, aa)."""
+    alpha ramp, then Anderson mixing when ``aa`` holds its history
+    (``reduce``: see :func:`_anderson_mix`).  Returns (u_new, p_new, aa)."""
     alpha_u = params.alpha_u
     if config.alpha_u_final > 0 and it >= config.alpha_ramp_after:
         alpha_u = torch.tensor(config.alpha_u_final, dtype=torch.float32,
@@ -377,13 +379,15 @@ def _relaxed_update(state, params, config, x, it: int, aa):
     if aa is not None:
         g = torch.cat([u_new, p_new[:, None]], dim=1).reshape(-1)
         x_cur = torch.cat([state.u, state.p[:, None]], dim=1).reshape(-1)
-        x_next, Gh, Fh = _anderson_mix(g, x_cur, aa[0], aa[1], it, config)
+        x_next, Gh, Fh = _anderson_mix(g, x_cur, aa[0], aa[1], it, config,
+                                       reduce)
         xn = x_next.reshape(-1, 3)
         u_new, p_new, aa = xn[:, 0:2], xn[:, 2], (Gh, Fh)
     return u_new, p_new, aa
 
 
 def _anderson_init(mesh: DeviceMesh, config: SolverConfig, device):
+    """Zero Anderson history (this rank's rows on a row-sharded mesh)."""
     if not config.anderson_depth:
         return None
     z = torch.zeros((config.anderson_depth + 1, mesh.num_cells * 3),
@@ -525,7 +529,7 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
             kry = result.basis
 
         u_new, p_new, aa = _relaxed_update(state, params, config, result.x,
-                                           it, aa)
+                                           it, aa, _reduce(mesh))
         diffs = _max_all(mesh, torch.stack([
             torch.max(torch.abs(u_new - state.u)),
             torch.max(torch.abs(p_new - state.p))]))
@@ -594,7 +598,8 @@ def outer_iteration(mesh: DeviceMesh, state: SolverState,
     result = _assemble_and_solve(mesh, state, params, config, amg, n_sweeps,
                                  lin_tol, x_guess=x_guess)
     u_new, p_new, aa = _relaxed_update(state, params, config, result.x, it,
-                                       aa if config.anderson_depth else None)
+                                       aa if config.anderson_depth else None,
+                                       _reduce(mesh))
     diff_u, diff_p = _max_all(mesh, torch.stack([
         torch.max(torch.abs(u_new - state.u)),
         torch.max(torch.abs(p_new - state.p))]))

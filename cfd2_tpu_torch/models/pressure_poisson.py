@@ -14,6 +14,10 @@ classical SIMPLE capability around it:
   3. correct u -= d_p grad p' (Green-Gauss), p += alpha_p p'.
 
 Boundary conditions: outlet Dirichlet p=0; inlet/wall Neumann (zero flux).
+
+On a row-sharded structured mesh (parallel/spatial.py) every gather
+exchanges ghost rows, the Krylov dots and the max-diffs are reduced across
+the ranks, and each rank returns its own rows.
 """
 
 from __future__ import annotations
@@ -112,11 +116,9 @@ def simple_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     from ..ops.blockell import scalar_spmv
     from ..ops.krylov import bicgstab_solve, cg_solve
     from .assembly import assemble_coupled, prepare
-    from .coupled import check_evolution
+    from .coupled import _max_all, _reduce, check_evolution
 
-    if mesh.decomp is not None:
-        raise NotImplementedError("the SIMPLE stepper is not sharded over "
-                                  "rows")
+    reduce = _reduce(mesh)
     dev = state.u.device
     i32 = dict(dtype=torch.int32, device=dev)
     state = replace(state, u_old_old=state.u_old, u_old=state.u,
@@ -140,10 +142,10 @@ def simple_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
         d_inv = sys.diag_u_inv
         ru = bicgstab_solve(mv_mom, b_u, state.u[:, 0],
                             precond=lambda r: d_inv * r,
-                            max_iters=200, tol=mom_tol)
+                            max_iters=200, tol=mom_tol, reduce=reduce)
         rv = bicgstab_solve(mv_mom, b_v, state.u[:, 1],
                             precond=lambda r: d_inv * r,
-                            max_iters=200, tol=mom_tol)
+                            max_iters=200, tol=mom_tol, reduce=reduce)
         u_star = torch.stack([ru.x, rv.x], dim=1)
         # Under-relax the predictor like classical SIMPLE.
         u_star = state.u + params.alpha_u * (u_star - state.u)
@@ -155,7 +157,7 @@ def simple_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
         p_inv = torch.where(torch.abs(diag) > 1e-30, 1.0 / diag, 0.0)
         rp = cg_solve(lambda x: scalar_spmv(diag, P_off, mesh, x), rhs,
                       torch.zeros_like(rhs), precond=lambda r: p_inv * r,
-                      max_iters=500, tol=p_tol)
+                      max_iters=500, tol=p_tol, reduce=reduce)
         p_corr = rp.x * mesh.c_valid
 
         # 3. Correct fields.
@@ -164,14 +166,17 @@ def simple_step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
         p_new = state.p + params.alpha_p * p_corr
 
         iters = ru.iterations + rv.iterations + rp.iterations
+        diffs = _max_all(mesh, torch.stack([
+            torch.max(torch.abs(u_new - state.u)),
+            torch.max(torch.abs(params.alpha_p * p_corr))]))
         state = replace(state_star, u=u_new, p=p_new,
-                        outer_residual_u=torch.max(torch.abs(u_new - state.u)),
-                        outer_residual_p=torch.max(
-                            torch.abs(params.alpha_p * p_corr)),
+                        outer_residual_u=diffs[0],
+                        outer_residual_p=diffs[1],
                         linear_iters=torch.tensor(iters, **i32),
                         linear_residual=rp.residual,
                         linear_iters_total=state.linear_iters_total + iters)
 
     state = replace(state, time=state.time + params.dt,
                     outer_iters=torch.tensor(n_correctors, **i32))
-    return check_evolution(state, config, valid=mesh.c_valid)
+    return check_evolution(state, config, valid=mesh.c_valid,
+                           decomp=mesh.decomp)

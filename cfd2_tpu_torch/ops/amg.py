@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..runtime.device_mesh import resolve_device
 from . import banded_kernels as bk
 from . import stencil_kernels as sk
 
@@ -148,7 +149,7 @@ def _coarse_graph_from_agg(ngh: np.ndarray, mask: np.ndarray,
 
 def build_hierarchy(ck_neighbor: np.ndarray, ck_mask: np.ndarray,
                     c_valid: np.ndarray | None = None,
-                    agg_passes: int = 1, device="cpu") -> AmgHierarchy:
+                    agg_passes: int = 1, device=None) -> AmgHierarchy:
     """Build the static AMG hierarchy from the fine pressure sparsity pattern
     (the mesh's cell adjacency).  Fully vectorized except the (native) greedy
     scan; scales to multi-million-cell meshes.
@@ -156,7 +157,12 @@ def build_hierarchy(ck_neighbor: np.ndarray, ck_mask: np.ndarray,
     Masked solid cells of the structured layout (``c_valid == 0``) are inert
     identity rows; they are pooled into one decoupled aggregate at the first
     coarsening so they do not pollute the hierarchy.
+
+    ``device``: where the hierarchy's tensors go; None means CUDA and raises
+    with no GPU present (``resolve_device``): pass ``device="cpu"`` for the
+    plain path.
     """
+    device = resolve_device(device)
     levels: list[AmgLevel] = []
     ngh = np.asarray(ck_neighbor, dtype=np.int64)
     n = ngh.shape[0]
@@ -728,25 +734,30 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
     from :func:`compute_structured_level_values2` with the same
     ``decomp``.
 
-    Below :func:`split_level` each leg is one fused
-    :func:`~.stencil_kernels.rbgs_leg` launch on the rank's block plus
-    ghost rows, a contiguous slice of the level's grid: the down leg with
-    ``decomp.ghost`` (4) rows on each inner side, of which its two
-    half-sweeps and the residual spoil three, so the restricted residual of
-    the block's own rows is exact; the up leg with 2, which its two
-    half-sweeps spoil, on the down leg's iterate (exact there) plus the
-    prolongated coarse correction (the coarse block with one ghost row).
-    The ghost rows are even in number, so every extended block starts on an
-    even row and the kernel's colours stay the global ones.  The split
+    Below :func:`split_level` each leg runs on the rank's block plus ghost
+    rows, a contiguous slice of the level's grid, in the structure of
+    :func:`structured_v_cycle` at the smoother level of
+    :func:`~.stencil_kernels.smoother_level`: at level 2 one fused
+    :func:`~.stencil_kernels.rbgs_leg` launch per leg; at level 1 two
+    :func:`~.stencil_kernels.rbgs_half_sweep` launches per leg with the
+    residual and the transfers plain; at level 0 (CPU only) the plain
+    stencils.  The down leg takes ``decomp.ghost`` (4) rows on each inner
+    side, of which its two half-sweeps and the residual spoil three, so the
+    restricted residual of the block's own rows is exact; the up leg takes
+    2, which its two half-sweeps spoil, on the down leg's iterate (exact
+    there) plus the prolongated coarse correction (the coarse block with one
+    ghost row).  (One sweep per leg: no option asks for more here; s sweeps
+    would spoil 2s + 1 rows.)  The ghost rows are even in number, so every
+    extended block starts on an even row and the kernels' colours and
+    ``restrict2``'s pairs stay the global ones; the half-sweeps update the
+    extended block in place, a copy that no one else reads.  The split
     level's right-hand side is gathered from every rank; from there the
     cycle runs whole on every rank (the same kernels on the same values),
     the coarsest dense solve included, and each rank takes its own rows of
     the correction on the way up.  Exchanges per cycle: one per sharded
     level down, one per sharded level below the last up, and one gather;
     the coefficient planes' ghost rows are exchanged here, once."""
-    if sk.smoother_level(decomp.device) != 2:
-        raise NotImplementedError("a row-sharded V-cycle runs the fused leg "
-                                  "kernel only (CFD2_PALLAS=2)")
+    level = sk.smoother_level(decomp.device)
     L = len(hier.levels)
     grids = [hier.levels[0].fine_grid] + [lvl.grid for lvl in hier.levels]
     split = split_level(hier, decomp)
@@ -760,6 +771,22 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
         u = decomp.trim(planes, g, 2, dim=1).contiguous()
         up.append((u[0], u[1:]))
     rest = StructuredAmgHierarchy(levels=hier.levels[split:])
+
+    def smooth(x, diag2, off2, b):
+        if level == 1:
+            return sk.smooth_rbgs_half_sweeps(diag2, off2, x, b)
+        return sk.rbgs_leg_ref(x, diag2, off2, b)
+
+    def down_leg(x, diag2, off2, b, coarse):
+        if level == 2:
+            return sk.rbgs_leg(x, diag2, off2, b, restrict_to=coarse)
+        x = smooth(x, diag2, off2, b)
+        return x, sk.restrict2(b - (diag2 * x + sk._sigma2(off2, x)), coarse)
+
+    def up_leg(x, diag2, off2, b, xc):
+        if level == 2:
+            return sk.rbgs_leg(x, diag2, off2, b, add_prolong=xc)
+        return smooth(x + sk.prolong2(xc, x.shape), diag2, off2, b)
 
     def whole(b, x):
         """The cycle from the split level on, whole on every rank."""
@@ -785,9 +812,8 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
             else:
                 b_e, _ = decomp.extend(b, g)
                 x_e = torch.zeros_like(b_e)
-            x_e, rc_e = sk.rbgs_leg(x_e, d_e, o_e, b_e,
-                                    restrict_to=(b_e.shape[0] // 2,
-                                                 grids[i + 1][1]))
+            x_e, rc_e = down_leg(x_e, d_e, o_e, b_e,
+                                 (b_e.shape[0] // 2, grids[i + 1][1]))
             xs.append(x_e)
             bs.append(b_e)
             b = rc_e[lo // 2:lo // 2 + b.shape[0] // 2]
@@ -803,9 +829,9 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
             else:
                 xc_e, _ = decomp.extend(xc, 1)
             d_u, o_u = up[i]
-            x = sk.rbgs_leg(decomp.trim(xs[i], g, 2).contiguous(), d_u, o_u,
-                            decomp.trim(bs[i], g, 2).contiguous(),
-                            add_prolong=xc_e.contiguous())
+            x = up_leg(decomp.trim(xs[i], g, 2).contiguous(), d_u, o_u,
+                       decomp.trim(bs[i], g, 2).contiguous(),
+                       xc_e.contiguous())
             lo2 = 2 if decomp.rank > 0 else 0
             xc = x[lo2:lo2 + grids[i][0] // decomp.world]
         return xc

@@ -113,16 +113,24 @@ def _givens_column(h: np.ndarray, cs: np.ndarray, sn: np.ndarray, j: int):
     return h[:j + 1]
 
 
-def _recycled_start(recycle, mv, nrm, x, r, beta0):
+def _recycled_start(recycle, mv, nrm, x, r, beta0, reduce=None):
     """Least-squares projection of r0 onto a previous solve's search space
     (the JAX package's ``recycle`` warm start, GCRO-DR's projection-only
     form): d = V^T r0 on the device (one read), the stored rotations and the
     triangular solve over the leading healthy diagonal of R on the host,
     dx = Z y on the device, then one guard matvec and its norm (one read).
     The correction is taken only if it cuts ||r0|| below 0.7 of itself.
-    Returns (x, r, beta0)."""
+    Returns (x, r, beta0).
+
+    With ``reduce`` the basis holds this rank's rows: d and the guard norm
+    are summed across the ranks, and R and the rotations, made from reduced
+    values, are the same on every rank, so every rank takes the same
+    columns and the same decision."""
     V_r, Z_r, R_r, cs_r, sn_r, j_r = recycle
-    d = read(torch.mv(V_r[:j_r + 1].to(r.dtype), r)).astype(np.float32)
+    d = torch.mv(V_r[:j_r + 1].to(r.dtype), r)
+    if reduce is not None:
+        d = reduce(d)
+    d = read(d).astype(np.float32)
     for i in range(j_r):
         c, s = cs_r[i], sn_r[i]
         di, di1 = d[i], d[i + 1]
@@ -187,12 +195,9 @@ def fgmres_solve(
     ``recycle``: a previous solve's ``FgmresResult.basis``; the initial
     guess is first improved by :func:`_recycled_start`.  ``return_basis``:
     return this solve's last cycle in ``FgmresResult.basis`` (a zero basis
-    when no cycle ran).
+    when no cycle ran); with ``reduce``, its rows are this rank's.
 
-    ``reduce``: see the module docstring; recycling is not sharded."""
-    if reduce is not None and (recycle is not None or return_basis):
-        raise NotImplementedError("Krylov recycling is not sharded over "
-                                  "ranks")
+    ``reduce``: see the module docstring."""
     m = restart
     shape = b.shape
     dtype = b.dtype
@@ -208,7 +213,8 @@ def fgmres_solve(
     rhs_norm, beta0 = read(torch.stack([nrm(bf), nrm(r)]))
     target = max(np.float32(tol) * rhs_norm, np.float32(abstol))
     if recycle is not None and recycle[5] > 0:
-        x, r, beta0 = _recycled_start(recycle, mv, nrm, x, r, beta0)
+        x, r, beta0 = _recycled_start(recycle, mv, nrm, x, r, beta0,
+                                      reduce)
 
     V = torch.empty((m + 1, D), dtype=bd, device=b.device)
     Z = torch.empty((m, D), dtype=dtype, device=b.device)

@@ -8,6 +8,11 @@ tensors.  The loop condition (residual above target, iteration cap, and for
 BiCGStab the breakdown flag) is read to the host once per iteration: one
 synchronisation per iteration, plus one at entry (counted by
 :mod:`..runtime.host_reads`).
+
+With ``reduce`` (a sum across ranks, ``RowDecomposition.all_reduce_sum`` of
+parallel/spatial.py) each rank holds its own rows of every vector and every
+dot is summed across the ranks before it is used: every rank computes the
+same scalars and reads the same loop test.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ class KrylovResult:
     converged: torch.Tensor     # 0-d bool
 
 
-def _dot(a, b):
-    return torch.sum(a * b)
+def _dotter(reduce):
+    """The dot product, summed across ranks by ``reduce`` when given."""
+    if reduce is None:
+        return lambda a, b: torch.sum(a * b)
+    return lambda a, b: reduce(torch.sum(a * b))
 
 
 def _nonzero(v, eps=1e-30):
@@ -40,9 +48,10 @@ def _nonzero(v, eps=1e-30):
 def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
              precond: Callable | None = None,
              max_iters: int = 1000, tol: float = 1e-6,
-             abstol: float = 1e-12) -> KrylovResult:
+             abstol: float = 1e-12, reduce=None) -> KrylovResult:
     """Preconditioned conjugate gradients (SPD systems)."""
     M = precond if precond is not None else (lambda r: r)
+    _dot = _dotter(reduce)
     target = torch.clamp(tol * torch.sqrt(_dot(b, b)), min=abstol)
 
     x = x0
@@ -70,11 +79,12 @@ def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
 def bicgstab_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor,
                    precond: Callable | None = None,
                    max_iters: int = 1000, tol: float = 1e-6,
-                   abstol: float = 1e-12) -> KrylovResult:
+                   abstol: float = 1e-12, reduce=None) -> KrylovResult:
     """Preconditioned BiCGStab (general nonsymmetric systems), the
     reference's spmv_p_v/spmv_s_t recurrence structure
     (linear_solver.wgsl:50-200), with its breakdown guard."""
     M = precond if precond is not None else (lambda r: r)
+    _dot = _dotter(reduce)
     target = torch.clamp(tol * torch.sqrt(_dot(b, b)), min=abstol)
 
     x = x0

@@ -16,7 +16,8 @@ never contribute.
 
 On a row-sharded mesh (parallel/spatial.py) the system holds this rank's
 rows and its ``decomp``: every shift takes the neighbouring ranks' edge rows
-(one exchange per shifted group of planes), and every sum and norm is
+(one exchange per shifted group of planes), the ADI predict's column solves
+take 15 ghost rows (:func:`_column_solves`), and every sum and norm is
 reduced across the ranks.
 """
 
@@ -219,15 +220,31 @@ def pcr_line_solve(a, b, c, r, axis: int, steps: int = 4) -> torch.Tensor:
     return r / b
 
 
+def _column_solves(ss: StencilSystem, a, b, c, rhs_u, rhs_v, steps: int):
+    """The y-direction line solves of both components (one matrix).  On a
+    row-sharded system the columns cross every rank: PCR step k reads the
+    rows 2^k away, so the rank solves on its block plus 2^steps - 1 ghost
+    rows from each neighbour (one exchange of the five planes; all-gathered
+    where a block is shallower, :meth:`RowDecomposition.extend_deep`).  The
+    steps spoil only ghost rows, and at the grid's edges the window ends
+    where the grid does, so ``_shift_along``'s fills are the global ones:
+    the block's rows are one process's bits."""
+    if ss.decomp is None:
+        return (pcr_line_solve(a, b, c, rhs_u, axis=0, steps=steps),
+                pcr_line_solve(a, b, c, rhs_v, axis=0, steps=steps))
+    ny = a.shape[0]
+    ext, lo = ss.decomp.extend_deep(torch.stack([a, b, c, rhs_u, rhs_v]),
+                                    (1 << steps) - 1, dim=1)
+    z = [pcr_line_solve(ext[0], ext[1], ext[2], r, axis=0,
+                        steps=steps)[lo:lo + ny] for r in (ext[3], ext[4])]
+    return z[0], z[1]
+
+
 def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
                         steps: int = 4):
     """ADI line-relaxation momentum predict: implicit tridiagonal solves
     (truncated PCR) along x, then along y, the transverse coupling taken
     explicitly.  Slots: off_mom[0]=E (x+1), [1]=W, [2]=N (y+1), [3]=S."""
-    if ss.decomp is not None:
-        raise NotImplementedError("the ADI momentum predict (precond_mom_adi)"
-                                  " solves along whole columns and is not "
-                                  "sharded over rows")
     cE, cW, cN, cS = (ss.off_mom[0], ss.off_mom[1], ss.off_mom[2],
                       ss.off_mom[3])
     b = 1.0 / ss.diag_u_inv2
@@ -235,10 +252,11 @@ def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
     z_v = torch.zeros_like(r_v)
     for _ in range(passes):
         # implicit in x, explicit in y
-        rhs_u = r_u - _dot4(ss.off_mom, _shifts(ss, z_u)) \
+        sh = _shifts(ss, torch.stack([z_u, z_v]))
+        rhs_u = r_u - _dot4(ss.off_mom, _plane(sh, 0)) \
             + cE * _shift_along(z_u, 1, 1, 0.0) \
             + cW * _shift_along(z_u, -1, 1, 0.0)
-        rhs_v = r_v - _dot4(ss.off_mom, _shifts(ss, z_v)) \
+        rhs_v = r_v - _dot4(ss.off_mom, _plane(sh, 1)) \
             + cE * _shift_along(z_v, 1, 1, 0.0) \
             + cW * _shift_along(z_v, -1, 1, 0.0)
         z_u = pcr_line_solve(cW, b, cE, rhs_u, axis=1, steps=steps)
@@ -248,8 +266,7 @@ def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
             - cW * _shift_along(z_u, -1, 1, 0.0)
         rhs_v = r_v - cE * _shift_along(z_v, 1, 1, 0.0) \
             - cW * _shift_along(z_v, -1, 1, 0.0)
-        z_u = pcr_line_solve(cS, b, cN, rhs_u, axis=0, steps=steps)
-        z_v = pcr_line_solve(cS, b, cN, rhs_v, axis=0, steps=steps)
+        z_u, z_v = _column_solves(ss, cS, b, cN, rhs_u, rhs_v, steps)
     return z_u, z_v
 
 

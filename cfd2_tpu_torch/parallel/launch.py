@@ -26,6 +26,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..runtime.device_mesh import resolve_device
+
 
 def _rank_main(rank, world, backend, device, out_dir, collective_timeout):
     torch.set_num_threads(1)
@@ -63,15 +65,17 @@ def _rank_main(rank, world, backend, device, out_dir, collective_timeout):
     os.replace(out / f"rank{rank}.pkl.tmp", out / f"rank{rank}.pkl")
 
 
-def run_ranks(fn, world: int, backend: str = "gloo", device: str = "cpu",
+def run_ranks(fn, world: int, backend: str = "gloo", device: str | None = None,
               timeout: float = 600.0, args: tuple = (),
               collective_timeout: float = 90.0) -> list:
     """Run ``fn(rank, world, device, *args)`` on ``world`` spawned ranks of
     one ``backend`` group ("gloo" or "nccl") and return the results in rank
     order (each must pickle; return host data, not CUDA tensors).
 
-    ``device``: "cpu", or "cuda" for ``cuda:{rank % device_count}`` (several
-    ranks share a card when there are fewer cards than ranks).  ``fn`` must
+    ``device``: "cuda" (the default, also for None) for
+    ``cuda:{rank % device_count}`` (several ranks share a card when there are
+    fewer cards than ranks), or "cpu", which must be named: with no GPU
+    present the default raises, as ``resolve_device`` does.  ``fn`` must
     be importable by name from a module that the spawned ranks can import
     (the ranks start a fresh interpreter).  Each rank runs with one CPU
     thread.  ``collective_timeout`` bounds every collective of the group;
@@ -81,6 +85,8 @@ def run_ranks(fn, world: int, backend: str = "gloo", device: str = "cpu",
     results go through a temporary directory, removed after."""
     if world < 1:
         raise ValueError(f"world {world} < 1")
+    device = "cuda" if device is None else device
+    resolve_device(device)
     tmp = Path(tempfile.mkdtemp(prefix="ranks-"))
     # The call goes through a file: arguments pickled into the spawn pipe
     # would make each start() wait until that rank's interpreter is up.

@@ -12,7 +12,8 @@ for it explicitly:
   :func:`shard_cellwise`).  A row shift takes the neighbouring rank's edge
   row (:meth:`RowDecomposition.halo_rows`; one exchange per gathered field
   group), the multigrid legs run on the block plus ghost rows
-  (:meth:`RowDecomposition.extend`), and every dot product, norm and max
+  (:meth:`RowDecomposition.extend`; the ADI predict's column solves on 15,
+  :meth:`RowDecomposition.extend_deep`), and every dot product, norm and max
   that steers a branch is reduced across ranks
   (:meth:`RowDecomposition.all_reduce_sum` / ``all_reduce_max``), so all
   ranks take the same branch;
@@ -25,9 +26,10 @@ The transport is chosen by the caller and never guessed: ``"nccl"`` moves
 CUDA tensors directly (one card per rank); ``"gloo"`` moves host tensors,
 so CUDA tensors are staged through host memory for every exchange and
 reduction — the transport of several ranks sharing one card, where NCCL
-refuses to run.  Either way every stencil, kernel and reduction computes on
-the rank's own device.  ``COUNT`` counts the exchanges, the bytes they send
-and the collectives; :func:`reset_counts` zeroes it.
+refuses to run.  bf16 tensors travel as f32 (exact both ways).  Either
+way every stencil, kernel and reduction computes on the rank's own device.
+``COUNT`` counts the exchanges, the bytes they send and the collectives;
+:func:`reset_counts` zeroes it.
 """
 
 from __future__ import annotations
@@ -109,10 +111,14 @@ class RowDecomposition:
 
     # --- wire ---
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        # bf16 travels as f32 (exact both ways): not every gloo build
+        # takes bf16 tensors.
+        if t.dtype == torch.bfloat16:
+            t = t.float()
         return t.cpu() if self.staged else t.contiguous()
 
-    def _back(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device) if self.staged else t
+    def _back(self, t: torch.Tensor, dtype) -> torch.Tensor:
+        return t.to(self.device, dtype)
 
     def _peer(self, r: int) -> int:
         return dist.get_global_rank(self.group, r) if self.group is not None \
@@ -143,8 +149,8 @@ class RowDecomposition:
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return (None if below is None else self._back(below),
-                None if above is None else self._back(above))
+        return (None if below is None else self._back(below, lo.dtype),
+                None if above is None else self._back(above, hi.dtype))
 
     @staticmethod
     def _check_depth(depth: int, rows: int) -> None:
@@ -186,6 +192,20 @@ class RowDecomposition:
         parts = [p for p in (below, x, above) if p is not None]
         return torch.cat(parts, dim=dim), 0 if below is None else depth
 
+    def extend_deep(self, x: torch.Tensor, depth: int, dim: int = 0):
+        """:meth:`extend` at any depth: no deeper than the block, one
+        exchange; deeper (a small grid over many ranks), the whole grid
+        all-gathered and the same window cut from it.  Either way the
+        window holds the global grid's bits."""
+        if depth <= x.shape[dim] or self.world == 1:
+            return self.extend(x, min(depth, x.shape[dim]), dim)
+        b = x.shape[dim]
+        r0, rows = self.rank * b, self.world * b
+        whole = self.all_gather_rows(x.contiguous(), dim)
+        lo = min(depth, r0)
+        return whole.narrow(dim, r0 - lo,
+                            min(r0 + b + depth, rows) - r0 + lo), lo
+
     def trim(self, x_ext: torch.Tensor, depth: int, to: int, dim: int = 0):
         """The rows of an ``extend(., depth)`` block that an
         ``extend(., to)`` block holds (``to <= depth``)."""
@@ -201,7 +221,7 @@ class RowDecomposition:
         COUNT["allreduces"] += 1
         w = self._wire(t).clone()
         dist.all_reduce(w, op=op, group=self.group)
-        return self._back(w)
+        return self._back(w, t.dtype)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of ``t`` over the ranks.  Every rank receives the same bits
@@ -220,7 +240,7 @@ class RowDecomposition:
         w = self._wire(x.contiguous())
         parts = [torch.empty_like(w) for _ in range(self.world)]
         dist.all_gather(parts, w, group=self.group)
-        return self._back(torch.cat(parts, dim=dim))
+        return self._back(torch.cat(parts, dim=dim), x.dtype)
 
     def own_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's block of a whole grid ``x`` (rows along ``dim``;

@@ -117,10 +117,29 @@ Phases (any failure exits non-zero):
    written by the 4 ranks and loaded here: bit-equal to the gathered state
    and to the ``.npz`` written from it; (e) the 4,636-cell mesh sharded over
    4 ranks on the card and over 4 ranks on the CPU: equal outer counts;
-   and which gloo collectives take CUDA tensors (logged).  The
-   mesh is built once here and the ranks get its encoded arrays through a
-   file; four CUDA contexts time-share the card and every halo crosses the
-   host, so the walls show correctness work, not speed.
+   and which gloo collectives take CUDA tensors (logged); (f) in (a)'s
+   spawned group, from (a)'s start state restored before each run, every
+   option of the sharded step (``SHARD_OPTION_RUNS``: the bf16 basis, the
+   bf16 preconditioner, the mixed phase, the ADI predict, recycling across
+   outers, Anderson mixing, two steps recycling across steps through
+   ``step(..., krylov=)``, one step under ``CFD2_PALLAS=1`` and block-Jacobi
+   cut to 10 outers by ``n_outer_correctors=1``), each against the same run
+   in one process and beside a one-rank control (one process, the norms
+   summed as the ranks sum them): equal counts on every rank; with one
+   process's outer and FGMRES counts u within 1e-4 * max|u|, and where a
+   solve or the outer loop ended on another iteration outers within 1,
+   FGMRES iterations within 2 per outer and u within 5e-3 * max|u|;
+   ``rbgs_leg`` launched on every rank of every run through the structured
+   multigrid with ``CFD2_PALLAS`` unset, and under ``CFD2_PALLAS=1``
+   ``rbgs_half_sweep`` on every rank at the one-process run's launches per
+   FGMRES iteration; and the ADI preconditioner and the V-cycle (unset and
+   ``CFD2_PALLAS=1``) applied once at full width, bit-equal to one process
+   on every rank's rows; (g) every option of (f) and one
+   ``simple_step`` on (e)'s mesh over 4 ranks on the card and on the CPU:
+   equal outer counts.  The mesh is built once here and the ranks get its
+   encoded arrays through a file; four CUDA contexts time-share the card
+   and every halo crosses the host, so the walls show correctness work,
+   not speed.
 
 Then the kernels' JSON line and the result line are printed.
 
@@ -189,6 +208,21 @@ SHARD_VISCOSITIES = (0.0025, 0.005, 0.01, 0.02)
 SHARD_SMALL_CELL, SHARD_SMALL_CELLS = 0.025, 4636
 # The ranks' inputs (a few hundred MiB), removed when the phase ends.
 SHARD_DIR = ROOT / ".phase12"
+# 12(f)-(g): (label, SolverConfig overrides, steps, CFD2_PALLAS) of each
+# option on the row-sharded step.  Block-Jacobi hits its 250-iteration cap
+# in every outer at this size (20 outers, 23.3 s in one process on an
+# H100): n_outer_correctors=1 cuts it to the loop's floor of 10 outers.
+SHARD_OPTION_RUNS = (
+    ("fgmres_basis_bf16", dict(fgmres_basis_bf16=True), 1, None),
+    ("precond_bf16", dict(precond_bf16=True), 1, None),
+    ("fgmres_mixed_phase", dict(fgmres_mixed_phase=True), 1, None),
+    ("precond_mom_adi=1", dict(precond_mom_adi=1), 1, None),
+    ("fgmres_recycle=1", dict(fgmres_recycle=1), 1, None),
+    ("anderson_depth=2", dict(anderson_depth=2), 1, None),
+    ("fgmres_recycle=2", dict(fgmres_recycle=2), 2, None),
+    ("CFD2_PALLAS=1", {}, 1, "1"),
+    ("precond_type=2", dict(precond_type=2, n_outer_correctors=1), 1, None),
+)
 # Phase 9: one step of each SolverConfig option on the developed 1M state
 # and on the small meshes (the Delaunay ones take those that act on the
 # banded path, as in the JAX package).
@@ -2203,6 +2237,101 @@ def _timed(fn):
             host_reads.COUNT["reads"])
 
 
+def _option_steps(mesh, state, params, config, amg, opts, steps,
+                  pallas=None, simple=False):
+    """``steps`` steps of ``config`` with ``opts`` from ``state`` (one
+    process or one rank alike): fgmres_recycle >= 2 carries the Krylov
+    basis through ``step(..., krylov=)``, ``pallas`` sets CFD2_PALLAS for
+    these steps only, ``simple`` steps ``simple_step``; the hierarchy goes
+    to precond_type=1 only.  Returns (state, outers, FGMRES iterations per
+    step)."""
+    from dataclasses import replace
+    from cfd2_tpu_torch.models.coupled import _basis_init, step
+    from cfd2_tpu_torch.models.pressure_poisson import simple_step
+    cfg = replace(config, **opts)
+    a = amg if cfg.precond_type == 1 else None
+    outer, lin = [], []
+
+    def run():
+        kry = (_basis_init(mesh, state, cfg, a) if cfg.fgmres_recycle >= 2
+               else None)
+        s = state
+        for _ in range(steps):
+            if simple:
+                s = simple_step(mesh, s, params, cfg)
+            elif kry is not None:
+                s, kry = step(mesh, s, params, cfg, a, kry)
+            else:
+                s = step(mesh, s, params, cfg, a)
+            outer.append(int(s.outer_iters))
+            lin.append(int(s.linear_iters_total))
+        return s
+
+    return _at_level(pallas, run), outer, lin
+
+
+def _full_width_operators(mesh, state, params, config, amg, decomp=None):
+    """The operators the options put on the sharded path, applied once to
+    the same random planes (made from a seed on the whole grid; a rank
+    takes its rows) of the start state's assembled system: the Schur
+    preconditioner with the ADI predict, and the V-cycle under CFD2_PALLAS
+    unset and 1.  Host arrays of this process's rows: the ranks' must be
+    one process's bits (no sum is involved)."""
+    import torch
+    from cfd2_tpu_torch.models.assembly import assemble_stencil, prepare
+    from cfd2_tpu_torch.ops import stencil_system as st
+    ss = assemble_stencil(mesh, prepare(mesh, state, params, config), params,
+                          config)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    ny = mesh.grid_shape[0] * (1 if decomp is None else decomp.world)
+    x = torch.randn((3, ny, mesh.grid_shape[1]), generator=g)
+    if decomp is not None:
+        x = decomp.own_rows(x, dim=1)
+    x = x.to(mesh.device).contiguous()
+    out = {}
+    for label, pallas, adi in (("ADI preconditioner", None, 1),
+                               ("V-cycle", None, 0),
+                               ("V-cycle, CFD2_PALLAS=1", "1", 0)):
+        def apply():
+            ps = st.make_pressure_solve2(amg, ss)
+            if not adi:
+                return ps(x[2])
+            return st.schur_precond_planar(
+                ss, x, config.precond_omega,
+                config.pressure_sweeps(mesh.total_cells), pressure_solve=ps,
+                mom_adi=adi)
+        out[label] = _at_level(pallas, apply).cpu().numpy()
+    return out
+
+
+def _at_level(pallas, fn):
+    """``fn()`` with CFD2_PALLAS set to ``pallas`` (None: as it is),
+    restored after."""
+    import os
+    old = os.environ.get("CFD2_PALLAS")
+    if pallas is not None:
+        os.environ["CFD2_PALLAS"] = pallas
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("CFD2_PALLAS", None)
+        else:
+            os.environ["CFD2_PALLAS"] = old
+
+
+def _timed_option(mesh, state, params, config, amg, opts, steps, pallas):
+    """:func:`_option_steps` under :func:`_timed`'s zeroed counts, as host
+    data: u, outers and FGMRES iterations per step, wall, both RB-GS
+    kernels' launches, the exchange and collective counts."""
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    (s, outer, lin), wall, leg, _, counts, _ = _timed(
+        lambda: _option_steps(mesh, state, params, config, amg, opts, steps,
+                              pallas))
+    return dict(u=s.u.cpu().numpy(), outer=outer, lin=lin, wall=wall,
+                leg=leg, half=sk.LAUNCHES["rbgs_half_sweep"], counts=counts)
+
+
 def _p12_rank(rank, world, device, path):
     """12(a, c, d) on one rank: the padded 1M mesh's rows of this rank, one
     step and two adaptive steps, the distributed checkpoint of the stepped
@@ -2246,6 +2375,15 @@ def _p12_rank(rank, world, device, path):
                          max_vel=m2["max_vel"].cpu().numpy(),
                          outer=m2["outer_iters"].cpu().numpy(),
                          wall=wall, leg=leg, counts=counts, reads=reads)
+
+    # 12(f): every option from the same start, in this group (the mesh is
+    # loaded once).
+    out["options"] = {
+        label: _timed_option(mesh, state, params_r, config, amg_r, opts,
+                             steps, pallas)
+        for label, opts, steps, pallas in SHARD_OPTION_RUNS}
+    out["operators"] = _full_width_operators(mesh, state, params_r, config,
+                                             amg_r, decomp)
 
     t = time.perf_counter()
     save_checkpoint_dcp(path / "ck", s1, params_r, decomp)
@@ -2303,7 +2441,9 @@ def _p12_banded_rank(rank, world, device, path):
 
 
 def _p12_small_rank(rank, world, device, host_mesh, u0):
-    """12(e) on one rank: one step of the 4,636-cell mesh, row-sharded."""
+    """12(e) and (g) on one rank: one step of the 4,636-cell mesh,
+    row-sharded, and every option of (f) and one ``simple_step`` from the
+    same start (outers and FGMRES iterations per step of each)."""
     from cfd2_tpu_torch.models.coupled import step
     from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh
     from cfd2_tpu_torch.parallel import spatial as sp
@@ -2314,13 +2454,21 @@ def _p12_small_rank(rank, world, device, host_mesh, u0):
     amg = build_hierarchy_for_mesh(dm)
     ny, nx = dm.grid_shape
     decomp = sp.RowDecomposition(ny, nx, transport="gloo", device=device)
-    out = step(sp.shard_mesh(dm, decomp),
-               sp.shard_state(dm, initial_state(dm, u0=u0), decomp),
-               SolverParams.default(dt=0.001, device=device),
-               SolverConfig(precond_type=1),
-               sp.shard_cellwise(amg, dm.num_cells, decomp))
+    mesh = sp.shard_mesh(dm, decomp)
+    state = sp.shard_state(dm, initial_state(dm, u0=u0), decomp)
+    params = SolverParams.default(dt=0.001, device=device)
+    config = SolverConfig(precond_type=1)
+    amg = sp.shard_cellwise(amg, dm.num_cells, decomp)
+    out = step(mesh, state, params, config, amg)
+    options = {}
+    for label, opts, steps, pallas in SHARD_OPTION_RUNS + (
+            ("simple_step", {}, 1, None),):
+        _, outer, lin = _option_steps(mesh, state, params, config, amg, opts,
+                                      steps, pallas,
+                                      simple=label == "simple_step")
+        options[label] = (outer, lin)
     return dict(u=out.u.cpu().numpy(), outer=int(out.outer_iters),
-                lin=int(out.linear_iters_total))
+                lin=int(out.linear_iters_total), options=options)
 
 
 def _p12_gloo_probe(rank, world, device, op):
@@ -2483,6 +2631,22 @@ def phase_sharded_main(results, ctx, path):
     refs = [step(dm, state0, replace(params, viscosity=torch.tensor(
         nu, dtype=torch.float32, device=dm.device)), config, amg)
         for nu in SHARD_VISCOSITIES]
+    t0 = time.time()
+    opt_refs = {label: _timed_option(dm, state0, params, config, amg, opts,
+                                     steps, pallas)
+                for label, opts, steps, pallas in SHARD_OPTION_RUNS}
+    log(f"phase 12f: one process, every option in {time.time() - t0:.1f} s: "
+        + "; ".join(f"{k}: outers {r['outer']}, FGMRES iterations "
+                    f"{r['lin']}, wall {r['wall']:.3f} s"
+                    for k, r in opt_refs.items()))
+    # The control: each option in one process with a one-rank
+    # decomposition, which changes nothing but how the norms are summed.
+    ctl = [sp.shard_mesh(dm, one_rank), sp.shard_state(dm, state0, one_rank),
+           sp.shard_cellwise(params, dm.num_cells, one_rank), config,
+           sp.shard_cellwise(amg, dm.num_cells, one_rank)]
+    controls = {label: _timed_option(*ctl, opts, steps, pallas)
+                for label, opts, steps, pallas in SHARD_OPTION_RUNS}
+    ops_ref = _full_width_operators(dm, state0, params, config, amg)
     log(f"phase 12a: one process: step outers {int(one.outer_iters)}, "
         f"FGMRES iterations {int(one.linear_iters_total)}, wall "
         f"{wall1:.3f} s, rbgs_leg {leg1}; " + "; ".join(
@@ -2587,6 +2751,102 @@ def phase_sharded_main(results, ctx, path):
         f".npz and u to the ranks' rows")
     shutil.rmtree(path / "ck", ignore_errors=True)
 
+    _check_sharded_options(results, res, opt_refs, controls, ops_ref,
+                           config)
+
+
+def _check_sharded_options(results, res, refs, controls, ops_ref, config):
+    """12(f): the operators the options add, bit-equal to one process on
+    the ranks' rows; each option's run on every rank against one process,
+    beside the one-rank control's distance from it.  A run that takes one
+    process's outers and FGMRES iterations (the same solves, the sums in
+    another order) is held to u within 1e-4 * max|u|; a run whose outer
+    loop or a solve ended on another iteration (an exit that roundoff
+    decides) is a different converged answer, held to the port's bound for
+    two runs whose solves take different paths to the same tolerance
+    (tests/torch_parity.py BF16: outers within 1 per step, FGMRES
+    iterations within 2 per outer, u within 5e-3 * max|u|).  Every option
+    is checked and logged before the failures are raised."""
+    from dataclasses import replace
+    legs = halves = 0
+    failures = []
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    for name, ref in ops_ref.items():
+        got = np.concatenate([r["operators"][name] for r in res],
+                             axis=ref.ndim - 2)
+        same = np.array_equal(got, ref)
+        log(f"phase 12f: {name} at full width on the ranks' rows: bit-equal "
+            f"to one process {same} (max|d| "
+            f"{float(np.abs(got - ref).max()):.3e})")
+        check(same, f"{name}: the ranks' rows differ from one process")
+
+    for label, opts, _, pallas in SHARD_OPTION_RUNS:
+        ref = refs[label]
+        u = np.concatenate([r["options"][label]["u"] for r in res])
+        scale = float(np.abs(ref["u"]).max())
+        err = float(np.abs(u - ref["u"]).max())
+        ctl = controls[label]
+        ctl_err = float(np.abs(ctl["u"] - ref["u"]).max())
+        log(f"phase 12f: {label}: the one-rank control: outers "
+            f"{ctl['outer']}, FGMRES iterations {ctl['lin']}, max|du| "
+            f"{ctl_err:.3e} from one process")
+        multigrid = replace(config, **opts).precond_type == 1
+        for k, r in enumerate(res):
+            rr = r["options"][label]
+            _rank_line(f"f, {label}", k, sum(rr["lin"]), rr["counts"],
+                       rr["wall"], rr["leg"] if multigrid and not pallas
+                       else None)
+            check(rr["outer"] == res[0]["options"][label]["outer"],
+                  f"{label}: rank {k} outers {rr['outer']}, rank 0 "
+                  f"{res[0]['options'][label]['outer']}")
+            if multigrid and pallas is None:
+                check(rr["leg"] > 0, f"{label}: rbgs_leg never launched on "
+                      f"rank {k}")
+            if pallas == "1":
+                # Launches per FGMRES iteration as in one process.
+                check(rr["half"] > 0 and rr["half"] * sum(ref["lin"])
+                      == ref["half"] * sum(rr["lin"]),
+                      f"{label}: rank {k} rbgs_half_sweep {rr['half']} over "
+                      f"{sum(rr['lin'])} iterations, one process "
+                      f"{ref['half']} over {sum(ref['lin'])}")
+                log(f"phase 12f, {label}: rank {k}: rbgs_half_sweep "
+                    f"{rr['half']} ({rr['half'] / max(sum(rr['lin']), 1):.2f}"
+                    f" per iteration; one process {ref['half']}, "
+                    f"{ref['half'] / max(sum(ref['lin']), 1):.2f})")
+            legs += rr["leg"]
+            halves += rr["half"]
+        lins = [r["options"][label]["lin"] for r in res]
+        outer = res[0]["options"][label]["outer"]
+        wall = max(r["options"][label]["wall"] for r in res)
+        same = outer == ref["outer"] and lins[0] == ref["lin"]
+        log(f"phase 12f: {label}: outers {outer} on every rank, "
+            f"{ref['outer']} in one process; FGMRES iterations {lins[0]} "
+            f"(one process {ref['lin']}); wall {wall:.3f} s (one process "
+            f"{ref['wall']:.3f} s); max|du| {err:.3e} (max|u| {scale:.4f}, "
+            f"{err / scale:.2e} of it; bound "
+            f"{'1e-4: the same solves' if same else '5e-3: solves end apart'})")
+        check(len({tuple(v) for v in lins}) == 1,
+              f"{label}: the ranks took different FGMRES counts {lins}")
+        if not same:
+            check(len(outer) == len(ref["outer"]) and all(
+                abs(a - b) <= 1 for a, b in zip(outer, ref["outer"]))
+                and all(abs(a - b) <= 2 * o for a, b, o in
+                        zip(lins[0], ref["lin"], ref["outer"])),
+                f"{label}: outers {outer} / {ref['outer']}, FGMRES "
+                f"iterations {lins[0]} / {ref['lin']} apart")
+        check(np.isfinite(u).all()
+              and err <= (1e-4 if same else 5e-3) * scale,
+              f"{label}: sharded u differs by {err:.3e}")
+    _path_launches(results, "row-sharded options at full width, 4 ranks "
+                   "(phase 12f)",
+                   {"rbgs_leg": legs, "rbgs_half_sweep": halves})
+    if failures:
+        raise PhaseError("; ".join(failures))
+
 
 def phase_sharded_banded(results, ctx, path):
     """12(b)."""
@@ -2675,6 +2935,24 @@ def phase_sharded_small():
         f"{err:.3e}")
     check(len(set(outers["cuda"] + outers["cpu"])) == 1,
           "card and CPU ranks took different outer counts")
+    # 12(g): every option, card ranks against CPU ranks: equal counts on
+    # every rank of a device, outers across the devices within phase 9's
+    # slack (Anderson's later outers extrapolate rtol-sized differences).
+    opts_of = {label: opts for label, opts, _, _ in SHARD_OPTION_RUNS}
+    for label in runs["cuda"][0]["options"]:
+        got = {dev: [r["options"][label] for r in rs]
+               for dev, rs in runs.items()}
+        log(f"phase 12g: {label}: outers card {got['cuda'][0][0]}, CPU "
+            f"{got['cpu'][0][0]}; FGMRES or Krylov iterations card "
+            f"{got['cuda'][0][1]}, CPU {got['cpu'][0][1]}")
+        for dev, rs in got.items():
+            check(all(r == rs[0] for r in rs), f"{label}: the {dev} ranks "
+                  f"took different counts {rs}")
+        card, cpu = got["cuda"][0][0], got["cpu"][0][0]
+        slack = _outer_slack(opts_of.get(label, {}))
+        check(len(card) == len(cpu) and all(
+            abs(a - b) <= slack for a, b in zip(card, cpu)),
+              f"{label}: card and CPU ranks took outers {card} / {cpu}")
 
 
 def phase_sharded(results, ctx):
@@ -2682,17 +2960,24 @@ def phase_sharded(results, ctx):
     path = SHARD_DIR
     shutil.rmtree(path, ignore_errors=True)
     path.mkdir(parents=True)
+    failed = []
     try:
-        for part, fn in (("a, c, d", lambda: phase_sharded_main(results, ctx,
-                                                                path)),
+        for part, fn in (("a, c, d, f",
+                          lambda: phase_sharded_main(results, ctx, path)),
                          ("b", lambda: phase_sharded_banded(results, ctx,
                                                             path)),
-                         ("e", phase_sharded_small)):
+                         ("e, g", phase_sharded_small)):
             t0 = time.time()
-            fn()
+            try:
+                fn()
+            except PhaseError as e:     # the other parts still run
+                log(f"phase 12{part} FAILED: {e}")
+                failed.append(f"12{part}: {e}")
             log(f"# phase 12{part} done in {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(path, ignore_errors=True)
+    if failed:
+        raise PhaseError(" | ".join(failed))
 
 
 def main(argv=None) -> int:

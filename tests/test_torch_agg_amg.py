@@ -93,7 +93,7 @@ def test_build_hierarchy_passes(setup, passes):
     jm, tm = setup[0], setup[1]
     args = [jm.amg_host[k] for k in ("ck_neighbor", "ck_mask", "c_valid")]
     jh = jamg.build_hierarchy(*args, agg_passes=passes)
-    th = tamg.build_hierarchy(*args, agg_passes=passes)
+    th = tamg.build_hierarchy(*args, agg_passes=passes, device="cpu")
     assert [l.n for l in th.levels] == [l.n for l in jh.levels]
     for jl, tl in zip(jh.levels, th.levels):
         np.testing.assert_array_equal(tl.agg.numpy()[:, 0],

@@ -215,7 +215,7 @@ def test_cases_over_ranks_equal_single_steps_and_jax():
         u0 = np.zeros((mesh.num_cells, 2))
         u0[mesh.cell_cx < 0.25, 0] = 1.0 + 0.25 * k
         u0s.append(u0)
-    res = run_ranks(ranks.batch_cases, RANK_WORLD, timeout=180,
+    res = run_ranks(ranks.batch_cases, RANK_WORLD, device="cpu", timeout=180,
                     args=(mesh, u0s, RANK_VISCS))
     for r in res:
         assert r["batched"]["local"] == RANK_CASES // RANK_WORLD

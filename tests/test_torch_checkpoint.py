@@ -114,7 +114,7 @@ def dcp_written(tmp_path_factory, warm):
     state, params = tck.load_checkpoint(d / "jax.npz", device="cpu")
     grid = tuple(warm.mesh.grid_shape)
     assert grid[0] % 4 == 0
-    rows = run_ranks(ranks.dcp_save, 4, timeout=120,
+    rows = run_ranks(ranks.dcp_save, 4, device="cpu", timeout=120,
                      args=(d / "jax.npz", grid, d / "ck4"))
     assert rows == [grid[0] * grid[1] // 4] * 4
     return d, state, params, grid
@@ -142,7 +142,8 @@ def test_dcp_from_four_ranks_loads_into_two(dcp_written, warm):
     import torch_spatial_ranks as ranks
     from cfd2_tpu_torch.parallel.launch import run_ranks
     d, state, params, grid = dcp_written
-    res = run_ranks(ranks.dcp_load, 2, timeout=120, args=(grid, d / "ck4"))
+    res = run_ranks(ranks.dcp_load, 2, device="cpu", timeout=120,
+                    args=(grid, d / "ck4"))
     for f in STATE_FIELDS:
         ref = np.asarray(getattr(warm.state, f))
         if ref.ndim >= 1 and ref.shape[0] == grid[0] * grid[1]:

@@ -496,3 +496,44 @@ def test_row_sharded_step_on_the_card_equals_one_process(cuda):
     assert all(r["rbgs_leg"] > 0 for r in rs)
     u = np.concatenate([r["u"] for r in rs])
     assert np.abs(u - one.u.cpu().numpy()).max() < 1e-5
+
+
+@pytest.mark.parametrize("name,run", [
+    ("CFD2_PALLAS=1", dict(config=dict(precond_type=1), pallas="1")),
+    ("precond_mom_adi=1", dict(config=dict(precond_type=1,
+                                           precond_mom_adi=1))),
+])
+def test_row_sharded_option_on_the_card_equals_one_process(cuda, name, run):
+    """Two gloo ranks sharing the card step the 4,636-cell mesh row-sharded
+    under the half-sweep V-cycle (``rbgs_half_sweep`` on both ranks, at one
+    process's launches per FGMRES iteration) and with the ADI predict (its
+    column solves on blocks of 20 rows plus 15 ghost rows, ``rbgs_leg`` on
+    both ranks): equal outer counts on both ranks and against one process
+    on the card, u within 1e-5."""
+    import torch_spatial_ranks as ranks
+    from cfd2_tpu_torch.mesh import ChannelWithObstacle, \
+        generate_cut_cell_mesh
+    from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    from cfd2_tpu_torch.runtime.device_mesh import encode_mesh
+    from cfd2_tpu_torch.runtime.state import SolverParams, initial_state
+    geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
+    mesh = generate_cut_cell_mesh(geo, 0.025, 0.025, 1.2, (3.0, 1.0))
+    u0 = np.zeros((mesh.num_cells, 2))
+    u0[mesh.cell_cx < 0.025, 0] = 1.0
+    dm = encode_mesh(mesh, device=cuda, pad_rows_to=2)
+    one = ranks.option_run(dm, initial_state(dm, u0=u0),
+                           SolverParams.default(dt=0.001, device=cuda),
+                           build_hierarchy_for_mesh(dm), **run)
+    res = run_ranks(ranks.option_runs_over, 2, device="cuda", timeout=300,
+                    args=((2,), mesh, 2, u0, 0.001, {name: run}))
+    rs = [r[2][name] for r in res]
+    assert rs[0]["outer"] == rs[1]["outer"] == one["outer"]
+    assert rs[0]["lin"] == rs[1]["lin"]
+    kernel = "rbgs_half_sweep" if run.get("pallas") else "rbgs_leg"
+    for r in rs:
+        assert r["launches"][kernel] > 0
+        assert r["launches"][kernel] * sum(one["lin"]) \
+            == one["launches"][kernel] * sum(r["lin"])
+    u = np.concatenate([r["u"] for r in rs])
+    assert np.abs(u - one["u"]).max() < 1e-5

@@ -96,7 +96,7 @@ def one_step():
                   ts.SolverConfig())
     thost = t_step_host(tm, ts.initial_state(tm, u0=u0), tparams,
                         ts.SolverConfig())
-    res = run_ranks(ranks.sharded_steps_over, 8, timeout=240,
+    res = run_ranks(ranks.sharded_steps_over, 8, device="cpu", timeout=240,
                     args=(WORLDS, (2,), mesh, 8, u0, 0.01, {}))
     return dict(jax=jout, port=tout, port_host=thost, ranks=res)
 
@@ -134,7 +134,10 @@ def test_sharded_host_mode_step_matches_one_process(one_step):
 @pytest.fixture(scope="module")
 def operators():
     """The 4,636-cell mesh's system from the inlet start applied to random
-    rhs and x, in one process and over 2 and 4 ranks (one spawn)."""
+    rhs and x, in one process and over 2, 4 and 8 ranks (one spawn): the
+    V-cycle at smoother levels 2, 1 and 0, the ADI momentum predict (blocks
+    of 20 rows take its 15 ghost rows by one exchange, of 10 and 5 by an
+    all-gather) and the preconditioner with it."""
     from cfd2_tpu_torch.models.assembly import assemble_stencil
     from cfd2_tpu_torch.models.assembly import prepare as t_prepare
     from cfd2_tpu_torch.ops import stencil_system as st
@@ -157,19 +160,29 @@ def operators():
                spmv=st.spmv_planar(ss, xt).numpy(),
                precond=st.schur_precond_planar(ss, xt, 1.2, 10,
                                                pressure_solve=ps,
-                                               mom_sweeps=8).numpy())
-    res = run_ranks(ranks.operators_over, 4, timeout=180,
-                    args=((2, 4), mesh, 4, u0, rhs, x))
+                                               mom_sweeps=8).numpy(),
+               adi=torch.stack(st._momentum_solve_adi(ss, xt[0], xt[1])
+                               ).numpy(),
+               precond_adi=st.schur_precond_planar(
+                   ss, xt, 1.2, 10, pressure_solve=ps, mom_adi=1).numpy())
+    for level in ("1", "0"):
+        ref["vcycle" + level] = ranks.at_smoother_level(
+            level, lambda: ps(torch.as_tensor(rhs))).numpy()
+    res = run_ranks(ranks.operators_over, 8, device="cpu", timeout=180,
+                    collective_timeout=180,
+                    args=((2, 4, 8), mesh, 4, u0, rhs, x))
     return ref, res
 
 
-@pytest.mark.parametrize("world,split", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("world,split", [(2, 2), (4, 1), (8, 0)])
 def test_sharded_operators_are_bit_equal(operators, world, split):
     """The sharded V-cycle (its legs on blocks with ghost rows, the gathered
-    levels whole), SpMV and Schur preconditioner give one process's bits on
-    every row: the sharded step differs only in its sums."""
+    levels whole) under CFD2_PALLAS unset, 1 and 0, SpMV, ADI predict and
+    Schur preconditioner (Jacobi and ADI predicts) give one process's bits
+    on every row: the sharded step differs only in its sums."""
     ref, res = operators
-    for name in ("vcycle", "spmv", "precond"):
+    for name in ("vcycle", "vcycle1", "vcycle0", "spmv", "precond", "adi",
+                 "precond_adi"):
         got = np.concatenate([r[world][name] for r in res[:world]],
                              axis=ref[name].ndim - 2)
         np.testing.assert_array_equal(got, ref[name], err_msg=name)
@@ -200,7 +213,8 @@ def adaptive():
         js.SolverParams.default(dt=0.001), config,
         amg=jsp.shard_cellwise(amg, dm.num_cells, jm), num_steps=2,
         target_cfl=0.5, min_cell_size=h)
-    res = run_ranks(ranks.sharded_adaptive_over, 8, timeout=240,
+    res = run_ranks(ranks.sharded_adaptive_over, 8, device="cpu",
+                    timeout=240,
                     args=(WORLDS, mesh, 8, u0, 0.001,
                           dict(precond_type=1), 2, h))
     return dict(u=np.asarray(st8.u), dt=np.asarray(m8["dt"]),
@@ -254,7 +268,7 @@ def test_banded_spmv_sharded_matches_jax():
     dinv = torch.stack([tes.diag_u_inv, tes.diag_u_inv, tes.diag_p_inv])
     one = fgmres_solve(lambda v: tel.spmv(tes, tm, v), lambda r: r * dinv,
                        torch.as_tensor(b), torch.zeros(3, tm.num_cells), **kw)
-    res = run_ranks(ranks.banded_spmv, 8, timeout=240,
+    res = run_ranks(ranks.banded_spmv, 8, device="cpu", timeout=240,
                     args=(tm, tes, x, b, halo, kw))
     y = np.concatenate([r["y"] for r in res], axis=1)
     scale = max(np.abs(y_jax).max(), 1.0)
@@ -273,7 +287,7 @@ def test_banded_spmv_sharded_matches_jax():
 
 def test_halo_rows_are_the_neighbouring_rows():
     grid = np.arange(24 * 5, dtype=np.float32).reshape(24, 5)
-    res = run_ranks(ranks.halo_rows, 4, timeout=120,
+    res = run_ranks(ranks.halo_rows, 4, device="cpu", timeout=120,
                     args=(grid, (1, 2, 3, 4)))
     for r in res:
         r0, r1 = r["rows"]
@@ -294,12 +308,12 @@ def test_halo_rows_are_the_neighbouring_rows():
 def test_a_failed_rank_fails_the_run():
     t0 = time.time()
     with pytest.raises(RuntimeError, match="fails on purpose"):
-        run_ranks(ranks.fail_on, 2, timeout=120, args=(1,))
+        run_ranks(ranks.fail_on, 2, device="cpu", timeout=120, args=(1,))
     assert time.time() - t0 < 60
 
 
 def test_a_hung_rank_fails_the_run_within_its_limit():
     t0 = time.time()
     with pytest.raises(RuntimeError, match="still running"):
-        run_ranks(ranks.hang, 2, timeout=15, args=(600,))
+        run_ranks(ranks.hang, 2, device="cpu", timeout=15, args=(600,))
     assert time.time() - t0 < 40

@@ -1,0 +1,134 @@
+"""Set-up shared by the sharded option tests (tests/test_torch_spatial_bf16.py,
+test_torch_spatial_krylov.py, test_torch_spatial_precond.py): the 0.05
+channel of tests/test_structured.py:118-139 encoded with ``pad_rows_to=8``
+(a 24 x 60 grid: blocks of 12, 6 and 3 rows over 2, 4 and 8 ranks), the
+inlet-column start, dt 0.01, and each option run three ways from it:
+
+* the JAX package's step on ``shard_mesh`` / ``shard_state`` over the
+  suite's 8 virtual CPU devices (tests/conftest.py), the structured
+  hierarchy placed by ``shard_cellwise``;
+* the port's step in one process;
+* the port's step row-sharded over the first 2, 4 and 8 of 8 gloo ranks on
+  the CPU, all in one spawned group (tests/torch_spatial_ranks.py).
+
+A run is ``tests/torch_spatial_ranks.option_run``'s keywords: ``config``
+(SolverConfig overrides), ``steps``, ``pallas`` (CFD2_PALLAS for the port's
+run; the JAX package on the CPU runs its plain stencils, level 0, the
+reference of every level) and ``simple`` (``simple_step``).
+"""
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
+
+import jax
+import numpy as np
+from jax.sharding import Mesh as JMesh
+
+import torch_spatial_ranks as ranks
+from cfd2_tpu.mesh import ChannelWithObstacle, generate_cut_cell_mesh
+from cfd2_tpu.models import coupled as jc
+from cfd2_tpu.models.pressure_poisson import simple_step as j_simple
+from cfd2_tpu.ops import amg as jamg
+from cfd2_tpu.parallel import spatial as jsp
+from cfd2_tpu.runtime import state as js
+from cfd2_tpu.runtime.device_mesh import encode_mesh as jencode
+from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh
+from cfd2_tpu_torch.parallel.launch import run_ranks
+from cfd2_tpu_torch.runtime import state as ts
+from cfd2_tpu_torch.runtime.device_mesh import encode_mesh as tencode
+
+WORLDS = (2, 4, 8)
+DT = 0.01
+PAD = 8
+
+
+def channel():
+    """The mesh and the inlet-column start of test_structured.py:118-139."""
+    geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
+    mesh = generate_cut_cell_mesh(geo, 0.05, 0.05, 1.2, (3.0, 1.0))
+    u0 = np.zeros((mesh.num_cells, 2))
+    u0[mesh.cell_cx < 0.05, 0] = 1.0
+    return mesh, u0
+
+
+def jax_runs(mesh, u0, runs: dict) -> dict:
+    """Each run on the JAX package's sharded step: u and outers and FGMRES
+    iterations per step (fgmres_recycle >= 2 carries the basis through
+    ``step(..., krylov=)``)."""
+    dm = jencode(mesh, pad_rows_to=PAD)
+    jm = JMesh(np.array(jax.devices("cpu")[:8]), axis_names=("y",))
+    smesh = jsp.shard_mesh(dm, jm)
+    state0 = jsp.shard_state(dm, js.initial_state(dm, u0=u0), jm)
+    params = js.SolverParams.default(dt=DT)
+    amg = jsp.shard_cellwise(jamg.build_hierarchy_for_mesh(dm, agg_passes=1),
+                             dm.num_cells, jm)
+    out = {}
+    for name, run in runs.items():
+        cfg = replace(js.SolverConfig(), **run["config"])
+        a = amg if cfg.precond_type == js.PRECOND_AMG else None
+        kry = (jc._basis_init(dm, state0, cfg, a) if cfg.fgmres_recycle >= 2
+               else None)
+        s, outer, lin = state0, [], []
+        for _ in range(run.get("steps", 1)):
+            if run.get("simple"):
+                s = jax.jit(j_simple, static_argnums=(3,))(smesh, s, params,
+                                                           cfg)
+            elif kry is not None:
+                s, kry = jc.step(smesh, s, params, cfg, a, kry)
+            else:
+                s = jc.step(smesh, s, params, cfg, a)
+            outer.append(int(s.outer_iters))
+            lin.append(int(s.linear_iters_total))
+        out[name] = dict(u=np.asarray(s.u), outer=outer, lin=lin)
+    return out
+
+
+def port_runs(mesh, u0, runs: dict) -> dict:
+    """Each run on the port's step in one process."""
+    dm = tencode(mesh, device="cpu", pad_rows_to=PAD)
+    amg = build_hierarchy_for_mesh(dm)
+    params = ts.SolverParams.default(dt=DT, device="cpu")
+    return {name: ranks.option_run(dm, ts.initial_state(dm, u0=u0), params,
+                                   amg, **run)
+            for name, run in runs.items()}
+
+
+def rank_runs(mesh, u0, runs: dict, timeout: float = 600) -> list:
+    """Each run row-sharded over 2, 4 and 8 ranks, one spawn: per rank,
+    {world: {name: result, "split": level}}.  The ranks beyond the first 2
+    and 4 wait in their first exchange of the 8-rank runs until the smaller
+    groups are done, so a collective may wait as long as the whole run."""
+    return run_ranks(ranks.option_runs_over, max(WORLDS), device="cpu",
+                     timeout=timeout, collective_timeout=timeout,
+                     args=(WORLDS, mesh, PAD, u0, DT, runs))
+
+
+def all_runs(runs: dict, timeout: float = 600) -> dict:
+    """The three ways of every run: ``jax``, ``one`` (the port in one
+    process) and ``ranks``.  The ranks run in their spawned processes while
+    this one compiles the JAX steps."""
+    mesh, u0 = channel()
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(rank_runs, mesh, u0, runs, timeout)
+        out = dict(jax=jax_runs(mesh, u0, runs), one=port_runs(mesh, u0, runs))
+        out["ranks"] = spawned.result()
+    return out
+
+
+def sharded(res: list, world: int, name: str) -> dict:
+    """One run over ``world`` ranks: the whole u, and the counts, which
+    every rank must report alike (a rank that took another branch would
+    have deadlocked the next collective)."""
+    rs = [r[world][name] for r in res[:world]]
+    for key in ("outer", "lin"):
+        for r in rs[1:]:
+            assert r[key] == rs[0][key], (name, world, key)
+    return dict(u=np.concatenate([r["u"] for r in rs]),
+                outer=rs[0]["outer"], lin=rs[0]["lin"],
+                launches=[r["launches"] for r in rs],
+                counts=[r["counts"] for r in rs])
+
+
+def cases(runs: dict) -> list:
+    """(world, name) pairs of every run at every world size."""
+    return [(w, n) for n in runs for w in WORLDS]

@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-rank tests (tests/test_torch_spatial.py,
-test_torch_batch.py, test_torch_checkpoint.py, test_torch_cuda.py).
+test_torch_spatial_*.py, test_torch_batch.py, test_torch_checkpoint.py,
+test_torch_cuda.py).
 
 The ranks are spawned processes that import the function's module by name,
 so this module imports neither JAX nor tests/conftest.py (which imports
@@ -12,6 +13,7 @@ sub-group), so that a test pays for one spawn, not one per world size.
 
 from __future__ import annotations
 
+import os
 from dataclasses import fields, replace
 
 import numpy as np
@@ -259,12 +261,91 @@ def operators_over(rank, world, device, worlds, host_mesh, pad_rows_to, u0,
         ps = st.make_pressure_solve2(amg, ss)
         own = lambda a: decomp.own_rows(torch.as_tensor(a, device=device),
                                         dim=a.ndim - 2).contiguous()
-        return dict(
+        xo = own(x)
+        out = dict(
             vcycle=ps(own(rhs)).cpu().numpy(),
-            spmv=st.spmv_planar(ss, own(x)).cpu().numpy(),
+            spmv=st.spmv_planar(ss, xo).cpu().numpy(),
             precond=st.schur_precond_planar(
-                ss, own(x), 1.2, 10, pressure_solve=ps,
+                ss, xo, 1.2, 10, pressure_solve=ps,
                 mom_sweeps=8).cpu().numpy(),
+            adi=torch.stack(st._momentum_solve_adi(ss, xo[0], xo[1])
+                            ).cpu().numpy(),
+            precond_adi=st.schur_precond_planar(
+                ss, xo, 1.2, 10, pressure_solve=ps,
+                mom_adi=1).cpu().numpy(),
             split=split_level(amg, decomp))
+        for level in ("1", "0"):
+            out["vcycle" + level] = at_smoother_level(
+                level, lambda: ps(own(rhs))).cpu().numpy()
+        return out
 
     return _over(rank, world, worlds, run)
+
+
+def at_smoother_level(level: str | None, fn):
+    """``fn()`` with CFD2_PALLAS set to ``level`` (None: as it is), restored
+    after, so that it cannot leak into the next run of the same process."""
+    old = os.environ.get("CFD2_PALLAS")
+    if level is not None:
+        os.environ["CFD2_PALLAS"] = level
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("CFD2_PALLAS", None)
+        else:
+            os.environ["CFD2_PALLAS"] = old
+
+
+def option_run(mesh, state, params, amg, config: dict, steps: int = 1,
+               pallas: str | None = None, simple: bool = False) -> dict:
+    """``steps`` steps of one option from ``state``: ``config`` overrides
+    SolverConfig; fgmres_recycle >= 2 carries the Krylov basis across the
+    steps through ``step(..., krylov=)``; ``pallas`` sets CFD2_PALLAS for
+    the run only (restored after, so it cannot leak into the next run);
+    ``simple`` steps ``simple_step`` instead.  The hierarchy is passed for
+    precond_type=1 only.  Runs in one process (``mesh`` unsharded) and on a
+    rank alike: u (this rank's rows), outers and FGMRES iterations per
+    step, and the launch, exchange and collective counts of the run."""
+    from cfd2_tpu_torch.models.coupled import _basis_init
+    from cfd2_tpu_torch.models.pressure_poisson import simple_step
+    cfg = replace(SolverConfig(), **config)
+    a = amg if cfg.precond_type == 1 else None
+    outer, lin = [], []
+
+    def steps_():
+        kry = (_basis_init(mesh, state, cfg, a) if cfg.fgmres_recycle >= 2
+               else None)
+        s = state
+        for _ in range(steps):
+            if simple:
+                s = simple_step(mesh, s, params, cfg)
+            elif kry is not None:
+                s, kry = step(mesh, s, params, cfg, a, kry)
+            else:
+                s = step(mesh, s, params, cfg, a)
+            outer.append(int(s.outer_iters))
+            lin.append(int(s.linear_iters_total))
+        return s
+
+    sp.reset_counts()
+    sk.reset_launches()
+    s = at_smoother_level(pallas, steps_)
+    return dict(u=s.u.cpu().numpy(), outer=outer, lin=lin,
+                counts=_counts(sum(lin)), launches=dict(sk.LAUNCHES))
+
+
+def option_runs_over(rank, world, device, worlds, host_mesh, pad_rows_to, u0,
+                     dt, runs):
+    """Every run of ``runs`` (name -> :func:`option_run` keywords) on this
+    rank's rows, from one set-up per world size in ``worlds``: {w: {name:
+    result}}, and the V-cycle's split level under ``"split"``."""
+    def group_runs(group):
+        mesh, state, params, _, amg, decomp = setup(
+            host_mesh, device, pad_rows_to, u0, dt, {}, True, group)
+        out = {name: option_run(mesh, state, params, amg, **kw)
+               for name, kw in runs.items()}
+        out["split"] = split_level(amg, decomp)
+        return out
+
+    return _over(rank, world, worlds, group_runs)
