@@ -28,9 +28,10 @@
 // it loads.
 //   gather: 4*(M*K + M*K*C + n_src*C) bytes  (index map, output, operand);
 //   dot:    4*(M*K + n_planes*M*K + n_operands*n_src + n_out*M) bytes;
-//   sweeps: per sweep 4*(n*K idx + n*K off + (2C + 1)*n) bytes; nothing stays
-//           resident between sweeps (design (a) below), so the bound is
-//           (sweeps - 1) times that plus the seed pass 4*(2C + 1)*n.
+//   sweeps: 4*(n*k_cap idx + n*k_cap off + n dinv + C*n r + C*n z), each
+//           input read once and the result written once: at n = 403,584,
+//           K = 3, C = 2 that is 17.76 MB, 5.3 us at 3.35 TB/s (the 7
+//           products of 8 sweeps are 0.7 us of float32 arithmetic).
 // What the design does about it:
 //   * gather runs one thread per (row, slot): the thread loads the slot's
 //     index once and copies the neighbour's C values.  C is compile-time for
@@ -88,19 +89,47 @@
 //     level of a hundred rows ten microseconds, three times its launch.)
 //     Levels of a few thousand rows are bound by launch latency whatever the
 //     body does;
-//   * sweeps: on the TPU the grid runs in order, so phase s can follow phase
-//     s-1 inside one kernel with the iterate in VMEM scratch.  Blocks on a GPU
-//     run in no order, so phase s must not start before phase s-1 is complete
-//     everywhere.  Design (a): the one exported function enqueues the seed
-//     kernel and then sweeps-1 sweep kernels on the caller's stream,
-//     ping-ponging between two scratch buffers that the wrapper allocates;
-//     stream order is the grid-wide barrier.  (A cooperative launch with
-//     grid.sync() is the alternative; it is left for a later change.)
+//   * sweeps replaces _sweeps_kernel (cfd2_tpu/ops/banded_gather.py), which
+//     keeps z, r and dinv in VMEM across all sweeps inside one pallas_call
+//     whose grid runs in order.  Blocks on a GPU run in no order, so sweep
+//     s must not start before sweep s-1 is complete everywhere.  An order of
+//     launches (a seed and sweeps-1 sweep kernels) reads idx, off, dinv and
+//     r again on every sweep; here one cooperative launch
+//     (cudaLaunchCooperativeKernel: every block resident at once) runs all
+//     sweeps, with cooperative_groups' grid barrier between them (about
+//     1.35 us each on an H100; no -rdc needed).  In the resident form each
+//     of at most one block per SM owns a contiguous range of rows (the
+//     banded order keeps most neighbours in it or next to it), stages its
+//     rows' first k_cap slots of idx and off in shared memory in the seed
+//     pass, slot-major so that a warp's reads fall on 32 banks, and holds
+//     dinv and the C values of r in registers (RPT rows per thread,
+//     compile-time): the coefficients cross device memory once.  The
+//     iterate ping-pongs between za and zb (6.5 MB at 403,584 x 2, in the
+//     50 MB L2).  Its gathers are plain loads through L1 (__ldca), which
+//     keeps the neighbours a block shares within a sweep: through L2 alone
+//     (__ldcg) every gather moves a 32-byte sector and the launch took 2.7x
+//     as long at 403,584 x 3.  They never take the read-only path (__ldg,
+//     ld.global.nc), which is not coherent with stores made in the same
+//     launch; plain loads are, after the barrier's acquire.  Where a
+//     block's rows do not fit shared memory or RPT registers, the streamed
+//     form of the same launch reads idx, off, dinv and r again per sweep
+//     (from L2 where they fit).  The wrapper plans the form, grid and
+//     shared memory (banded_kernels.sweeps_plan) from the card's limits,
+//     which banded_sweeps_limits reports once per device and C.  A grid the
+//     card cannot hold at once is refused (cudaErrorCooperativeLaunchTooLarge)
+//     and returned, never retried as a plain launch.  Each product and sum
+//     of A_off z is rounded on its own (__fmul_rn, __fadd_rn) in ascending
+//     slots from zero, as banded_dot's products of one slot are summed, so
+//     the launch equals the per-sweep loop of banded_dot calls bit for bit.
+//     What holds it above its bound: the seed pass's reads from device
+//     memory, the 7 barriers, and each sweep's gathers, bound by the
+//     latency of L1 and L2 with one block of 32 warps per SM.
 //
 // All functions have a plain C interface (loaded with ctypes), launch on the
 // caller's stream, allocate nothing, and return cudaGetLastError() after the
 // launch so that the caller can raise on a refused launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -124,8 +153,17 @@ struct DotArgs {
     int n_out;
 };
 
+// One sweeps launch.  za and zb are written inside it, so they are read
+// with plain loads (__ldca), never through the read-only path.
 struct SweepArgs {
     const float* r[MAX_RHS];
+    const float* dinv;
+    const float* off;          // (n, K)
+    const int* idx;            // (n, K)
+    float* za;                 // (C, n): z_s for even s
+    float* zb;                 // (C, n): z_s for odd s
+    int n, K, k_cap, sweeps;
+    int rows;                  // rows per block
 };
 
 // One thread per flat slot s = row * K + k; for C == 1 per four slots
@@ -406,60 +444,142 @@ cudaError_t launch_dot(const DotArgs& a, const int* idx, int M, int K,
     return launch_dot_rows<FORM, 0, ROWS_RT>(a, idx, M, K, n_out, stream);
 }
 
-template <int C>
-__global__ void jacobi_seed_kernel(SweepArgs a, const float* __restrict__ dinv,
-                                   float* __restrict__ z, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float d = dinv[i];
-#pragma unroll
-    for (int c = 0; c < C; ++c) z[(long long)c * n + i] = d * a.r[c][i];
-}
+constexpr int SW_THREADS = 1024;    // threads of a sweeps block
 
+// Row i's A_off z_src for C components over its first k_cap slots; the
+// products and sums rounded one by one, slots in ascending order.
 template <int C>
-__global__ void jacobi_sweep_kernel(SweepArgs a, const float* __restrict__ dinv,
-                                    const float* __restrict__ off,
-                                    const int* __restrict__ idx,
-                                    const float* __restrict__ z_src,
-                                    float* __restrict__ z_dst,
-                                    int n, int K, int k_cap) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float sig[C];
+__device__ __forceinline__ void sweep_row(const SweepArgs& a,
+                                          const float* z_src,
+                                          const int* s_idx,
+                                          const float* s_off, int stride,
+                                          float (&sig)[C]) {
 #pragma unroll
     for (int c = 0; c < C; ++c) sig[c] = 0.0f;
-    const long long row = (long long)i * K;
-    for (int k = 0; k < k_cap; ++k) {
-        const int src = idx[row + k];
-        const float o = off[row + k];
+    for (int k = 0; k < a.k_cap; ++k) {
+        const int src = s_idx[k * stride];
+        const float o = s_off[k * stride];
 #pragma unroll
-        for (int c = 0; c < C; ++c) sig[c] += o * z_src[(long long)c * n + src];
+        for (int c = 0; c < C; ++c)
+            sig[c] = __fadd_rn(sig[c], __fmul_rn(
+                o, __ldca(z_src + (long long)c * a.n + src)));
     }
-    const float d = dinv[i];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-        z_dst[(long long)c * n + i] = d * (a.r[c][i] - sig[c]);
 }
 
-template <int C>
-int launch_sweeps(SweepArgs a, const float* dinv, const float* off,
-                  const int* idx, float* za, float* zb, int n, int K,
-                  int k_cap, int sweeps, cudaStream_t stream) {
-    const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-    jacobi_seed_kernel<C><<<blocks, THREADS, 0, stream>>>(a, dinv, za, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    // z_s lives in za for even s and in zb for odd s.
-    for (int s = 1; s < sweeps; ++s) {
-        const float* src = (s & 1) ? za : zb;
-        float* dst = (s & 1) ? zb : za;
-        jacobi_sweep_kernel<C><<<blocks, THREADS, 0, stream>>>(
-            a, dinv, off, idx, src, dst, n, K, k_cap);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
+// Resident form: one block per SM at most, a.rows <= RPT * SW_THREADS rows
+// each; dynamic shared memory 8 * k_cap * a.rows bytes.
+template <int C, int RPT>
+__global__ void __launch_bounds__(SW_THREADS, 1)
+jacobi_sweeps_resident(SweepArgs a) {
+    extern __shared__ int s_map[];
+    const int RB = a.rows, K = a.K, kc = a.k_cap;
+    int* s_idx = s_map;
+    float* s_off = reinterpret_cast<float*>(s_map + (long long)kc * RB);
+    const int row0 = blockIdx.x * RB;
+    const int rows = max(0, min(RB, a.n - row0));
+    // Seed pass: the block's slots k < k_cap, slot-major, read coalesced
+    // from the (n, K) planes.
+    const long long e0 = (long long)row0 * K;
+    for (int e = threadIdx.x; e < rows * K; e += SW_THREADS) {
+        const int l = e / K, k = e - l * K;
+        if (k < kc) {
+            s_idx[k * RB + l] = __ldg(a.idx + e0 + e);
+            s_off[k * RB + l] = __ldg(a.off + e0 + e);
+        }
     }
-    return (int)cudaSuccess;
+    float d[RPT], rv[RPT][C];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+        const int l = threadIdx.x + j * SW_THREADS;
+        d[j] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) rv[j][c] = 0.0f;
+        if (l < rows) {
+            d[j] = __ldg(a.dinv + row0 + l);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                rv[j][c] = __ldg(a.r[c] + row0 + l);
+                a.za[(long long)c * a.n + row0 + l] = __fmul_rn(d[j],
+                                                                rv[j][c]);
+            }
+        }
+    }
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    for (int s = 1; s < a.sweeps; ++s) {
+        grid.sync();
+        const float* z_src = (s & 1) ? a.za : a.zb;
+        float* z_dst = (s & 1) ? a.zb : a.za;
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+            const int l = threadIdx.x + j * SW_THREADS;
+            if (l < rows) {
+                float sig[C];
+                sweep_row<C>(a, z_src, s_idx + l, s_off + l, RB, sig);
+#pragma unroll
+                for (int c = 0; c < C; ++c)
+                    z_dst[(long long)c * a.n + row0 + l] = __fmul_rn(
+                        d[j], __fsub_rn(rv[j][c], sig[c]));
+            }
+        }
+    }
 }
+
+// Streamed form: the same launch with idx, off, dinv and r read again on
+// every sweep (through L2), for maps whose rows do not fit on chip.
+template <int C>
+__global__ void __launch_bounds__(SW_THREADS, 2)
+jacobi_sweeps_streamed(SweepArgs a) {
+    const int row0 = blockIdx.x * a.rows;
+    const int row1 = min(a.n, row0 + a.rows);
+    for (int i = row0 + threadIdx.x; i < row1; i += SW_THREADS) {
+        const float d = __ldg(a.dinv + i);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+            a.za[(long long)c * a.n + i] = __fmul_rn(d, __ldg(a.r[c] + i));
+    }
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    for (int s = 1; s < a.sweeps; ++s) {
+        grid.sync();
+        const float* z_src = (s & 1) ? a.za : a.zb;
+        float* z_dst = (s & 1) ? a.zb : a.za;
+        for (int i = row0 + threadIdx.x; i < row1; i += SW_THREADS) {
+            float sig[C];
+            const long long row = (long long)i * a.K;
+            sweep_row<C>(a, z_src, a.idx + row, a.off + row, 1, sig);
+            const float d = __ldg(a.dinv + i);
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+                z_dst[(long long)c * a.n + i] = __fmul_rn(
+                    d, __fsub_rn(__ldg(a.r[c] + i), sig[c]));
+        }
+    }
+}
+
+// The kernel of (C, form): form 0 is the streamed form, 1, 2, 4 or 8 the
+// resident form with that many rows per thread; nullptr for any other.
+template <int C>
+const void* sweeps_kernel(int form) {
+    switch (form) {
+        case 0: return (const void*)jacobi_sweeps_streamed<C>;
+        case 1: return (const void*)jacobi_sweeps_resident<C, 1>;
+        case 2: return (const void*)jacobi_sweeps_resident<C, 2>;
+        case 4: return (const void*)jacobi_sweeps_resident<C, 4>;
+        case 8: return (const void*)jacobi_sweeps_resident<C, 8>;
+        default: return nullptr;
+    }
+}
+
+const void* sweeps_kernel_of(int C, int form) {
+    switch (C) {
+        case 1: return sweeps_kernel<1>(form);
+        case 2: return sweeps_kernel<2>(form);
+        case 3: return sweeps_kernel<3>(form);
+        case 4: return sweeps_kernel<4>(form);
+        default: return nullptr;
+    }
+}
+
+constexpr int SW_FORMS[] = {0, 1, 2, 4, 8};
 
 }  // namespace
 
@@ -581,27 +701,81 @@ int banded_dot(const float* const* xs, int n_x, const float* const* offs,
                                       (cudaStream_t)stream);
 }
 
+// What the wrapper plans a sweeps launch with, for C right-hand sides on
+// the current device: out[0] the SM count, out[1] the shared memory a
+// block may opt in to, out[2] the blocks of the resident form an SM holds
+// at that much shared memory (the least over its instantiations), out[3]
+// the blocks of the streamed form an SM holds.  Lets every resident
+// instantiation of C use that much shared memory.  Returns a cudaError_t.
+int banded_sweeps_limits(int C, int* out) {
+    if (C < 1 || C > MAX_RHS) return (int)cudaErrorInvalidValue;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    out[2] = 1 << 30;
+    for (int form : SW_FORMS) {
+        if (err != cudaSuccess) break;
+        const void* kernel = sweeps_kernel_of(C, form);
+        const int smem = form == 0 ? 0 : out[1];
+        int per_sm = 0;
+        if (form != 0)
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, SW_THREADS, smem);
+        if (form == 0) out[3] = per_sm;
+        else out[2] = per_sm < out[2] ? per_sm : out[2];
+    }
+    return (int)err;
+}
+
 // rs: C pointers to (n,) float32 right-hand sides; dinv: (n,) float32;
 // off: (n, K) float32; idx: (n, K) int32; za, zb: (C, n) float32 scratch.
 // Runs z_0 = dinv*r and sweeps-1 iterations z_s = dinv*(r - A_off z_{s-1})
-// that walk only the slots k < k_cap.  The result z_{sweeps-1} is left in za
-// when sweeps is odd and in zb when it is even.  Returns a cudaError_t.
+// that walk only the slots k < k_cap, in one cooperative launch of `blocks`
+// blocks of `rows` rows each: form 0 streamed, form 1, 2, 4 or 8 resident
+// with that many rows per thread and `smem` bytes of shared memory
+// (>= 8 * k_cap * rows).  The result z_{sweeps-1} is left in za when sweeps
+// is odd and in zb when it is even.  Returns a cudaError_t; a grid the card
+// cannot hold at once returns cudaErrorCooperativeLaunchTooLarge.
 int banded_jacobi_sweeps(const float* const* rs, int C, const float* dinv,
                          const float* off, const int* idx, float* za,
                          float* zb, int n, int K, int k_cap, int sweeps,
+                         int form, int blocks, int rows, int smem,
                          void* stream) {
-    if (C < 1 || C > MAX_RHS || sweeps < 1 || k_cap < 0 || k_cap > K)
+    const void* kernel = sweeps_kernel_of(C, form);
+    if (kernel == nullptr || sweeps < 1 || k_cap < 0 || k_cap > K
+        || blocks < 1 || rows < 1 || (long long)blocks * rows < n
+        || (form > 0 && (rows > form * SW_THREADS
+                         || smem < 8LL * k_cap * rows)))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaSuccess;
     SweepArgs a = {};
     for (int c = 0; c < C; ++c) a.r[c] = rs[c];
-    const cudaStream_t st = (cudaStream_t)stream;
-    switch (C) {
-        case 1: return launch_sweeps<1>(a, dinv, off, idx, za, zb, n, K, k_cap, sweeps, st);
-        case 2: return launch_sweeps<2>(a, dinv, off, idx, za, zb, n, K, k_cap, sweeps, st);
-        case 3: return launch_sweeps<3>(a, dinv, off, idx, za, zb, n, K, k_cap, sweeps, st);
-        default: return launch_sweeps<4>(a, dinv, off, idx, za, zb, n, K, k_cap, sweeps, st);
-    }
+    a.dinv = dinv;
+    a.off = off;
+    a.idx = idx;
+    a.za = za;
+    a.zb = zb;
+    a.n = n;
+    a.K = K;
+    a.k_cap = k_cap;
+    a.sweeps = sweeps;
+    a.rows = rows;
+    void* args[] = {&a};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        kernel, dim3(blocks), dim3(SW_THREADS), args,
+        form == 0 ? 0 : smem, (cudaStream_t)stream);
+    // A refused launch leaves its error for the next check in the process
+    // (PyTorch's own after its next kernel): take it back here.
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
 }
 
 // Human-readable text of a cudaError_t returned above.

@@ -49,9 +49,12 @@ SIGNATURES = {
         # idx, M, K, stream
         "banded_dot": ([_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
                        _I),
-        # rs, C, dinv, off, idx, za, zb, n, K, k_cap, sweeps, stream
-        "banded_jacobi_sweeps": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _P], _I),
+        # C, out[4]
+        "banded_sweeps_limits": ([_I, _P], _I),
+        # rs, C, dinv, off, idx, za, zb, n, K, k_cap, sweeps, form, blocks,
+        # rows, smem, stream
+        "banded_jacobi_sweeps": ([_P, _I, _P, _P, _P, _P, _P] + [_I] * 8
+                                 + [_P], _I),
         "banded_error_string": ([_I], ctypes.c_char_p),
     },
 }

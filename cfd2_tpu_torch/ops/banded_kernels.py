@@ -26,14 +26,16 @@ Each wrapper runs its plain version (``*_ref``) for tensors on the CPU, and
 launches its kernel for CUDA tensors; anything else raises.  There is no
 fallback from a CUDA tensor to the plain version.  ``LAUNCHES`` counts the
 kernel calls per kernel; :func:`reset_launches` zeroes it.  One call of
-:func:`banded_jacobi_sweeps` counts once although it enqueues ``sweeps``
-kernels on the stream (see the source note in ``csrc/banded.cu``), and
-:func:`banded_prolong_add` counts under ``banded_gather``, whose work it does.
+:func:`banded_jacobi_sweeps` is one cooperative launch that runs every sweep
+(:func:`sweeps_plan` picks its form and grid; see the source note in
+``csrc/banded.cu``), and :func:`banded_prolong_add` counts under
+``banded_gather``, whose work it does.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -62,6 +64,30 @@ _FORM_OF = {(prods, n_x, n_off): name
             for name, (n_x, n_off, prods) in DOT_FORMS.items()}
 # (prods, n_x, n_off) -> what a call needs that depends only on them.
 _PLANS: dict = {}
+
+# The sweeps kernel's blocks (csrc/banded.cu SW_THREADS), the rows per thread
+# its resident form holds in registers (one instantiation each), and the
+# most shared memory a block of this card family can opt in to.
+SWEEPS_THREADS = 1024
+SWEEPS_ROWS_PER_THREAD = (1, 2, 4, 8)
+SMEM_PER_BLOCK_MAX = 232_448
+# (device index, C) -> the card's limits (banded_sweeps_limits);
+# (device index, n, K, C, k_cap) -> SweepsPlan.
+_SWEEPS_LIMITS: dict = {}
+_SWEEPS_PLANS: dict = {}
+
+
+class SweepsPlan(NamedTuple):
+    """One launch of the sweeps kernel: ``form`` "resident" (each block
+    keeps its rows' coefficients in shared memory and its rows' dinv and r
+    in registers, ``rows_per_thread`` of them) or "streamed" (each sweep
+    reads them again); ``blocks`` of ``rows_per_block`` contiguous rows;
+    ``smem_bytes`` of dynamic shared memory per block."""
+    form: str
+    blocks: int
+    rows_per_block: int
+    smem_bytes: int
+    rows_per_thread: int
 
 
 def reset_launches() -> None:
@@ -304,6 +330,89 @@ def banded_dot(xs, offs, idx: torch.Tensor, prods):
     return (out,) if n_out == 1 else out.unbind(0)
 
 
+def sweeps_plan(n: int, K: int, C: int, k_cap, n_sm: int,
+                smem_per_block: int, streamed_per_sm: int = 1) -> SweepsPlan:
+    """The launch of :func:`banded_jacobi_sweeps` for an (n, K) map walked
+    over its first ``k_cap`` slots (None: all K) with C right-hand sides, on
+    a card of ``n_sm`` SMs whose blocks may use ``smem_per_block`` bytes of
+    shared memory and that holds ``streamed_per_sm`` blocks of the streamed
+    form per SM.
+
+    Resident where it fits: at most one block per SM, each owning
+    ``ceil(n / blocks)`` rows, which must fit the largest register
+    instantiation and ``8 * k_cap`` bytes of shared memory per row.  Else
+    streamed: every SM's blocks, each owning a contiguous range of rows.
+    C does not enter the choice (the registers of r are counted in the
+    instantiations); it is an argument so that the plan names its launch."""
+    if not 1 <= C <= MAX_RHS:
+        raise ValueError(f"C = {C} is outside 1..{MAX_RHS}")
+    kc = K if k_cap is None else int(k_cap)
+    smem_max = min(int(smem_per_block), SMEM_PER_BLOCK_MAX)
+    per_block = lambda blocks: -(-n // blocks)
+    blocks = max(1, min(n_sm, -(-n // SWEEPS_THREADS)))
+    rows = per_block(blocks)
+    smem = 8 * kc * rows
+    for rpt in SWEEPS_ROWS_PER_THREAD:
+        if rows <= rpt * SWEEPS_THREADS and smem <= smem_max:
+            return SweepsPlan("resident", blocks, rows, smem, rpt)
+    blocks = max(1, min(n_sm * streamed_per_sm, -(-n // SWEEPS_THREADS)))
+    return SweepsPlan("streamed", blocks, per_block(blocks), 0, 0)
+
+
+def _sweeps_limits(lib, dev: torch.device, C: int):
+    """(SM count, shared memory per block, resident and streamed blocks
+    per SM) of ``dev`` for C right-hand sides, asked of the library once."""
+    key = (dev.index, C)
+    lim = _SWEEPS_LIMITS.get(key)
+    if lim is None:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            _raise_on(lib, lib.banded_sweeps_limits(C, out),
+                      "banded_sweeps_limits")
+        lim = _SWEEPS_LIMITS[key] = tuple(out)
+        if lim[2] < 1 or lim[3] < 1:
+            raise RuntimeError(f"the sweeps kernel does not fit an SM of "
+                               f"{torch.cuda.get_device_name(dev)}: {lim}")
+    return lim
+
+
+def device_sweeps_plan(dev: torch.device, n: int, K: int, C: int,
+                       k_cap: int) -> SweepsPlan:
+    """:func:`sweeps_plan` on the card ``dev``, kept per shape."""
+    key = (dev.index, n, K, C, k_cap)
+    plan = _SWEEPS_PLANS.get(key)
+    if plan is None:
+        n_sm, smem, _, streamed = _sweeps_limits(_build.load("banded"), dev,
+                                                 C)
+        plan = _SWEEPS_PLANS[key] = sweeps_plan(n, K, C, k_cap, n_sm, smem,
+                                                streamed)
+    return plan
+
+
+def launch_sweeps(rs, dinv, off, idx, sweeps: int, k_cap: int,
+                  plan: SweepsPlan):
+    """The launch of :func:`banded_jacobi_sweeps` on CUDA tensors that
+    have passed its checks, as ``plan`` lays it out; raises when the card
+    refuses it (a grid larger than the card holds at once among them)."""
+    dev = rs[0].device
+    n, K = idx.shape
+    C = len(rs)
+    za = torch.empty((C, n), dtype=torch.float32, device=dev)
+    zb = torch.empty((C, n), dtype=torch.float32, device=dev) \
+        if sweeps > 1 else za
+    lib = _build.load("banded")
+    _sweeps_limits(lib, dev, C)    # lets the kernels of C opt in to smem
+    form = plan.rows_per_thread if plan.form == "resident" else 0
+    err = launch(lib.banded_jacobi_sweeps, dev, _ptrs(rs), C, dinv.data_ptr(),
+                 off.data_ptr(), idx.data_ptr(), za.data_ptr(), zb.data_ptr(),
+                 n, K, k_cap, int(sweeps), form, plan.blocks,
+                 plan.rows_per_block, plan.smem_bytes)
+    _raise_on(lib, err, "banded_jacobi_sweeps")
+    LAUNCHES["banded_jacobi_sweeps"] += 1
+    z = za if sweeps % 2 == 1 else zb
+    return tuple(z[c] for c in range(C))
+
+
 def banded_jacobi_sweeps(rs, dinv, off, idx, sweeps: int, k_cap=None):
     """``sweeps`` Jacobi iterations ``z = dinv * (r - A_off z)`` from the
     seed ``z0 = dinv * r`` (so ``sweeps - 1`` applications of ``A_off``) for
@@ -333,14 +442,5 @@ def banded_jacobi_sweeps(rs, dinv, off, idx, sweeps: int, k_cap=None):
         _check(f"rs[{c}]", r, (n,), dev)
     _check("dinv", dinv, (n,), dev)
     _check("off", off, (n, K), dev)
-    za = torch.empty((C, n), dtype=torch.float32, device=dev)
-    zb = torch.empty((C, n), dtype=torch.float32, device=dev) \
-        if sweeps > 1 else za
-    lib = _build.load("banded")
-    err = launch(lib.banded_jacobi_sweeps, dev, _ptrs(rs), C, dinv.data_ptr(),
-                 off.data_ptr(), idx.data_ptr(), za.data_ptr(), zb.data_ptr(),
-                 n, K, cap, int(sweeps))
-    _raise_on(lib, err, "banded_jacobi_sweeps")
-    LAUNCHES["banded_jacobi_sweeps"] += 1
-    z = za if sweeps % 2 == 1 else zb
-    return tuple(z[c] for c in range(C))
+    return launch_sweeps(rs, dinv, off, idx, sweeps, cap,
+                         device_sweeps_plan(dev, n, K, C, cap))

@@ -85,12 +85,14 @@ def _mom_dot2(es: EllSystem, mesh, z_u, z_v):
 
 def _momentum_solve(es: EllSystem, mesh, r_u, r_v, sweeps: int):
     """Jacobi momentum predict (see stencil_system._momentum_solve); u and v
-    share the neighbor reads.  With three or more sweeps, where the JAX
-    package runs its one-kernel multi-sweep Jacobi
-    (``mesh.banded_sweeps_fit``), all sweeps run in one call of
-    ``mesh.banded_jacobi_sweeps``, which on a slot-capped mesh drops the
-    overflow slots; otherwise one exact fused dot per sweep."""
-    if sweeps >= 3 and mesh.banded_sweeps_fit(2):
+    share the neighbor reads.  With three or more sweeps all sweeps run in
+    one call of ``mesh.banded_jacobi_sweeps``, otherwise one exact fused
+    dot per sweep.  On a map without a slot cap the two compute the same
+    sums, and the one call is taken at any size.  On a slot-capped map the
+    one call drops the overflow slots, so it is taken only where the JAX
+    package takes its one-kernel sweeps (``mesh.banded_sweeps_fit``: its
+    TPU memory rule), which keeps the iteration counts of that package."""
+    if sweeps >= 3 and (mesh.bd_k is None or mesh.banded_sweeps_fit(2)):
         return mesh.banded_jacobi_sweeps((r_u, r_v), es.diag_u_inv,
                                          es.off_mom, sweeps)
     z_u = es.diag_u_inv * r_u

@@ -55,8 +55,7 @@ _GROUPS = (
     ("banded_prolong_add_kernel",
      "banded_gather (CUDA, fused V-cycle prolongation)"),
     ("banded_dot_kernel", "banded_dot (CUDA)"),
-    ("jacobi_seed_kernel", "banded_jacobi_sweeps (CUDA, seed + sweeps)"),
-    ("jacobi_sweep_kernel", "banded_jacobi_sweeps (CUDA, seed + sweeps)"),
+    ("jacobi_sweeps", "banded_jacobi_sweeps (CUDA, one launch)"),
     ("index", "indexing (field IO in host order, views)"),
     ("gemv", "Gram-Schmidt / solution update (gemv)"),
     ("gemm", "Gram-Schmidt / solution update (gemm)"),

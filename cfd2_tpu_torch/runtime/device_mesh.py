@@ -228,7 +228,9 @@ class DeviceMesh:
         (3*C + 1 row planes) must fit 12 MiB of TPU VMEM.  Kept with its
         number because on a slot-capped map it decides whether the smoother
         drops the overflow slots (one-kernel sweeps) or not (per-sweep
-        dots), and so the iteration counts on either side of it."""
+        dots), and so the iteration counts on either side of it.  A map
+        without a slot cap takes the one-call sweeps at any size
+        (``ops/ellsys._momentum_solve``): there both give the same sums."""
         nb = -(-self.num_cells // 128)
         resident = (3 * n_comps + 1) * nb * 128 * 4
         return resident <= 12 * 2**20

@@ -25,8 +25,12 @@ Phases (any failure exits non-zero):
    compared and timed at M = 403,584, K = 3 beside their byte bounds: the
    gather at C = 6 and 1 and the fused prolongation of the first two coarse
    levels, the dot in all five forms, at a coarse level's shape and at a
-   restriction's, and beside the library's sparse CSR product; the host's
-   time per wrapper call;
+   restriction's, and beside the library's sparse CSR product; the sweeps
+   (C = 2, 8 sweeps) at 403,584 x 3 and 600,000 x 6 (resident form; the
+   latter beside the per-sweep chain of mom2 dots it replaces, bit-equal)
+   and 2,400,000 x 6 (streamed form), under both flushes beside their
+   read-once bounds with their launch plans, and their grid barrier; the
+   host's time per wrapper call;
 3. drive the main path: the 996,558-cell channel-obstacle mesh
    (min_cell=0.0017, 589x1765 grid), ``CoupledSolver`` with the structured
    multigrid (precond_type=1, fgmres_max_restarts=5), started from
@@ -68,7 +72,11 @@ Phases (any failure exits non-zero):
    banded kernels on its maps and ``rbgs_leg`` (every form, as in phase 2)
    on each grid of its fine-grid multigrid: ``rbgs_leg`` (2 per fine level
    per FGMRES iteration), ``banded_dot`` and ``banded_gather`` must be
-   launched;
+   launched, and ``banded_jacobi_sweeps`` twice per FGMRES iteration with
+   no per-sweep momentum dot (a map without a slot cap takes the one call
+   above the JAX package's 12 MiB rule); then the first step again from
+   rest with the momentum predict patched back to one dot per sweep: equal
+   outer and FGMRES counts, max|du|/max|u| logged;
    (b) block-Jacobi (precond_type=2, fgmres_max_restarts=5) for one step on
    phase 3's developed 1M state and on phase 6's Delaunay solver (whose
    gather must launch ``banded_gather``); (c) card against CPU, one step
@@ -167,6 +175,7 @@ reads it with the JAX package's ``utils/forces.py`` on a CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -348,12 +357,43 @@ def bound_ms(n_bytes, n_flops):
 # ----------------------------------------------------------------------
 
 
+def _ptxas_summary(out, fragment):
+    """``name<template arguments>: registers, spill bytes`` of each kernel
+    whose mangled name holds ``fragment``, from ``-Xptxas -v`` output."""
+    import re
+    rows, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or fragment not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)} spill bytes"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            short = re.search(fragment + r"\w*?(?=I)", name)
+            args = re.findall(r"Li(\d+)E", name)
+            label = (short.group(0) if short else name) + f"<{','.join(args)}>"
+            rows.append(f"{label} {m.group(1)} registers, {spills}")
+            name = None
+    return rows
+
+
 def phase_build():
     from cfd2_tpu_torch.ops import _build
     t0 = time.time()
     outs = _build.build_all(extra_flags=("-Xptxas", "-v"))
     for name, out in outs.items():
         log(f"# nvcc csrc/{name}.cu:\n{out.strip()}")
+    if "banded" in outs:
+        log("phase 1: ptxas, sweeps kernels: "
+            + "; ".join(_ptxas_summary(outs["banded"], "jacobi_sweeps")))
     for name in _build.SIGNATURES:
         _build.load(name)
     log(f"phase 1: built {sorted(_build.SIGNATURES)} in "
@@ -621,26 +661,11 @@ def phase_banded_kernels(results):
             _band_map(mc, nc, kc, 9, dev, spread=48)))
     d1_ms = dict((r[0], r[1]) for r in form_rows)[f"scalar {M}x{K}"]
     d1_bound, _ = bound_ms(B * (M * K + M * K + n + M), 2 * M * K)
-    # sweeps: C = 2, 8 sweeps (the momentum predict).
-    C, sweeps = 2, 8
-    rs = [_rand((n,), 70 + c, dev) for c in range(C)]
-    dinv = 1.0 / (1.0 + _rand((n,), 72, dev).abs())
-    off = _rand((n, K), 73, dev, 0.1)
-    err_s = max(err_s, _maxerr(
-        bk.banded_jacobi_sweeps(rs, dinv, off, idx, sweeps),
-        bk.banded_jacobi_sweeps_ref(rs, dinv, off, idx, sweeps)))
-    s_ms = cuda_time_ms(lambda: bk.banded_jacobi_sweeps(rs, dinv, off, idx,
-                                                        sweeps))
-    s_read = cuda_time_ms(lambda: bk.banded_jacobi_sweeps(
-        rs, dinv, off, idx, sweeps), flush="read")
-    s_plain = cuda_time_ms(lambda: bk.banded_jacobi_sweeps_ref(
-        rs, dinv, off, idx, sweeps))
-    # Nothing stays resident between sweeps: the seed pass moves (2C+1) n
-    # values, each of the sweeps-1 sweep passes idx, off and (2C+1) n.
-    s_bound, s_by = bound_ms(
-        B * ((2 * C + 1) * n
-             + (sweeps - 1) * (2 * n * K + (2 * C + 1) * n)),
-        (sweeps - 1) * (2 * C * n * K + 2 * C * n) + C * n)
+    # sweeps: C = 2, 8 sweeps (the momentum predict), at the Delaunay
+    # path's shape, at the multilevel path's beside the per-sweep chain it
+    # replaces there, and at one that takes the streamed form.
+    s_rows, err_big, s_main = _time_sweeps(bk, idx)
+    err_s = max(err_s, err_big)
     # Host cost of one wrapper call (checks, output allocation, ctypes) at
     # a size where the kernels take a few microseconds.
     sm = _band_map(4096, 4096, K, 8, dev)
@@ -667,8 +692,8 @@ def phase_banded_kernels(results):
              g_bound, g_by, g_lib),
             ("banded_dot", f"{BANDED_PALLAS}:378", err_d, d_ms, d_plain,
              d_bound, d_by, d_lib),
-            ("banded_jacobi_sweeps", f"{BANDED_PALLAS}:534", err_s, s_ms,
-             s_plain, s_bound, s_by, None))
+            ("banded_jacobi_sweeps", f"{BANDED_PALLAS}:534", err_s,
+             *s_main, None))
     for name, rep, err, ms, plain, bnd, by, lib in rows:
         results[name] = dict(
             name=name, route="cuda", source=BANDED_SRC, replaces=rep,
@@ -687,9 +712,98 @@ def phase_banded_kernels(results):
     log("phase 2: banded_dot by form, ms / ms under the read flush / bound "
         "ms: " + "; ".join(f"{label} {ms:.4f} / {rd:.4f} / {bnd:.4f}"
                            for label, ms, rd, bnd in form_rows))
-    log(f"phase 2: banded_jacobi_sweeps (C=2, 8 sweeps): {s_ms:.4f} ms, "
-        f"{s_read:.4f} ms under the read flush, bound {s_bound:.4f} ms "
-        f"({s_by}), plain {s_plain:.4f} ms")
+    for row in s_rows:
+        log("phase 2: banded_jacobi_sweeps (C=2, 8 sweeps) " + row)
+
+
+# The sweeps kernel's shapes in phase 2: (n, K) of the Delaunay path, the
+# multilevel path, and the next multilevel size, whose rows do not fit on
+# chip (the streamed form).
+SWEEPS_SHAPES = ((None, 3), (600_000, 6), (2_400_000, 6))
+
+
+def _sweeps_chain(bk, rs, dinv, off, idx, sweeps):
+    """The per-sweep loop of ellsys._momentum_solve for C = 2: a mom2 dot
+    and the eager updates per sweep."""
+    z = [dinv * r for r in rs]
+    for _ in range(sweeps - 1):
+        su, sv = bk.banded_dot(z, (off,), idx, (((0, 0),), ((0, 1),)))
+        z = [dinv * (rs[0] - su), dinv * (rs[1] - sv)]
+    return z
+
+
+def _time_sweeps(bk, main_idx):
+    """banded_jacobi_sweeps against its plain version and timed at
+    SWEEPS_SHAPES (the first at ``main_idx``'s), with its read-once bound,
+    its launch plan, the timer's floor and the cost of its grid barrier.
+    Returns the lines to log, the largest error, and (ms, plain ms, bound
+    ms, bound_by) at the first shape."""
+    import torch
+    dev = main_idx.device
+    C, sweeps, B = 2, 8, 4
+    planned = hasattr(bk, "device_sweeps_plan")   # not in an earlier --tree
+    rows, err_s, main = [], 0.0, None
+    for n, K in SWEEPS_SHAPES:
+        idx = main_idx if n is None else _band_map(n, n, K, 74, dev)
+        n = idx.shape[0]
+        rs = [_rand((n,), 70 + c, dev) for c in range(C)]
+        dinv = 1.0 / (1.0 + _rand((n,), 72, dev).abs())
+        off = _rand((n, K), 73, dev, 0.1)
+        call = lambda: bk.banded_jacobi_sweeps(rs, dinv, off, idx, sweeps)
+        got = call()
+        err = _maxerr(got, bk.banded_jacobi_sweeps_ref(rs, dinv, off, idx,
+                                                       sweeps))
+        err_s = max(err_s, err)
+        ms, ms_read = both_flushes_ms(call)
+        plain = cuda_time_ms(lambda: bk.banded_jacobi_sweeps_ref(
+            rs, dinv, off, idx, sweeps))
+        # Read once: idx and off (n*K each), dinv, the C right-hand sides;
+        # written once: the C results.
+        bnd, by = bound_ms(B * (2 * n * K + n + 2 * C * n),
+                           (sweeps - 1) * (2 * C * n * K + 2 * C * n) + C * n)
+        line = (f"at {n}x{K}: {ms:.4f} ms, {ms_read:.4f} ms under the read "
+                f"flush, read-once bound {bnd:.4f} ms ({by}), plain "
+                f"{plain:.4f} ms, max-abs error {err:.3e}")
+        if planned:
+            plan = bk.device_sweeps_plan(dev, n, K, C, K)
+            line += (f"; {plan.form} form, {plan.blocks} blocks of "
+                     f"{plan.rows_per_block} rows, {plan.smem_bytes} bytes "
+                     f"of shared memory per block, {plan.rows_per_thread} "
+                     "rows per thread in registers")
+        if K == 6 and n == 600_000:
+            chain = _sweeps_chain(bk, rs, dinv, off, idx, sweeps)
+            same = all(torch.equal(g, w) for g, w in zip(got, chain))
+            c_ms, c_read = both_flushes_ms(
+                lambda: _sweeps_chain(bk, rs, dinv, off, idx, sweeps))
+            line += (f"; the per-sweep chain it replaces on the multilevel "
+                     f"path (7 mom2 dots and their eager updates) {c_ms:.4f} "
+                     f"ms, {c_read:.4f} ms under the read flush, results "
+                     f"bit-equal {same}")
+            if planned:
+                check(same, "the one-call sweeps differ from the per-sweep "
+                      "chain's bits")
+        rows.append(line)
+        if main is None:
+            main = (ms, plain, bnd, by)
+    # The grid barrier: the same launch over one row per thread of the
+    # largest resident grid with no slots (k_cap = 0: z = dinv*r each
+    # sweep), 8 sweeps against 1; and the timer's floor, one row.
+    n = torch.cuda.get_device_properties(dev).multi_processor_count * 1024
+    idx = _band_map(n, n, 3, 75, dev)
+    rs = [_rand((n,), 76 + c, dev) for c in range(C)]
+    dinv, off = _rand((n,), 78, dev), _rand((n, 3), 79, dev)
+    t = {sw: cuda_time_ms(lambda: bk.banded_jacobi_sweeps(
+             rs, dinv, off, idx, sw, k_cap=0), flush="read")
+         for sw in (1, 8)}
+    one = [rs[0][:1], rs[1][:1]]
+    floor = cuda_time_ms(lambda: bk.banded_jacobi_sweeps(
+        one, dinv[:1], off[:1], idx[:1], 1, k_cap=0), flush="read")
+    rows.append(f"barrier: {n} rows, no slots, read flush: 1 sweep "
+                f"{t[1]:.4f} ms, 8 sweeps {t[8]:.4f} ms: "
+                f"{(t[8] - t[1]) / 7 * 1e3:.2f} us per sweep of barrier and "
+                f"{n * C * 8 / 1e6:.1f} MB of z; timer floor (one row, one "
+                f"sweep) {floor:.4f} ms")
+    return rows, err_s, main
 
 
 # The forms of rbgs_leg: name -> planes moved per fine cell (x, diag, 4 off
@@ -1292,6 +1406,44 @@ def _check_prolongation(phase, s):
     return L
 
 
+def _check_sweeps_records(phase, s, calls=3):
+    """One banded_jacobi_sweeps call (C = 2, 8 sweeps, on the solver's map)
+    is one device kernel: the profiler's kernel records over ``calls``
+    calls.  As in _check_prolongation, a session that misses a record is
+    taken again, up to three times."""
+    import torch
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    dm = s.mesh
+    n, K = dm.ck_neighbor.shape
+    rs = [_rand((n,), 80 + c, "cuda") for c in range(2)]
+    dinv = 1.0 / (1.0 + _rand((n,), 82, "cuda").abs())
+    off = _rand((n, K), 83, "cuda", 0.1)
+    call = lambda: dm.banded_jacobi_sweeps(rs, dinv, off, 8)
+    saved = dict(bk.LAUNCHES)
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        if sum(names.values()) == calls:
+            break
+        log(f"phase {phase}: sweeps profile {attempt}: {names}")
+    bk.LAUNCHES.update(saved)
+    log(f"phase {phase}: {calls} banded_jacobi_sweeps calls on the solver's "
+        f"map: device kernels {names}")
+    check(sum(names.values()) == calls
+          and all("jacobi_sweeps" in k for k in names),
+          f"{calls} sweeps calls ran {sum(names.values())} device kernels, "
+          "not one each")
+
+
 def _drive_unstructured(phase, s, n_cells, n_steps):
     """Step ``s`` with the launch counts zeroed just before; returns the
     counts read just after and the FGMRES iterations taken."""
@@ -1369,6 +1521,7 @@ def phase_delaunay(results, ctx):
             results[name]["launches"] = cnt
     _path_launches(results, "Delaunay (phase 6)", counts)
     L = _check_prolongation(6, s)
+    _check_sweeps_records(6, s)
     # Of the steps' gathers, L per FGMRES iteration are the V-cycle's
     # prolongations; the rest are the assembly's and the Galerkin sums'.
     rest = counts["banded_gather"] - L * lin_total
@@ -1684,25 +1837,93 @@ def phase_multilevel(results):
           f"layout: multilevel {dm.multilevel}, banded {dm.banded}, "
           f"levels {dm.ml_levels}")
     check(isinstance(hier, MultilevelAmg), f"hierarchy {type(hier)}")
-    check(not dm.banded_sweeps_fit(2), "600,000 device cells take the "
-          "per-sweep dots (the 12 MiB rule)")
+    check(not dm.banded_sweeps_fit(2) and dm.bd_k is None,
+          "600,000 device cells lie above the JAX package's 12 MiB rule, on "
+          "a map without a slot cap")
     _hold_on_solver_maps("10a", s, results)
-    rows, counts = _timed_steps(s, 3)
+    rest = (s.state, s.params)
+    with _counting_mom_dots() as mom_dots:
+        rows, counts = _timed_steps(s, 1)
+        u_first = s.get_u()
+        more, counts2 = _timed_steps(s, 2)
+    rows += more
+    counts = {k: counts[k] + counts2[k] for k in counts}
     _log_run("multilevel", rows, counts, phase="10a")
     lin_total = sum(sum(its) for _, its, _, _ in rows)
     per_apply = 2 * len(hier.fine.levels)
     for name in ("rbgs_leg", "banded_dot", "banded_gather"):
         check(counts[name] > 0, f"{name} was never launched on the "
               "multilevel path")
-    check(counts["banded_jacobi_sweeps"] == 0, "the one-call sweeps ran "
-          "above the 12 MiB rule")
+    check(counts["banded_jacobi_sweeps"] == 2 * lin_total,
+          f"banded_jacobi_sweeps calls {counts['banded_jacobi_sweeps']} != "
+          f"2 per preconditioner application x {lin_total} FGMRES "
+          "iterations (a map without a slot cap takes the one call)")
+    check(mom_dots[0] == 0, f"{mom_dots[0]} per-sweep momentum dots ran")
     check(counts["rbgs_leg"] == per_apply * lin_total,
           f"rbgs_leg launches {counts['rbgs_leg']} != {per_apply} per "
           f"V-cycle x {lin_total} FGMRES iterations")
     log(f"phase 10a: {lin_total} FGMRES iterations; per iteration "
         + ", ".join(f"{counts[k] / lin_total:.2f} {k}"
-                    for k in ("rbgs_leg", "banded_dot", "banded_gather")))
+                    for k in ("rbgs_leg", "banded_dot", "banded_gather",
+                              "banded_jacobi_sweeps"))
+        + f"; per-sweep momentum dots {mom_dots[0]}")
     _path_launches(results, "multilevel (phase 10a)", counts)
+
+    # The first step again from rest, with the momentum predict put back to
+    # one mom2 dot per sweep (what the 12 MiB rule gave this mesh before).
+    from cfd2_tpu_torch.ops import ellsys
+    s.state, s.params = rest
+    s._krylov = None
+    one_call = ellsys._momentum_solve
+    ellsys._momentum_solve = _per_sweep_momentum_solve
+    try:
+        with _counting_mom_dots() as mom_dots:
+            loop_rows, loop_counts = _timed_steps(s, 1)
+    finally:
+        ellsys._momentum_solve = one_call
+    _log_run("multilevel, per-sweep momentum dots", loop_rows, loop_counts,
+             phase="10a")
+    u_loop = s.get_u()
+    rel = float(np.abs(u_loop - u_first).max() / np.abs(u_first).max())
+    (o1, its1, w1, _), (o2, its2, w2, _) = rows[0], loop_rows[0]
+    log(f"phase 10a: first step, one-call sweeps against per-sweep dots: "
+        f"outer_iters {o1} / {o2}, FGMRES iterations {its1} / {its2}, wall "
+        f"{w1:.4f} / {w2:.4f} s, banded_dot {counts['banded_dot']} over 3 "
+        f"steps / {loop_counts['banded_dot']} over 1, per-sweep momentum "
+        f"dots 0 / {mom_dots[0]}, max|du|/max|u| {rel:.3e}")
+    check(mom_dots[0] > 0 and loop_counts["banded_jacobi_sweeps"] == 0,
+          "the per-sweep step did not take the per-sweep dots")
+    check((o1, its1) == (o2, its2), "the one-call sweeps changed the first "
+          "step's iteration counts")
+
+
+def _per_sweep_momentum_solve(es, mesh, r_u, r_v, sweeps):
+    """ellsys._momentum_solve's per-sweep loop, at any size."""
+    from cfd2_tpu_torch.ops import ellsys
+    z_u, z_v = es.diag_u_inv * r_u, es.diag_u_inv * r_v
+    for _ in range(sweeps - 1):
+        su, sv = ellsys._mom_dot2(es, mesh, z_u, z_v)
+        z_u = es.diag_u_inv * (r_u - su)
+        z_v = es.diag_u_inv * (r_v - sv)
+    return z_u, z_v
+
+
+@contextlib.contextmanager
+def _counting_mom_dots():
+    """Counts the calls of ellsys._mom_dot2 (the per-sweep momentum dot)
+    while entered, in the one-element list it yields."""
+    from cfd2_tpu_torch.ops import ellsys
+    orig, n = ellsys._mom_dot2, [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return orig(*a, **k)
+
+    ellsys._mom_dot2 = counted
+    try:
+        yield n
+    finally:
+        ellsys._mom_dot2 = orig
 
 
 def phase_block(results, ctx):

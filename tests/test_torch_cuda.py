@@ -244,6 +244,79 @@ def test_sweeps_kernel_matches_plain(cuda, K, cap, sweeps):
         assert float((g - r).abs().max()) <= TOL
 
 
+def _sweeps_case(n, K, C, seed, cuda):
+    idx = _band_map(n, n, K, seed, cuda)
+    rs = [_rand((n,), seed + 1 + c, cuda) for c in range(C)]
+    dinv = 1.0 / (1.0 + _rand((n,), seed + 5, cuda).abs())
+    off = _rand((n, K), seed + 6, cuda, 0.5 / K)
+    return rs, dinv, off, idx
+
+
+def _streamed_plan(n):
+    """The streamed form at a grid of every SM's blocks."""
+    props = torch.cuda.get_device_properties(0)
+    blocks = max(1, min(props.multi_processor_count, -(-n // 1024)))
+    return bk.SweepsPlan("streamed", blocks, -(-n // blocks), 0, 0)
+
+
+@pytest.mark.parametrize("form", ["planned", "streamed"])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 8])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,K,cap", [(4096, 3, None), (5001, 9, 8),
+                                     (200_001, 6, 4), (403_584, 3, None),
+                                     (600_000, 6, None), (1000, 3, 0)])
+def test_sweeps_kernel_forms_match_plain(cuda, n, K, cap, C, sweeps, form):
+    """Both forms of the one launch over C = 1..4, odd and even sweep
+    counts, slot caps below K (0 among them), row counts that are not a
+    multiple of a block's, and every register instantiation of the resident
+    form (1, 2, 4 and 8 rows per thread at these shapes)."""
+    rs, dinv, off, idx = _sweeps_case(n, K, C, 30, cuda)
+    kc = K if cap is None else cap
+    plan = (bk.device_sweeps_plan(cuda, n, K, C, kc) if form == "planned"
+            else _streamed_plan(n))
+    before = bk.LAUNCHES["banded_jacobi_sweeps"]
+    got = bk.launch_sweeps(rs, dinv, off, idx, sweeps, kc, plan)
+    ref = bk.banded_jacobi_sweeps_ref(rs, dinv, off, idx, sweeps, k_cap=cap)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["banded_jacobi_sweeps"] == before + 1
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= TOL
+
+
+def test_sweeps_kernel_equals_the_per_sweep_dots_bit_for_bit(cuda):
+    """The one launch rounds each product and sum as banded_dot's mom2
+    form and the eager updates do: the momentum predict's two paths give
+    the same bits."""
+    rs, dinv, off, idx = _sweeps_case(600_000, 6, 2, 40, cuda)
+    z = [dinv * r for r in rs]
+    for _ in range(7):
+        su, sv = bk.banded_dot(z, (off,), idx, (((0, 0),), ((0, 1),)))
+        z = [dinv * (rs[0] - su), dinv * (rs[1] - sv)]
+    got = bk.banded_jacobi_sweeps(rs, dinv, off, idx, 8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, z))
+
+
+def test_sweeps_refuses_a_grid_the_card_cannot_hold(cuda):
+    """A resident grid of more blocks than the SMs hold at once is refused
+    by the cooperative launch; the wrapper raises, counts nothing, and the
+    next launch runs."""
+    n, K = 600_000, 6
+    rs, dinv, off, idx = _sweeps_case(n, K, 2, 50, cuda)
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    rows = -(-n // blocks)
+    plan = bk.SweepsPlan("resident", blocks, rows, 8 * K * rows, 2)
+    before = bk.LAUNCHES["banded_jacobi_sweeps"]
+    with pytest.raises(RuntimeError, match="cooperative"):
+        bk.launch_sweeps(rs, dinv, off, idx, 8, K, plan)
+    assert bk.LAUNCHES["banded_jacobi_sweeps"] == before
+    got = bk.banded_jacobi_sweeps(rs, dinv, off, idx, 8)
+    ref = bk.banded_jacobi_sweeps_ref(rs, dinv, off, idx, 8)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= TOL
+
+
 def test_banded_wrappers_refuse_bad_input(cuda):
     idx = _band_map(256, 256, 3, 9, cuda)
     x = _rand((256,), 10, cuda)

@@ -167,3 +167,47 @@ def test_momentum_solve_takes_the_sweeps_kernel_rule(setup, systems):
                                        k_cap=tm.bd_k)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_momentum_solve_above_the_rule(setup, systems, monkeypatch):
+    """Where the JAX package's 12 MiB rule says no (forced here on both
+    sides), the port keeps the one-call sweeps on the uncapped Delaunay map,
+    whose sums equal the per-sweep dots', and takes the per-sweep dots on
+    the slot-capped Voronoi map, as the JAX package does there.  Both are
+    held to the JAX package's per-sweep preconditioner."""
+    from cfd2_tpu.runtime.device_mesh import DeviceMesh as JMesh
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    from cfd2_tpu_torch.runtime.device_mesh import DeviceMesh as TMesh
+    jm, tm = setup[0], setup[1]
+    jes, tes, x = systems
+    asked = []
+    monkeypatch.setattr(JMesh, "banded_sweeps_fit",
+                        lambda self, c: asked.append("jax") or False)
+    monkeypatch.setattr(TMesh, "banded_sweeps_fit",
+                        lambda self, c: asked.append("port") or False)
+    calls = {"banded_jacobi_sweeps": 0, "banded_dot": 0}
+
+    def counting(name):
+        fn = getattr(bk, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for name in calls:
+        monkeypatch.setattr(bk, name, counting(name))
+    ref = jel.schur_precond(jes, jm, jnp.asarray(x), 1.2, 6, mom_sweeps=8)
+    got = tel.schur_precond(tes, tm, torch.as_tensor(x), 1.2, 6,
+                            mom_sweeps=8)
+    _close("schur m8 above the rule", got, ref)
+    assert "jax" in asked
+    if tm.bd_k is None:
+        assert calls["banded_jacobi_sweeps"] == 2
+        assert "port" not in asked
+    else:
+        assert "port" in asked
+        assert calls["banded_jacobi_sweeps"] == 0
+        # 7 per predict, the Schur right-hand side, the gradient and the
+        # Chebyshev solve's 6
+        assert calls["banded_dot"] == 2 * 7 + 2 + 6
