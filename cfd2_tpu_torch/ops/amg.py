@@ -1024,7 +1024,7 @@ def _multilevel_pressure_solve(hier: MultilevelAmg, mesh, sys, coeff):
     # otherwise upsample its junk into fine squares owned by other cells.
     c2 = _ml_spread(grids, coeff * valid)
     intl = fh.internal2
-    e, w, n, s = sk._shifts2(c2)
+    e, w, n, s = sk.edge_shifts(c2)
     offE = -0.5 * (c2 + e) * intl[0]
     offW = -0.5 * (c2 + w) * intl[1]
     offN = -0.5 * (c2 + n) * intl[2]

@@ -1,6 +1,7 @@
-"""Red-black Gauss-Seidel smoothers of the structured multigrid: the
-hand-written CUDA kernels (``csrc/rbgs.cu``), their wrappers, and the plain
-PyTorch version of each.
+"""The structured path's hand-written CUDA kernels, their wrappers, and the
+plain PyTorch version of each: the red-black Gauss-Seidel smoothers of the
+structured multigrid (``csrc/rbgs.cu``) and the coupled system's stencils
+(``csrc/stencil.cu``).
 
 Counterparts of ``cfd2_tpu/ops/pallas_stencil.py``:
 
@@ -15,6 +16,23 @@ Counterparts of ``cfd2_tpu/ops/pallas_stencil.py``:
   of an (ny, nx) grid with the (4, ny, nx) coefficient planes the levels keep
   (the TPU kernel's flat (n,) layout with ``off`` (n, 4) has no use on the
   card: it cost the V-cycle a transpose per smooth).
+
+The stencils of ``ops/stencil_system.py``, which the JAX package leaves to
+XLA's fusions (no Pallas kernel), each one launch where the eager version
+issues one per shift and per elementwise op:
+
+* :func:`coupled_spmv` <- ``spmv_planar``: y = A x of the coupled (u, v, p)
+  operator on (3, ny, nx) planes;
+* :func:`momentum_jacobi` <- the Jacobi momentum predict of
+  ``_momentum_solve`` on a (2, ny, nx) block (u, v);
+* :func:`schur_rhs` <- ``_schur_rhs``: r_p - D z;
+* :func:`pressure_gradient` <- ``_gradient``: G z_p.
+
+Each is bit-equal to its plain version: the kernels round every product
+and sum on its own, in the plain code's order.  On a row-sharded system
+they take the neighbouring ranks' rows as explicit halo operands (``below``,
+``above``: (..., 1, nx)); without them they clamp to the block's own edge
+rows, as the unsharded shifts do.
 
 Each wrapper runs its plain version (``*_ref``) for tensors on the CPU, and
 launches its kernel for CUDA tensors; anything else raises.  There is no
@@ -33,7 +51,8 @@ from . import _build
 from ._launch import float_ok, launch
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"rbgs_leg": 0, "rbgs_half_sweep": 0}
+LAUNCHES = {"rbgs_leg": 0, "rbgs_half_sweep": 0, "coupled_spmv": 0,
+            "momentum_jacobi": 0, "schur_rhs": 0, "pressure_gradient": 0}
 
 
 def reset_launches() -> None:
@@ -68,18 +87,27 @@ def smoother_level(device: torch.device) -> int:
 # Plain versions.
 
 
-def _shifts2(xg: torch.Tensor):
-    """Edge-clamped E, W, N, S neighbour grids of an (ny, nx) array."""
-    e = torch.cat([xg[:, 1:], xg[:, -1:]], dim=1)
-    w = torch.cat([xg[:, :1], xg[:, :-1]], dim=1)
-    n = torch.cat([xg[1:], xg[-1:]], dim=0)
-    s = torch.cat([xg[:1], xg[:-1]], dim=0)
+def edge_shifts(x: torch.Tensor, below=None, above=None):
+    """E, W, N, S neighbour planes of ``x`` (..., ny, nx), clamped to the
+    edge at the grid's edges.  ``below`` / ``above`` (..., 1, nx): the rows
+    beyond the block's first and last row (a row-sharded block's halo);
+    None takes the block's own edge row."""
+    below = x[..., :1, :] if below is None else below
+    above = x[..., -1:, :] if above is None else above
+    e = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
+    w = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+    n = torch.cat([x[..., 1:, :], above], dim=-2)
+    s = torch.cat([below, x[..., :-1, :]], dim=-2)
     return e, w, n, s
 
 
+def dot4(off: torch.Tensor, sh) -> torch.Tensor:
+    """sum_s off[s] * sh[s] over the 4 directional slots, in slot order."""
+    return off[0] * sh[0] + off[1] * sh[1] + off[2] * sh[2] + off[3] * sh[3]
+
+
 def _sigma2(off2: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
-    e, w, n, s = _shifts2(xg)
-    return off2[0] * e + off2[1] * w + off2[2] * n + off2[3] * s
+    return dot4(off2, edge_shifts(xg))
 
 
 def _dinv(diag: torch.Tensor) -> torch.Tensor:
@@ -155,9 +183,11 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _raise_on(lib, err: int, fn: str) -> None:
+def _raise_on(error_string, err: int, fn: str) -> None:
+    """Raise for a nonzero cudaError_t ``err`` of ``fn``'s launch, with the
+    text that the library's ``error_string`` gives it."""
     if err != 0:
-        msg = lib.rbgs_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} ({msg})")
 
 
@@ -241,7 +271,7 @@ def rbgs_leg(xg, diag2, off2, bg, sweeps: int = 1, residual: bool = False,
                  off2.data_ptr(), bg.data_ptr(), xc_ptr, x_out.data_ptr(),
                  r_ptr, ny, nx, sweeps, mode)
     if err:
-        _raise_on(lib, err, "rbgs_leg")
+        _raise_on(lib.rbgs_error_string, err, "rbgs_leg")
     LAUNCHES["rbgs_leg"] += 1
     return x_out if r_out is None else (x_out, r_out)
 
@@ -272,7 +302,7 @@ def rbgs_half_sweep(xg, diag2, off2, bg, parity: int,
                  off2.data_ptr(), bg.data_ptr(), x_out.data_ptr(), ny, nx,
                  int(parity) & 1)
     if err:
-        _raise_on(lib, err, "rbgs_half_sweep")
+        _raise_on(lib.rbgs_error_string, err, "rbgs_half_sweep")
     LAUNCHES["rbgs_half_sweep"] += 1
     return x_out
 
@@ -284,3 +314,246 @@ def smooth_rbgs_half_sweeps(diag2, off2, xg, bg, sweeps: int = 1):
     for k in range(2 * sweeps):
         xg = rbgs_half_sweep(xg, diag2, off2, bg, k % 2, in_place=k > 0)
     return xg
+
+
+# ----------------------------------------------------------------------
+# The coupled system's stencils (csrc/stencil.cu): plain versions.
+
+
+def plane_shifts(sh, i: int):
+    """Plane ``i``'s four shifts out of the shifts of a stack of planes."""
+    return tuple(t[i] for t in sh)
+
+
+def coupled_spmv_ref(x, offs, diags, below=None, above=None):
+    """Plain version of :func:`coupled_spmv` (the port's ``spmv_planar``,
+    cfd2_tpu/ops/stencil_system.py:196)."""
+    off_mom, off_up, off_vp, off_pu, off_pv, off_pp = offs
+    d_u, d_up, d_vp, d_pu, d_pv, d_pp = diags
+    xu, xv, xp = x[0], x[1], x[2]
+    sh = edge_shifts(x, below, above)
+    su, sv, sp = (plane_shifts(sh, i) for i in range(3))
+    yu = d_u * xu + d_up * xp + dot4(off_mom, su) + dot4(off_up, sp)
+    yv = d_u * xv + d_vp * xp + dot4(off_mom, sv) + dot4(off_vp, sp)
+    yp = d_pu * xu + d_pv * xv + d_pp * xp \
+        + dot4(off_pu, su) + dot4(off_pv, sv) + dot4(off_pp, sp)
+    return torch.stack([yu, yv, yp])
+
+
+def momentum_jacobi_ref(r, dinv, off, sweeps: int, halo=None):
+    """Plain version of :func:`momentum_jacobi` (the Jacobi branch of the
+    port's ``_momentum_solve``, cfd2_tpu/ops/stencil_system.py:213, on both
+    components at once: every op is elementwise, so the bits are the
+    per-component ones)."""
+    z = dinv * r
+    for _ in range(sweeps - 1):
+        below, above = (None, None) if halo is None else halo(z)
+        z = dinv * (r - dot4(off, edge_shifts(z, below, above)))
+    return z
+
+
+def schur_rhs_ref(rp, z, d_pu, d_pv, off_pu, off_pv, below=None,
+                  above=None):
+    """Plain version of :func:`schur_rhs` (the port's ``_schur_rhs``;
+    cfd2_tpu/ops/stencil_system.py:337-338)."""
+    sh = edge_shifts(z, below, above)
+    su, sv = plane_shifts(sh, 0), plane_shifts(sh, 1)
+    return rp - d_pu * z[0] - d_pv * z[1] - dot4(off_pu, su) - dot4(off_pv, sv)
+
+
+def pressure_gradient_ref(zp, d_up, d_vp, off_up, off_vp, below=None,
+                          above=None):
+    """Plain version of :func:`pressure_gradient` (the port's ``_gradient``;
+    cfd2_tpu/ops/stencil_system.py:345-347)."""
+    sp = edge_shifts(zp, below, above)
+    return torch.stack([d_up * zp + dot4(off_up, sp),
+                        d_vp * zp + dot4(off_vp, sp)])
+
+
+# ----------------------------------------------------------------------
+# The coupled system's stencils: wrappers.
+
+
+def _check_all(dev, named):
+    """Check the ``(name, tensor, shape)`` operands of one launch: float32,
+    contiguous, on ``dev``, of that shape.  One pass of ``float_ok``;
+    ``_check`` names the fault only when it fails."""
+    if all(float_ok(t, shape, dev) for _, t, shape in named):
+        return
+    for name, t, shape in named:
+        _check(name, t, shape, dev)
+
+
+def _halo_pair(below, above):
+    if (below is None) != (above is None):
+        raise ValueError("below and above are given together or not at all")
+    return below is not None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def coupled_spmv(x, offs, diags, below=None, above=None):
+    """y = A x of the coupled (u, v, p) system in stencil form.  ``x``
+    (3, ny, nx) float32 component planes; ``offs`` the six (4, ny, nx)
+    off-diagonal blocks (off_mom, off_up, off_vp, off_pu, off_pv, off_pp),
+    slots [E, W, N, S]; ``diags`` the six (ny, nx) diagonals (diag_u,
+    diag_up, diag_vp, diag_pu, diag_pv, diag_pp); ``below`` / ``above``
+    (3, 1, nx): the halo rows of a row-sharded block, or None.  Returns y
+    (3, ny, nx)."""
+    if not _cuda_or_cpu(x):
+        return coupled_spmv_ref(x, offs, diags, below, above)
+    if len(offs) != 6 or len(diags) != 6:
+        raise ValueError("coupled_spmv takes 6 off-diagonal blocks and 6 "
+                         "diagonals")
+    ny, nx = x.shape[-2:]
+    dev = x.device
+    named = [("x", x, (3, ny, nx))] \
+        + [(f"offs[{i}]", o, (4, ny, nx)) for i, o in enumerate(offs)] \
+        + [(f"diags[{i}]", d, (ny, nx)) for i, d in enumerate(diags)]
+    if _halo_pair(below, above):
+        named += [("below", below, (3, 1, nx)), ("above", above, (3, 1, nx))]
+    _check_all(dev, named)
+    lib = _stencil_lib()
+    y = torch.empty_like(x)
+    err = launch(lib.coupled_spmv, dev, x.data_ptr(),
+                 *(o.data_ptr() for o in offs),
+                 *(d.data_ptr() for d in diags), _ptr(below), _ptr(above),
+                 y.data_ptr(), ny, nx)
+    if err:
+        _raise_on(lib.stencil_error_string, err, "coupled_spmv")
+    LAUNCHES["coupled_spmv"] += 1
+    return y
+
+
+# The most sweeps one launch of temporal tiles runs: the solver's 8, and 12
+# from 1.5M cells (SolverConfig.mom_sweeps).  csrc/stencil.cu's constant of
+# the same name; _stencil_lib refuses a library that holds another.
+TILE_MAX_SWEEPS = 12
+_tile_limit_checked = False
+
+
+def _stencil_lib():
+    """The built csrc/stencil.cu, its tile limit checked against
+    ``TILE_MAX_SWEEPS`` on first use."""
+    global _tile_limit_checked
+    lib = _build.load("stencil")
+    if not _tile_limit_checked:
+        limit = lib.stencil_tile_max_sweeps()
+        if limit != TILE_MAX_SWEEPS:
+            raise RuntimeError(f"csrc/stencil.cu runs up to {limit} sweeps "
+                               f"in one launch, TILE_MAX_SWEEPS says "
+                               f"{TILE_MAX_SWEEPS}")
+        _tile_limit_checked = True
+    return lib
+
+
+def momentum_launches(sweeps: int, sharded: bool) -> int:
+    """Kernel launches of one :func:`momentum_jacobi` call: one on an
+    unsharded grid up to ``TILE_MAX_SWEEPS`` sweeps (the seed alone, or
+    temporal tiles running every sweep); else one for the seed and one per
+    sweep (``sweeps``), as on a row-sharded grid, where every sweep waits
+    for the neighbours' rows of the previous iterate."""
+    if sweeps < 1:
+        raise ValueError(f"sweeps must be >= 1, got {sweeps}")
+    return 1 if not sharded and sweeps <= TILE_MAX_SWEEPS else sweeps
+
+
+def momentum_jacobi(r, dinv, off, sweeps: int, halo=None):
+    """``sweeps`` Jacobi sweeps of the momentum block from the seed
+    z = D^-1 r: z <- D^-1 (r - sum_s off[s] * shift_s(z)), both components.
+    ``r`` (2, ny, nx) float32 (r_u, r_v); ``dinv`` (ny, nx) (diag_u_inv2);
+    ``off`` (4, ny, nx) (off_mom).  ``halo``: on a row-sharded block, a
+    function of an iterate (2, ny, nx) that returns its (below, above) halo
+    rows (2, 1, nx) (one exchange); None clamps to the block's edges.
+    Returns z (2, ny, nx); launches :func:`momentum_launches` kernels."""
+    if sweeps < 1:
+        raise ValueError(f"sweeps must be >= 1, got {sweeps}")
+    if not _cuda_or_cpu(r):
+        return momentum_jacobi_ref(r, dinv, off, sweeps, halo)
+    ny, nx = r.shape[-2:]
+    dev = r.device
+    _check_all(dev, [("r", r, (2, ny, nx)), ("dinv", dinv, (ny, nx)),
+                     ("off", off, (4, ny, nx))])
+    lib = _stencil_lib()
+    if momentum_launches(sweeps, halo is not None) == 1:
+        out = torch.empty_like(r)
+        err = launch(lib.momentum_jacobi, dev, r.data_ptr(), dinv.data_ptr(),
+                     off.data_ptr(), out.data_ptr(), ny, nx, sweeps)
+        if err:
+            _raise_on(lib.stencil_error_string, err, "momentum_jacobi")
+        LAUNCHES["momentum_jacobi"] += 1
+        return out
+    z = None
+    for _ in range(sweeps):
+        dst = torch.empty_like(r)
+        below = above = None
+        if z is not None and halo is not None:
+            below, above = halo(z)
+            _check_all(dev, [("below", below, (2, 1, nx)),
+                             ("above", above, (2, 1, nx))])
+        err = launch(lib.momentum_sweep, dev, r.data_ptr(), dinv.data_ptr(),
+                     off.data_ptr(), _ptr(z), _ptr(below), _ptr(above),
+                     dst.data_ptr(), ny, nx)
+        if err:
+            _raise_on(lib.stencil_error_string, err, "momentum_jacobi")
+        LAUNCHES["momentum_jacobi"] += 1
+        z = dst
+    return z
+
+
+def schur_rhs(rp, z, d_pu, d_pv, off_pu, off_pv, below=None, above=None):
+    """The Schur right-hand side r_p - D_u z_u - D_v z_v.  ``rp`` (ny, nx),
+    ``z`` (2, ny, nx) (z_u, z_v), ``d_pu``/``d_pv`` (ny, nx), ``off_pu``/
+    ``off_pv`` (4, ny, nx), all float32; ``below``/``above`` (2, 1, nx): the
+    halo rows of z on a row-sharded block, or None.  Returns (ny, nx)."""
+    if not _cuda_or_cpu(z):
+        return schur_rhs_ref(rp, z, d_pu, d_pv, off_pu, off_pv, below, above)
+    ny, nx = z.shape[-2:]
+    dev = z.device
+    named = [("z", z, (2, ny, nx)), ("rp", rp, (ny, nx)),
+             ("d_pu", d_pu, (ny, nx)), ("d_pv", d_pv, (ny, nx)),
+             ("off_pu", off_pu, (4, ny, nx)), ("off_pv", off_pv, (4, ny, nx))]
+    if _halo_pair(below, above):
+        named += [("below", below, (2, 1, nx)), ("above", above, (2, 1, nx))]
+    _check_all(dev, named)
+    lib = _stencil_lib()
+    out = rp.new_empty((ny, nx))
+    err = launch(lib.schur_rhs, dev, rp.data_ptr(), z.data_ptr(),
+                 d_pu.data_ptr(), d_pv.data_ptr(), off_pu.data_ptr(),
+                 off_pv.data_ptr(), _ptr(below), _ptr(above), out.data_ptr(),
+                 ny, nx)
+    if err:
+        _raise_on(lib.stencil_error_string, err, "schur_rhs")
+    LAUNCHES["schur_rhs"] += 1
+    return out
+
+
+def pressure_gradient(zp, d_up, d_vp, off_up, off_vp, below=None,
+                      above=None):
+    """G z_p, the (u, v) rows' pressure coupling: (diag_up z_p + <off_up,
+    shifts(z_p)>, the same for v).  ``zp``/``d_up``/``d_vp`` (ny, nx),
+    ``off_up``/``off_vp`` (4, ny, nx), all float32; ``below``/``above``
+    (1, nx): the halo rows of z_p on a row-sharded block, or None.  Returns
+    (2, ny, nx)."""
+    if not _cuda_or_cpu(zp):
+        return pressure_gradient_ref(zp, d_up, d_vp, off_up, off_vp, below,
+                                     above)
+    ny, nx = zp.shape[-2:]
+    dev = zp.device
+    named = [("zp", zp, (ny, nx)), ("d_up", d_up, (ny, nx)),
+             ("d_vp", d_vp, (ny, nx)), ("off_up", off_up, (4, ny, nx)),
+             ("off_vp", off_vp, (4, ny, nx))]
+    if _halo_pair(below, above):
+        named += [("below", below, (1, nx)), ("above", above, (1, nx))]
+    _check_all(dev, named)
+    lib = _stencil_lib()
+    out = zp.new_empty((2, ny, nx))
+    err = launch(lib.pressure_gradient, dev, zp.data_ptr(), d_up.data_ptr(),
+                 d_vp.data_ptr(), off_up.data_ptr(), off_vp.data_ptr(),
+                 _ptr(below), _ptr(above), out.data_ptr(), ny, nx)
+    if err:
+        _raise_on(lib.stencil_error_string, err, "pressure_gradient")
+    LAUNCHES["pressure_gradient"] += 1
+    return out

@@ -19,6 +19,15 @@ rows and its ``decomp``: every shift takes the neighbouring ranks' edge rows
 (one exchange per shifted group of planes), the ADI predict's column solves
 take 15 ghost rows (:func:`_column_solves`), and every sum and norm is
 reduced across the ranks.
+
+The main path's operators (the matvec :func:`spmv_planar` and, in the Schur
+preconditioner, the Jacobi momentum predict, the Schur right-hand side and
+the pressure gradient) go through ``ops/stencil_kernels.py``: one
+hand-written CUDA kernel each on float32 CUDA tensors, the plain version on
+the CPU, bit-equal either way.  The other forms keep their plain ops on
+every device, by explicit branches: the bf16 preconditioner
+(:func:`cast_coeffs`), the red-black and ADI momentum predicts, the
+Chebyshev pressure sweeps and the presolve's pressure operator.
 """
 
 from __future__ import annotations
@@ -27,30 +36,34 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from . import stencil_kernels as sk
+from .stencil_kernels import dot4 as _dot4
+from .stencil_kernels import plane_shifts as _plane
 
-def _dot4(off: torch.Tensor, sh) -> torch.Tensor:
-    """sum_s off[s] * sh[s] for the 4 directional slots."""
-    return off[0] * sh[0] + off[1] * sh[1] + off[2] * sh[2] + off[3] * sh[3]
+
+def _halo(ss, x: torch.Tensor):
+    """``(below, above)``: the rows beyond this block of ``x`` (..., ny, nx)
+    for its N and S shifts; (None, None) unsharded (the block's own edge
+    rows), else from the neighbouring ranks, one exchange for all leading
+    planes."""
+    if ss.decomp is None:
+        return None, None
+    return ss.decomp.halo_rows(x, 1, dim=x.dim() - 2)
 
 
 def _shifts(ss, x: torch.Tensor):
     """Edge-clamped E, W, N, S neighbour planes of ``x`` (..., ny, nx); on a
     row-sharded system N and S read across an inner block edge from the
-    neighbouring ranks, one exchange for all leading planes."""
-    if ss.decomp is None:
-        below, above = x[..., :1, :], x[..., -1:, :]
-    else:
-        below, above = ss.decomp.halo_rows(x, 1, dim=x.dim() - 2)
-    e = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
-    w = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
-    n = torch.cat([x[..., 1:, :], above], dim=-2)
-    s = torch.cat([below, x[..., :-1, :]], dim=-2)
-    return e, w, n, s
+    neighbouring ranks."""
+    return sk.edge_shifts(x, *_halo(ss, x))
 
 
-def _plane(sh, i: int):
-    """Plane ``i``'s four shifts out of the shifts of a stack of planes."""
-    return tuple(t[i] for t in sh)
+def _kernels(x: torch.Tensor) -> bool:
+    """Whether an operator on ``x`` goes through stencil_kernels' wrappers
+    (the kernel for a CUDA tensor, the plain version for a CPU one).  The
+    bf16 form (SolverConfig.precond_bf16's :func:`cast_coeffs` system) keeps
+    its plain ops on every device: its kernels are still to come (ROADMAP)."""
+    return x.dtype is torch.float32
 
 
 def _sum(ss, x: torch.Tensor) -> torch.Tensor:
@@ -125,19 +138,13 @@ def spmv(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:
-    """y = A x with x, y of shape (3, ny, nx) (component planes)."""
-    xu, xv, xp = x[0], x[1], x[2]
-    sh = _shifts(ss, x)
-    su, sv, sp = _plane(sh, 0), _plane(sh, 1), _plane(sh, 2)
-
-    yu = ss.diag_u2 * xu + ss.diag_up2 * xp \
-        + _dot4(ss.off_mom, su) + _dot4(ss.off_up, sp)
-    yv = ss.diag_u2 * xv + ss.diag_vp2 * xp \
-        + _dot4(ss.off_mom, sv) + _dot4(ss.off_vp, sp)
-    yp = ss.diag_pu2 * xu + ss.diag_pv2 * xv + ss.diag_pp2 * xp \
-        + _dot4(ss.off_pu, su) + _dot4(ss.off_pv, sv) + _dot4(ss.off_pp, sp)
-
-    return torch.stack([yu, yv, yp])
+    """y = A x with x, y of shape (3, ny, nx) (component planes): the
+    ``coupled_spmv`` kernel on the card."""
+    offs = (ss.off_mom, ss.off_up, ss.off_vp, ss.off_pu, ss.off_pv,
+            ss.off_pp)
+    diags = (ss.diag_u2, ss.diag_up2, ss.diag_vp2, ss.diag_pu2, ss.diag_pv2,
+             ss.diag_pp2)
+    return sk.coupled_spmv(x, offs, diags, *_halo(ss, x))
 
 
 def chebyshev_pressure_solve2(ss: StencilSystem, rhs_p2: torch.Tensor,
@@ -153,21 +160,29 @@ def chebyshev_pressure_solve2(ss: StencilSystem, rhs_p2: torch.Tensor,
     return x_cur
 
 
+def _jacobi(ss: StencilSystem, r2: torch.Tensor, sweeps: int):
+    """The Jacobi momentum predict of the (2, ny, nx) block (r_u, r_v):
+    :func:`stencil_kernels.momentum_jacobi` (its kernel on the card), or its
+    plain version for the bf16 form."""
+    fn = sk.momentum_jacobi if _kernels(r2) else sk.momentum_jacobi_ref
+    halo = (None if ss.decomp is None
+            else lambda z: ss.decomp.halo_rows(z, 1, dim=1))
+    return fn(r2, ss.diag_u_inv2, ss.off_mom, sweeps, halo=halo)
+
+
 def _momentum_solve(ss: StencilSystem, r_u, r_v, sweeps: int,
                     rbgs: bool = False):
     """Approximate A_uu^{-1} applied to (r_u, r_v): Jacobi iteration seeded
     with the diagonal predict.  ``sweeps=1`` is the reference's SIMPLE
     diagonal approximation (schur_precond.wgsl:19-34); extra sweeps fold
     the momentum off-diagonals in.  ``rbgs=True`` makes each sweep a
-    red-black Gauss-Seidel sweep (two coloured half-passes)."""
+    red-black Gauss-Seidel sweep (two coloured half-passes; plain ops on
+    every device)."""
+    if not rbgs:
+        z = _jacobi(ss, torch.stack([r_u, r_v]), sweeps)
+        return z[0], z[1]
     z_u = ss.diag_u_inv2 * r_u
     z_v = ss.diag_u_inv2 * r_v
-    if not rbgs:
-        for _ in range(sweeps - 1):
-            sh = _shifts(ss, torch.stack([z_u, z_v]))
-            z_u = ss.diag_u_inv2 * (r_u - _dot4(ss.off_mom, _plane(sh, 0)))
-            z_v = ss.diag_u_inv2 * (r_v - _dot4(ss.off_mom, _plane(sh, 1)))
-        return z_u, z_v
     ny, nx = ss.grid
     dev = r_u.device
     row0 = 0 if ss.decomp is None else ss.decomp.r0    # the global colour
@@ -272,26 +287,33 @@ def _momentum_solve_adi(ss: StencilSystem, r_u, r_v, passes: int = 1,
 
 def _momentum_predict(ss: StencilSystem, mom_sweeps: int, mom_rbgs: bool,
                       mom_adi: int):
-    """The momentum block of the Schur preconditioner as a function of
-    (r_u, r_v): ``mom_adi`` ADI passes when > 0, else ``mom_sweeps`` Jacobi
-    (or red-black) sweeps."""
+    """The momentum block of the Schur preconditioner as a function of the
+    (2, ny, nx) block (r_u, r_v), returning (2, ny, nx): ``mom_adi`` ADI
+    passes when > 0, else ``mom_sweeps`` Jacobi (or red-black) sweeps.  The
+    Jacobi predict is :func:`_jacobi`; the red-black and ADI predicts keep
+    their plain ops (their kernels are still to come: ROADMAP)."""
+    if mom_adi <= 0 and not mom_rbgs:
+        return lambda r2: _jacobi(ss, r2, mom_sweeps)
     if mom_adi > 0:
-        return lambda a, b: _momentum_solve_adi(ss, a, b, passes=mom_adi)
-    return lambda a, b: _momentum_solve(ss, a, b, mom_sweeps, rbgs=mom_rbgs)
+        solve = lambda a, b: _momentum_solve_adi(ss, a, b, passes=mom_adi)
+    else:
+        solve = lambda a, b: _momentum_solve(ss, a, b, mom_sweeps, rbgs=True)
+    return lambda r2: torch.stack(solve(r2[0], r2[1]))
 
 
-def _schur_rhs(ss: StencilSystem, rp, z_u, z_v):
-    """r_p - D z: the pressure right-hand side after the momentum predict."""
-    sh = _shifts(ss, torch.stack([z_u, z_v]))
-    return rp - ss.diag_pu2 * z_u - ss.diag_pv2 * z_v \
-        - _dot4(ss.off_pu, _plane(sh, 0)) - _dot4(ss.off_pv, _plane(sh, 1))
+def _schur_rhs(ss: StencilSystem, rp, z):
+    """r_p - D z: the pressure right-hand side after the momentum predict
+    z (2, ny, nx)."""
+    fn = sk.schur_rhs if _kernels(z) else sk.schur_rhs_ref
+    return fn(rp, z, ss.diag_pu2, ss.diag_pv2, ss.off_pu, ss.off_pv,
+              *_halo(ss, z))
 
 
 def _gradient(ss: StencilSystem, z_p):
-    """G z_p, the (u, v) rows' pressure coupling."""
-    sp = _shifts(ss, z_p)
-    return (ss.diag_up2 * z_p + _dot4(ss.off_up, sp),
-            ss.diag_vp2 * z_p + _dot4(ss.off_vp, sp))
+    """G z_p (2, ny, nx), the (u, v) rows' pressure coupling."""
+    fn = sk.pressure_gradient if _kernels(z_p) else sk.pressure_gradient_ref
+    return fn(z_p, ss.diag_up2, ss.diag_vp2, ss.off_up, ss.off_vp,
+              *_halo(ss, z_p))
 
 
 def schur_precond_planar(ss: StencilSystem, r: torch.Tensor, omega: float,
@@ -305,14 +327,13 @@ def schur_precond_planar(ss: StencilSystem, r: torch.Tensor, omega: float,
     ``mom_adi`` > 0 replaces the Jacobi momentum predict with that many ADI
     passes, ``mom_rbgs`` makes its sweeps red-black."""
     mom = _momentum_predict(ss, mom_sweeps, mom_rbgs, mom_adi)
-    z_u, z_v = mom(r[0], r[1])
-    rhs_p = _schur_rhs(ss, r[2], z_u, z_v)
+    z = mom(r[:2])
+    rhs_p = _schur_rhs(ss, r[2], z)
     if pressure_solve is None:
         z_p = chebyshev_pressure_solve2(ss, rhs_p, omega, n_sweeps)
     else:
         z_p = pressure_solve(rhs_p)
-    gz_u, gz_v = mom(*_gradient(ss, z_p))
-    return torch.stack([z_u - gz_u, z_v - gz_v, z_p])
+    return torch.cat([z - mom(_gradient(ss, z_p)), z_p[None]])
 
 
 def schur_precond(ss: StencilSystem, r: torch.Tensor, omega: float,
@@ -362,14 +383,13 @@ def schur_guess(ss: StencilSystem, r: torch.Tensor, omega: float,
     the presolve (SolverConfig.presolve_pressure_iters).  It moves only the
     start point, so the solve's rtol/atol contract is untouched."""
     mom = _momentum_predict(ss, mom_sweeps, False, mom_adi)
-    z_u, z_v = mom(r[0], r[1])
-    rhs_p = _schur_rhs(ss, r[2], z_u, z_v)
+    z = mom(r[:2])
+    rhs_p = _schur_rhs(ss, r[2], z)
     if pressure_solve is None:
         pressure_solve = lambda rr: chebyshev_pressure_solve2(
             ss, rr, omega, n_sweeps)
     z_p = pcg_pressure(ss, rhs_p, pressure_solve, cg_iters)
-    gz_u, gz_v = mom(*_gradient(ss, z_p))
-    return torch.stack([z_u - gz_u, z_v - gz_v, z_p])
+    return torch.cat([z - mom(_gradient(ss, z_p)), z_p[None]])
 
 
 def to_planar(ss: StencilSystem, x: torch.Tensor) -> torch.Tensor:

@@ -30,15 +30,31 @@ Phases (any failure exits non-zero):
    latter beside the per-sweep chain of mom2 dots it replaces, bit-equal)
    and 2,400,000 x 6 (streamed form), under both flushes beside their
    read-once bounds with their launch plans, and their grid barrier; the
-   host's time per wrapper call;
+   four stencil kernels of ``csrc/stencil.cu`` (the coupled matvec, the
+   Jacobi momentum predict, the Schur right-hand side, the pressure
+   gradient) bit-equal to their plain versions on grids from 7x19 to
+   589x1765 (sweeps 1-14, with and without halo rows), timed at 589x1765
+   under both flushes beside their read-once bounds, their plain versions
+   and, but for the predict, the library's CSR product of the same
+   function (A x of the assembled 3N x 3N matrix, G z_p, r_p - D z); the
+   predict also as one launch per sweep, its row-sharded form; the host's
+   time per wrapper call;
 3. drive the main path: the 996,558-cell channel-obstacle mesh
    (min_cell=0.0017, 589x1765 grid), ``CoupledSolver`` with the structured
    multigrid (precond_type=1, fgmres_max_restarts=5), started from
-   ``bench_developed_1m.npz``: 3 untimed healing steps, then 3 timed steps;
+   ``bench_developed_1m.npz``: the four stencil kernels held bit for bit
+   against their plain versions on the solver's own assembled system, then
+   3 untimed healing steps and 3 timed steps: ``rbgs_leg`` 14 times per
+   FGMRES iteration, ``coupled_spmv`` once per matvec (the iterations' and
+   the true residuals'), ``schur_rhs`` and ``pressure_gradient`` once and
+   ``momentum_jacobi`` twice per FGMRES iteration, and the timed
+   steps' FGMRES iterations those recorded with the stencils as eager
+   PyTorch (90, 57, 28: bit-equal kernels keep them);
 4. the half-sweep path (CFD2_PALLAS=1) at full width: phase 3's solver
    restarted from its state after healing for 2 steps, with the outer
    iterations of phase 3's first two timed steps and their FGMRES
-   iterations within 2 per outer; 28 half-sweeps per FGMRES iteration;
+   iterations within 2 per outer; 28 half-sweeps per FGMRES iteration and
+   the stencil kernels at phase 3's rates;
 5. one step of a ~5k-cell mesh on the card (kernels) and on the CPU (plain
    versions): equal outer iterations, u within 1e-4 * max|u|;
 6. the unstructured main path: the 403,491-cell Delaunay channel-obstacle
@@ -113,7 +129,10 @@ Phases (any failure exits non-zero):
    one ``step`` and two ``multi_step_adaptive`` steps (CFL 0.5, h 0.0017), each
    against one process on the same padded mesh in the same call: equal outer
    counts, u within 1e-4 * max|u|, dt within 1e-9, ``rbgs_leg`` launched on
-   every rank; per rank FGMRES iterations, exchanges and all-reduces per
+   every rank and, in the step, the four stencil kernels on every rank at
+   their rates (the momentum predict in 8 launches per call there: the
+   ranks exchange the iterate's edge rows between sweeps); per rank FGMRES
+   iterations, exchanges and all-reduces per
    FGMRES iteration, bytes per exchange, walls; (b) ``banded_spmv_sharded``
    on phase 6's Delaunay mesh (403,584 device cells in 4 ranges of 100,896,
    halo = ``banded_bandwidth``) within 1e-5 * scale of ``ellsys.spmv`` on
@@ -571,7 +590,7 @@ def phase_banded_kernels(results):
     x6 = _rand((n, 6), 60, dev)
     err_g = max(err_g, _maxerr([bk.banded_gather(x6, idx)],
                                [bk.banded_gather_ref(x6, idx)]))
-    g_ms = cuda_time_ms(lambda: bk.banded_gather(x6, idx))
+    g_ms, g_read = both_flushes_ms(lambda: bk.banded_gather(x6, idx), 50)
     g_plain = cuda_time_ms(lambda: bk.banded_gather_ref(x6, idx))
     g_lib = cuda_time_ms(lambda: x6[idx_long])
     g_bound, g_by = bound_ms(B * (M * K + M * K * 6 + n * 6), 0)
@@ -606,7 +625,8 @@ def phase_banded_kernels(results):
     offs = [_rand((M, K), 64 + p, dev, 0.3) for p in range(n_off)]
     d_ref = bk.banded_dot_ref(xs, offs, idx, prods)
     err_d = max(err_d, _maxerr(bk.banded_dot(xs, offs, idx, prods), d_ref))
-    d_ms = cuda_time_ms(lambda: bk.banded_dot(xs, offs, idx, prods))
+    d_ms, d_read = both_flushes_ms(
+        lambda: bk.banded_dot(xs, offs, idx, prods), 50)
     d_plain = cuda_time_ms(lambda: bk.banded_dot_ref(xs, offs, idx, prods))
     # The library's call for the same function: the products as one sparse
     # CSR matrix (3M x 3n for the matvec, M x n for the scalar form) applied
@@ -689,16 +709,17 @@ def phase_banded_kernels(results):
         f"the plain dot {err_lib:.3e}")
     _check_banded_errs(err_g, err_d, err_s)
     rows = (("banded_gather", f"{BANDED_PALLAS}:378", err_g, g_ms, g_plain,
-             g_bound, g_by, g_lib),
+             g_bound, g_by, g_lib, g_read),
             ("banded_dot", f"{BANDED_PALLAS}:378", err_d, d_ms, d_plain,
-             d_bound, d_by, d_lib),
+             d_bound, d_by, d_lib, d_read),
             ("banded_jacobi_sweeps", f"{BANDED_PALLAS}:534", err_s,
-             *s_main, None))
-    for name, rep, err, ms, plain, bnd, by, lib in rows:
+             *s_main[:4], None, s_main[4]))
+    for name, rep, err, ms, plain, bnd, by, lib, ms_read in rows:
         results[name] = dict(
             name=name, route="cuda", source=BANDED_SRC, replaces=rep,
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=bnd, bound_by=by, library_ms=lib)
+            bound_ms=bnd, bound_by=by, library_ms=lib,
+            ms_read_flush=ms_read)
     log(f"phase 2: banded_gather at M={M}, K={K}, C=6: {g_ms:.4f} ms, bound "
         f"{g_bound:.4f} ms ({g_by}), plain {g_plain:.4f} ms, indexing call "
         f"{g_lib:.4f} ms")
@@ -784,7 +805,7 @@ def _time_sweeps(bk, main_idx):
                       "chain's bits")
         rows.append(line)
         if main is None:
-            main = (ms, plain, bnd, by)
+            main = (ms, plain, bnd, by, ms_read)
     # The grid barrier: the same launch over one row per thread of the
     # largest resident grid with no slots (k_cap = 0: z = dinv*r each
     # sweep), 8 sweeps against 1; and the timer's floor, one row.
@@ -965,14 +986,15 @@ def phase_kernels(results):
     xc = _rand(coarse_of((ny, nx)), 98, "cuda")
     # The main path's down leg at its finest grid: the fused form.
     down = "restrict" if fused else "residual"
-    leg_ms = cuda_time_ms(lambda: _leg(sk, down, x, diag2, off2, b, xc))
+    leg_ms, leg_read = both_flushes_ms(
+        lambda: _leg(sk, down, x, diag2, off2, b, xc), 50)
     leg_plain = cuda_time_ms(
         lambda: _leg(sk, down, x, diag2, off2, b, xc, plain=True))
     leg_bound, leg_by = bound_ms(LEG_FORMS[down] * 4 * n, 20 * n)
     res_ms = cuda_time_ms(lambda: sk.rbgs_leg(x, diag2, off2, b, 1, True))
     res_bound, _ = bound_ms(LEG_FORMS["residual"] * 4 * n, 20 * n)
     half_call, half_ref = _half_sweep_call(sk, x, diag2, off2, b, 0)
-    half_ms = cuda_time_ms(half_call)
+    half_ms, half_read = both_flushes_ms(half_call, 50)
     half_plain = cuda_time_ms(half_ref)
     # Reads x, diag, off (4 planes), b; writes x.  Half the cells do 10
     # flops.
@@ -997,20 +1019,231 @@ def phase_kernels(results):
         name="rbgs_leg", route="cuda", source="cfd2_tpu_torch/csrc/rbgs.cu",
         replaces="cfd2_tpu/ops/pallas_stencil.py:264", launches=0,
         max_abs_err=max(err_leg, err_fused), ms=leg_ms, plain_ms=leg_plain,
-        bound_ms=leg_bound, bound_by=leg_by, library_ms=None)
+        bound_ms=leg_bound, bound_by=leg_by, library_ms=None,
+        ms_read_flush=leg_read)
     results["rbgs_half_sweep"] = dict(
         name="rbgs_half_sweep", route="cuda",
         source="cfd2_tpu_torch/csrc/rbgs.cu",
         replaces="cfd2_tpu/ops/pallas_stencil.py:97", launches=0,
         max_abs_err=err_half, ms=half_ms, plain_ms=half_plain,
-        bound_ms=half_bound, bound_by=half_by, library_ms=None)
+        bound_ms=half_bound, bound_by=half_by, library_ms=None,
+        ms_read_flush=half_read)
     log(f"phase 2: rbgs_leg at {ny}x{nx}, down leg (sweeps=1, form "
         f"{down}): {leg_ms:.4f} ms, bound {leg_bound:.4f} ms ({leg_by}), "
         f"plain version {leg_plain:.4f} ms; unfused with residual "
         f"{res_ms:.4f} ms, bound {res_bound:.4f} ms")
     log(f"phase 2: rbgs_half_sweep at {ny}x{nx}: {half_ms:.4f} ms, bound "
         f"{half_bound:.4f} ms ({half_by}), plain {half_plain:.4f} ms")
+    if hasattr(sk, "coupled_spmv"):    # not in a --tree before the stencils
+        phase_stencil_kernels(results)
     phase_banded_kernels(results)
+
+
+# The stencil kernels of csrc/stencil.cu: name -> the function the JAX
+# package leaves to XLA (file:line).
+STENCIL_SRC = "cfd2_tpu_torch/csrc/stencil.cu"
+STENCIL_REPLACES = {
+    "coupled_spmv": "cfd2_tpu/ops/stencil_system.py:196",
+    "momentum_jacobi": "cfd2_tpu/ops/stencil_system.py:213",
+    "schur_rhs": "cfd2_tpu/ops/stencil_system.py:337",
+    "pressure_gradient": "cfd2_tpu/ops/stencil_system.py:345",
+}
+STENCIL_GRIDS = ((7, 19), (37, 53), (300, 128), MAIN_GRID)
+# Phase 3's timed steps' FGMRES iterations with the stencils as eager
+# PyTorch (every recorded run on an H100): bit-equal kernels keep them.
+EAGER_TIMED_LIN = (90, 57, 28)
+
+
+def _stencil_cases():
+    """tests/torch_spatial_ranks.py, which makes the seeded random stencil
+    systems and the four wrappers' calls that tests/test_torch_cuda.py
+    holds too (it imports torch, numpy and the port, no JAX)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_spatial_ranks
+    return torch_spatial_ranks
+
+
+def _hold_stencils(phase, sk, cases):
+    """The four stencil kernels against their plain versions, bit for bit:
+    ``cases`` is a list of (label, planes, sweeps); each with and without
+    halo rows (made up of the block's own rows, so that they differ from
+    the clamp).  Returns {kernel: max-abs error}; the caller takes the
+    launches made here off the counts."""
+    import torch
+    cc = _stencil_cases()
+    errs = {name: 0.0 for name in STENCIL_REPLACES}
+    unequal = []
+    for label, p, sweeps in cases:
+        for halo in (None, cc.made_up_halo):
+            got = cc.stencil_calls(p, halo, sweeps)
+            ref = cc.stencil_calls(p, halo, sweeps, plain=True)
+            for key in got:
+                a, b = got[key](), ref[key]()
+                name = key.split()[0]
+                errs[name] = max(errs[name], float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    unequal.append(f"{label} {key} halo={halo is not None}")
+    torch.cuda.synchronize()
+    log(f"phase {phase}: stencil kernels against their plain versions on "
+        + ", ".join(label for label, _, _ in cases) + " (with and without "
+        "halo rows): max-abs error "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; bit-equal: " + ("all" if not unequal else
+                             f"NOT {unequal[:6]}"))
+    check(not unequal, f"stencil kernels differ from their plain versions "
+          f"(tolerance: bit-equal): {unequal[:6]}")
+    return errs
+
+
+# Blocks of the coupled operator, (output plane, input plane, diagonal,
+# off-diagonal block): all of A = [[A_uu, G_u], [A_vv, G_v], [D_u, D_v,
+# A_pp]] (coupled_spmv), G (pressure_gradient: the (u, v) rows' p column)
+# and D (schur_rhs: the p row's (u, v) columns), each in its own numbering.
+CSR_BLOCKS = {
+    "coupled_spmv": ((3, 3), ((0, 0, "diag_u2", "off_mom"),
+                              (0, 2, "diag_up2", "off_up"),
+                              (1, 1, "diag_u2", "off_mom"),
+                              (1, 2, "diag_vp2", "off_vp"),
+                              (2, 0, "diag_pu2", "off_pu"),
+                              (2, 1, "diag_pv2", "off_pv"),
+                              (2, 2, "diag_pp2", "off_pp"))),
+    "pressure_gradient": ((2, 1), ((0, 0, "diag_up2", "off_up"),
+                                   (1, 0, "diag_vp2", "off_vp"))),
+    "schur_rhs": ((1, 2), ((0, 0, "diag_pu2", "off_pu"),
+                           (0, 1, "diag_pv2", "off_pv"))),
+}
+
+
+def _csr(p, name):
+    """The blocks ``CSR_BLOCKS[name]`` of the coupled operator of planes
+    ``p`` as one sparse CSR matrix of flattened planes, edge-clamped
+    neighbours summed into their own column: the library call's operand
+    (cuSPARSE through torch.mv / torch.addmv)."""
+    import torch
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    (n_out, n_in), blocks = CSR_BLOCKS[name]
+    ny, nx = p["zp"].shape
+    n = ny * nx
+    idx = torch.arange(n, device="cuda").view(ny, nx)
+    nbr = [t.reshape(-1) for t in sk.edge_shifts(idx)]
+    own = idx.reshape(-1)
+    rows, cols, vals = [], [], []
+    for out_c, in_c, diag, off in blocks:
+        for col, val in zip([own] + nbr, [p[diag]] + list(p[off])):
+            rows.append(out_c * n + own)
+            cols.append(in_c * n + col)
+            vals.append(val.reshape(-1))
+    a = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                             torch.cat(cols)]),
+                                torch.cat(vals), (n_out * n, n_in * n))
+    return a.coalesce().to_sparse_csr()
+
+
+def _library_calls(p):
+    """{kernel: one PyTorch call of the same function on planes ``p``}: the
+    CSR products y = A x, G z_p and r_p - D z (torch.addmv, alpha -1)."""
+    import torch
+    ny, nx = p["zp"].shape
+    a, g, d = (_csr(p, k) for k in ("coupled_spmv", "pressure_gradient",
+                                    "schur_rhs"))
+    x, zp, z = (p[k].reshape(-1) for k in ("x", "zp", "z"))
+    rp = p["r"][2].reshape(-1)
+    return {"coupled_spmv": lambda: torch.mv(a, x).view(3, ny, nx),
+            "pressure_gradient": lambda: torch.mv(g, zp).view(2, ny, nx),
+            "schur_rhs": lambda: torch.addmv(rp, d, z, alpha=-1).view(ny, nx)
+            }, sum(m._nnz() for m in (a, g, d))
+
+
+def _stencil_bounds(ny, nx, sweeps):
+    """{kernel: (bytes, flops)}: each input read once and each output
+    written once, in float32, and the operations these inputs need."""
+    n = ny * nx
+    return {"coupled_spmv": (36 * 4 * n, 67 * n),
+            "momentum_jacobi": (9 * 4 * n, (2 + 18 * (sweeps - 1)) * n),
+            "schur_rhs": (14 * 4 * n, 20 * n),
+            "pressure_gradient": (13 * 4 * n, 18 * n)}
+
+
+def phase_stencil_kernels(results):
+    """Phase 2's part for csrc/stencil.cu: each kernel bit-equal to its
+    plain version on small grids and at 589x1765 (sweeps 1-14, with and
+    without halo rows), timed there under both flushes beside its bound,
+    its plain version and the library's CSR product of the same function
+    (none for the predict's sweeps)."""
+    import torch
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+
+    cc = _stencil_cases()
+    before = dict(sk.LAUNCHES)
+    cases = [(f"{ny}x{nx}", cc.stencil_tensors((ny, nx), 7 + i, "cuda"),
+              tuple(range(1, 15)) if ny * nx < 100_000 else (1, 2, 8, 12, 14))
+             for i, (ny, nx) in enumerate(STENCIL_GRIDS)]
+    errs = _hold_stencils(2, sk, cases)
+    ny, nx = MAIN_GRID
+    p = cases[-1][1]
+    sweeps = 8
+    calls = cc.stencil_calls(p, sweeps=(sweeps,))
+    plain = cc.stencil_calls(p, sweeps=(sweeps,), plain=True)
+    bounds = _stencil_bounds(ny, nx, sweeps)
+    t0 = time.time()
+    library, nnz = _library_calls(p)
+    lib_err = {}
+    for name, lib in library.items():
+        got, ref = lib(), calls[name]()
+        lib_err[name] = float((got - ref).abs().max())
+        # Another order of sums (edge neighbours summed into one column,
+        # cuSPARSE's row order): within 1e-5 of the largest magnitude.
+        check(lib_err[name] <= 1e-5 * float(ref.abs().max()),
+              f"the library's CSR product differs from {name}: max-abs "
+              f"{lib_err[name]:.3e}")
+    log(f"phase 2: A, G and D as CSR matrices ({nnz} nonzeros) in "
+        f"{time.time() - t0:.1f} s; the library calls against the kernels, "
+        "max-abs (another order of sums): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in lib_err.items()))
+    rows = []
+    for name in STENCIL_REPLACES:
+        key = name if name != "momentum_jacobi" else f"{name} {sweeps}"
+        ms, ms_read = both_flushes_ms(calls[key])
+        plain_ms = cuda_time_ms(plain[key], reps=20)
+        lib_ms = (cuda_time_ms(library[name]) if name in library else None)
+        bnd, by = bound_ms(*bounds[name])
+        rows.append(f"{name} {ms:.4f} / {ms_read:.4f} / {bnd:.4f} ({by}) / "
+                    f"plain {plain_ms:.4f}"
+                    + ("" if lib_ms is None else f" / CSR {lib_ms:.4f}"))
+        results[name] = dict(
+            name=name, route="cuda", source=STENCIL_SRC,
+            replaces=STENCIL_REPLACES[name], launches=0,
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+            bound_by=by, library_ms=lib_ms, ms_read_flush=ms_read)
+    del library
+    n_launch = sk.momentum_launches(sweeps, False)
+    log(f"phase 2: stencil kernels at {ny}x{nx} (momentum_jacobi {sweeps} "
+        f"sweeps, {n_launch} launch{'es' if n_launch > 1 else ''}), ms / ms "
+        "under the read flush / read-once bound ms / plain ms / library ms: "
+        + "; ".join(rows))
+    # The per-sweep launches (the seed, then one launch per sweep: the
+    # row-sharded form), here with the block's own edge rows as its halo.
+    r2, dinv, off = p["r"][:2], p["diag_u_inv2"], p["off_mom"]
+    own = lambda z: (z[:, :1].contiguous(), z[:, -1:].contiguous())
+    per = lambda: sk.momentum_jacobi(r2, dinv, off, sweeps, halo=own)
+    check(torch.equal(per(), calls[f"momentum_jacobi {sweeps}"]()),
+          "the per-sweep launches differ from the temporal tiles")
+    p_ms, p_read = both_flushes_ms(per)
+    one = cc.stencil_calls(p, sweeps=(1,))["momentum_jacobi 1"]
+    m1, m1_read = both_flushes_ms(one)
+    log(f"phase 2: momentum_jacobi {sweeps} sweeps as {sweeps} per-sweep "
+        f"launches (the row-sharded form) {p_ms:.4f} / {p_read:.4f} ms, "
+        f"bit-equal to the temporal tiles; 1 sweep (the seed alone) "
+        f"{m1:.4f} / {m1_read:.4f} ms")
+    sp_ = cc.stencil_tensors((37, 111), 5, "cuda")
+    h_k = {k: host_us(c) for k, c in cc.stencil_calls(sp_).items()}
+    h_p = {k: host_us(c, reps=50) for k, c in
+           cc.stencil_calls(sp_, plain=True).items()}
+    log("phase 2: host time per call, kernel / plain version: "
+        + ", ".join(f"{k} {h_k[k]:.1f} / {h_p[k]:.1f} us" for k in h_k))
+    sk.LAUNCHES.update(before)
 
 
 def _channel(min_cell):
@@ -1043,11 +1276,47 @@ def _finite(s):
         bool(torch.isfinite(s.state.p).all())
 
 
+def _main_steps(s, ctx, n):
+    """Phase 3's 3 healing and 3 timed steps, the launch counts zeroed just
+    before; returns the FGMRES iterations of all six and the timed steps'
+    (outers, FGMRES iterations)."""
+    import torch
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.runtime import host_reads
+    sk.reset_launches()
+    lin_total = 0
+    timed = []
+    for i in range(6):
+        if i == 3:   # the developed state phase 4 starts from
+            ctx["main"] = dict(solver=s, state=s.state, params=s.params,
+                               timed=timed)
+        host_reads.reset()
+        before = dict(sk.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        outer = int(s.state.outer_iters)
+        lins = int(s.state.linear_iters_total)
+        lin_total += lins
+        step_launch = {k: v - before[k] for k, v in sk.LAUNCHES.items()}
+        kind = "heal" if i < 3 else "timed"
+        if i >= 3:
+            timed.append((outer, lins))
+        log(f"phase 3: {kind} step {i}: wall {wall:.4f} s, outer_iters "
+            f"{outer}, linear_iters_total {lins}, cell-updates/s "
+            f"{n / wall:.1f}, host reads {host_reads.COUNT['reads']}, "
+            f"launches {step_launch}")
+        check(_finite(s), f"non-finite fields after step {i}")
+    return lin_total, timed
+
+
 def phase_main(results, ctx):
     import torch
     from cfd2_tpu_torch.convert import load_developed_state
     from cfd2_tpu_torch.ops import stencil_kernels as sk
-    from cfd2_tpu_torch.runtime import host_reads
+    from cfd2_tpu_torch.ops import stencil_system as st
 
     t0 = time.time()
     mesh = _channel(0.0017)
@@ -1071,37 +1340,30 @@ def phase_main(results, ctx):
 
     ctx["main_mesh"] = mesh             # phase 12 encodes it again, padded
     n = mesh.num_cells
-    sk.reset_launches()
-    lin_total = 0
-    timed = []
-    for i in range(6):
-        if i == 3:   # the developed state phase 4 starts from
-            ctx["main"] = dict(solver=s, state=s.state, params=s.params,
-                               timed=timed)
-        host_reads.reset()
-        before = dict(sk.LAUNCHES)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        s.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        st = s.state
-        outer = int(st.outer_iters)
-        lins = int(st.linear_iters_total)
-        lin_total += lins
-        step_launch = {k: v - before[k] for k, v in sk.LAUNCHES.items()}
-        kind = "heal" if i < 3 else "timed"
-        if i >= 3:
-            timed.append((outer, lins))
-        log(f"phase 3: {kind} step {i}: wall {wall:.4f} s, outer_iters "
-            f"{outer}, linear_iters_total {lins}, cell-updates/s "
-            f"{n / wall:.1f}, host reads {host_reads.COUNT['reads']}, "
-            f"launches {step_launch}")
-        check(_finite(s), f"non-finite fields after step {i}")
-    leg = sk.LAUNCHES["rbgs_leg"]
-    if "rbgs_leg" in results:          # phase 2 ran and made the entry
-        results["rbgs_leg"]["launches"] = leg
-    _path_launches(results, "structured (phase 3)", {"rbgs_leg": leg})
+    ms = s.config.mom_sweeps(s.mesh.total_cells)
+    _hold_on_assembled_system(results, s, ms)
+    # Every matvec of the solves (the FGMRES iterations' and the true
+    # residuals'), counted apart from the kernel's own launch count.
+    matvecs = [0]
+    spmv_planar = st.spmv_planar
+
+    def counted(*a, **k):
+        matvecs[0] += 1
+        return spmv_planar(*a, **k)
+
+    st.spmv_planar = counted
+    try:
+        lin_total, timed = _main_steps(s, ctx, n)
+    finally:
+        st.spmv_planar = spmv_planar
+    counts = dict(sk.LAUNCHES)
+    leg = counts["rbgs_leg"]
+    for name, cnt in counts.items():
+        if name in results and name != "rbgs_half_sweep":
+            results[name]["launches"] = cnt
+    _path_launches(results, "structured (phase 3)",
+                   {k: v for k, v in counts.items()
+                    if k != "rbgs_half_sweep"})
     check(leg > 0, "rbgs_leg was never launched on the main path")
     per_apply = 2 * len(grids)
     check(leg == per_apply * lin_total,
@@ -1109,7 +1371,72 @@ def phase_main(results, ctx):
           f"application x {lin_total} applications")
     log(f"phase 3: rbgs_leg launches {leg} = {per_apply} per V-cycle x "
         f"{lin_total} FGMRES iterations; rbgs_half_sweep "
-        f"{sk.LAUNCHES['rbgs_half_sweep']}")
+        f"{counts['rbgs_half_sweep']}")
+    _check_stencil_rates(3, counts, lin_total, ms, False, matvecs[0])
+    lins = tuple(lin for _, lin in timed)
+    log(f"phase 3: timed steps' outers {[o for o, _ in timed]} and FGMRES "
+        f"iterations {list(lins)}; with the eager stencils, recorded: "
+        f"FGMRES iterations {list(EAGER_TIMED_LIN)}")
+    check(lins == EAGER_TIMED_LIN, f"timed FGMRES iterations {lins} != "
+          f"the eager stencils' {EAGER_TIMED_LIN}: the stencil kernels "
+          "changed the path's arithmetic")
+
+
+def _check_stencil_rates(phase, counts, lin, ms, sharded, matvecs=None):
+    """The stencil kernels' launches on a structured run of ``lin`` FGMRES
+    iterations (one preconditioner application each): per application one
+    Schur right-hand side, one gradient and two momentum predicts of
+    ``momentum_launches(ms)`` launches; one matvec per ``matvecs`` call
+    (the iterations' and the true residuals')."""
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    per = max(lin, 1)
+    mom = 2 * sk.momentum_launches(ms, sharded) * lin
+    log(f"phase {phase}: stencil kernels per FGMRES iteration: "
+        + ", ".join(f"{k} {counts[k] / per:.2f}" for k in STENCIL_REPLACES)
+        + f", rbgs_leg {counts['rbgs_leg'] / per:.2f}; hand kernels "
+        f"{sum(counts.values()) / per:.2f} per iteration")
+    for name in STENCIL_REPLACES:
+        check(counts[name] > 0, f"{name} was never launched on the path")
+    check(counts["schur_rhs"] == lin and counts["pressure_gradient"] == lin,
+          f"schur_rhs {counts['schur_rhs']} / pressure_gradient "
+          f"{counts['pressure_gradient']} launches != one per FGMRES "
+          f"iteration ({lin})")
+    check(counts["momentum_jacobi"] == mom,
+          f"momentum_jacobi launches {counts['momentum_jacobi']} != 2 x "
+          f"{sk.momentum_launches(ms, sharded)} per FGMRES iteration "
+          f"({mom})")
+    if matvecs is not None:
+        check(counts["coupled_spmv"] == matvecs and matvecs > lin,
+              f"coupled_spmv launches {counts['coupled_spmv']}, matvecs "
+              f"{matvecs}, FGMRES iterations {lin}")
+        log(f"phase {phase}: coupled_spmv {matvecs} = {lin} FGMRES "
+            f"iterations + {matvecs - lin} true residuals")
+
+
+def _hold_on_assembled_system(results, s, ms):
+    """Phase 3, before stepping: the four stencil kernels bit-equal to
+    their plain versions on the solver's own system, assembled from its
+    developed state (the predicts at the path's ``ms`` sweeps and at 1)."""
+    import torch
+    from cfd2_tpu_torch.models.assembly import assemble_stencil, prepare
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    ss = assemble_stencil(s.mesh, prepare(s.mesh, s.state, s.params,
+                                          s.config), s.params, s.config)
+    cc = _stencil_cases()
+    p = {k: getattr(ss, k) for k in cc.OFF_NAMES + cc.DIAG_NAMES
+         + ("diag_u_inv2",)}
+    ny, nx = ss.grid
+    g = torch.Generator(device="cuda").manual_seed(31)
+    p.update({k: torch.randn(*shape, generator=g, device="cuda")
+              for k, shape in (("x", (3, ny, nx)), ("r", (3, ny, nx)),
+                               ("z", (2, ny, nx)), ("zp", (ny, nx)))})
+    before = dict(sk.LAUNCHES)
+    errs = _hold_stencils(3, sk, [("the assembled system", p, (1, ms))])
+    sk.LAUNCHES.update(before)
+    for name, err in errs.items():
+        if name in results:
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
 
 
 def phase_half_sweep(results, ctx):
@@ -1162,10 +1489,13 @@ def phase_half_sweep(results, ctx):
     if "rbgs_half_sweep" in results:
         results["rbgs_half_sweep"]["launches"] = counts["rbgs_half_sweep"]
     _path_launches(results, "half-sweep (phase 4)",
-                   {"rbgs_half_sweep": counts["rbgs_half_sweep"]})
+                   {k: v for k, v in counts.items() if k != "rbgs_leg"})
     per_apply = 2 * 2 * len(grids)   # 2 half-sweeps x 2 smooths per level
     log(f"phase 4: {MAIN_CELLS} cells, launches {counts} over {lin_total} "
         f"FGMRES iterations ({per_apply} half-sweeps per V-cycle)")
+    if "coupled_spmv" in counts:
+        _check_stencil_rates(4, counts, lin_total,
+                             s.config.mom_sweeps(s.mesh.total_cells), False)
     check(counts["rbgs_half_sweep"] == per_apply * lin_total,
           f"rbgs_half_sweep launches {counts['rbgs_half_sweep']} != "
           f"{per_apply} per V-cycle x {lin_total} FGMRES iterations")
@@ -2561,6 +2891,7 @@ def _p12_rank(rank, world, device, path):
     from dataclasses import replace
     import torch
     from cfd2_tpu_torch.models.coupled import multi_step_adaptive, step
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
     from cfd2_tpu_torch.ops.amg import split_level
     from cfd2_tpu_torch.parallel import spatial as sp
     from cfd2_tpu_torch.parallel.batch import (batched_params, gather_batch,
@@ -2585,7 +2916,8 @@ def _p12_rank(rank, world, device, path):
         lambda: step(mesh, state, params_r, config, amg_r))
     out["step"] = dict(u=s1.u.cpu().numpy(), outer=int(s1.outer_iters),
                        lin=int(s1.linear_iters_total), wall=wall, leg=leg,
-                       counts=counts, reads=reads)
+                       counts=counts, reads=reads,
+                       launches=dict(sk.LAUNCHES))
     for kind, dt0 in (("adaptive", None), ("adaptive, dt capped", 1e-4)):
         p0 = params_r if dt0 is None else replace(
             params_r, dt=torch.full_like(params_r.dt, dt0))
@@ -2930,10 +3262,16 @@ def phase_sharded_main(results, ctx, path):
         else:
             check(dterr <= 1e-9, f"{kind}: dt differs by {dterr:.3e}")
     legs = [r["step"]["leg"] for r in res]
+    launches = [r["step"]["launches"] for r in res]
     _path_launches(results, "row-sharded 1M step, 4 ranks (phase 12a)",
-                   {"rbgs_leg": sum(legs)})
+                   {k: sum(c[k] for c in launches) for k in launches[0]
+                    if k != "rbgs_half_sweep"})
     log(f"phase 12a: rbgs_leg per rank {legs} in the step (one process "
         f"{leg1})")
+    ms = config.mom_sweeps(dm.total_cells)
+    for k, r in enumerate(res):
+        _check_stencil_rates(f"12a rank {k}", r["step"]["launches"],
+                             r["step"]["lin"], ms, True)
 
     # 12(c): the sweep, one case per rank.
     sweep = res[0]["sweep"]

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_spatial_ranks as ranks
 from cfd2_tpu_torch.ops import banded_kernels as bk
 from cfd2_tpu_torch.ops import stencil_kernels as sk
 
@@ -128,6 +129,119 @@ def test_wrapper_refuses_bad_input(cuda):
                            .transpose(1, 2), b, 0)
     with pytest.raises(ValueError):
         sk.rbgs_half_sweep(x, diag2, off2[:, :, :23], b, 0)
+
+
+# ----------------------------------------------------------------------
+# The stencil kernels (csrc/stencil.cu): bit-equal to their plain versions.
+
+STENCIL_GRIDS = [(7, 19), (37, 53), (300, 128), (589, 1765)]
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("ny,nx", STENCIL_GRIDS)
+def test_stencil_kernels_equal_plain_bit_for_bit(cuda, ny, nx, halo):
+    """All four kernels, the predict at sweeps 1-14 (one launch of temporal
+    tiles up to 12, one per sweep above), with and without halo rows:
+    max-abs error 0."""
+    p = ranks.stencil_tensors((ny, nx), 40 + ny, cuda)
+    kw = dict(halo=ranks.made_up_halo if halo else None,
+              sweeps=tuple(range(1, 15)))
+    got = ranks.stencil_kernels(p, **kw)
+    ref = ranks.stencil_kernels(p, plain=True, **kw)
+    for key, r in ref.items():
+        np.testing.assert_array_equal(got[key], r, err_msg=key)
+
+
+def test_stencil_kernels_count_their_launches(cuda):
+    p = ranks.stencil_tensors((37, 53), 3, cuda)
+    offs = tuple(p[k] for k in ("off_mom", "off_up", "off_vp", "off_pu",
+                                "off_pv", "off_pp"))
+    diags = tuple(p[k] for k in ("diag_u2", "diag_up2", "diag_vp2",
+                                 "diag_pu2", "diag_pv2", "diag_pp2"))
+    sk.reset_launches()
+    sk.coupled_spmv(p["x"], offs, diags)
+    sk.schur_rhs(p["r"][2], p["z"], p["diag_pu2"], p["diag_pv2"],
+                 p["off_pu"], p["off_pv"])
+    sk.pressure_gradient(p["zp"], p["diag_up2"], p["diag_vp2"], p["off_up"],
+                         p["off_vp"])
+    for sweeps in (1, 2, 8, 12, 14):
+        sk.momentum_jacobi(p["r"][:2], p["diag_u_inv2"], p["off_mom"], sweeps)
+        sk.momentum_jacobi(p["r"][:2], p["diag_u_inv2"], p["off_mom"], sweeps,
+                           halo=ranks.made_up_halo)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["coupled_spmv"] == 1
+    assert sk.LAUNCHES["schur_rhs"] == sk.LAUNCHES["pressure_gradient"] == 1
+    assert sk.LAUNCHES["momentum_jacobi"] == ((1 + 1 + 1 + 1 + 14)
+                                              + (1 + 2 + 8 + 12 + 14))
+
+
+def test_stencil_wrappers_refuse_bad_input(cuda):
+    p = ranks.stencil_tensors((16, 24), 4, cuda)
+    offs = tuple(p[k] for k in ("off_mom", "off_up", "off_vp", "off_pu",
+                                "off_pv", "off_pp"))
+    diags = tuple(p[k] for k in ("diag_u2", "diag_up2", "diag_vp2",
+                                 "diag_pu2", "diag_pv2", "diag_pp2"))
+    before = dict(sk.LAUNCHES)
+    with pytest.raises(TypeError):
+        sk.coupled_spmv(p["x"].to(torch.bfloat16), offs, diags)
+    with pytest.raises(ValueError):
+        sk.coupled_spmv(p["x"], offs[:5] + (offs[5].transpose(1, 2)
+                                             .contiguous().transpose(1, 2),),
+                        diags)
+    with pytest.raises(ValueError):
+        sk.momentum_jacobi(p["r"][:2], p["diag_u_inv2"][:, :23],
+                           p["off_mom"], 8)
+    with pytest.raises(ValueError):
+        sk.schur_rhs(p["r"][2], p["z"], p["diag_pu2"], p["diag_pv2"],
+                     p["off_pu"], p["off_pv"], below=p["z"][:, :1])
+    with pytest.raises(TypeError):
+        sk.pressure_gradient(p["zp"].double(), p["diag_up2"], p["diag_vp2"],
+                             p["off_up"], p["off_vp"])
+    assert sk.LAUNCHES == before
+    # Mis-shaped halo rows come back from the exchange after the seed's
+    # launch, and are refused before the first sweep's.
+    with pytest.raises(ValueError):
+        sk.momentum_jacobi(p["r"][:2], p["diag_u_inv2"], p["off_mom"], 8,
+                           halo=lambda z: (z[:, :1], z[:, :2]))
+    assert sk.LAUNCHES == {**before,
+                           "momentum_jacobi": before["momentum_jacobi"] + 1}
+
+
+def test_preconditioner_dispatch_on_the_card(cuda):
+    """schur_precond_planar on a float32 system on the card goes through
+    the four kernels (one Schur right-hand side, one gradient, two
+    predicts) and equals the plain sequence bit for bit; its bf16 form
+    launches none of them."""
+    from cfd2_tpu_torch.ops import stencil_system as st
+    p = ranks.stencil_tensors((37, 53), 5, cuda)
+    fields = {k: p[k] for k in ("off_mom", "off_up", "off_vp", "off_pu",
+                                "off_pv", "off_pp", "diag_u2", "diag_up2",
+                                "diag_vp2", "diag_pu2", "diag_pv2",
+                                "diag_pp2", "diag_u_inv2")}
+    p_off = -0.2 * torch.ones((4, 37, 53), device=cuda)
+    ss = st.StencilSystem(grid=(37, 53), P_off2=p_off,
+                          P_diag2=torch.full((37, 53), 2.0, device=cuda),
+                          diag_p_inv2=torch.full((37, 53), 0.5, device=cuda),
+                          rhs=torch.zeros((37 * 53, 3), device=cuda),
+                          **fields)
+    sk.reset_launches()
+    got = st.schur_precond_planar(ss, p["r"], 1.2, 4, mom_sweeps=8)
+    assert sk.LAUNCHES["schur_rhs"] == sk.LAUNCHES["pressure_gradient"] == 1
+    assert sk.LAUNCHES["momentum_jacobi"] == 2
+    z = sk.momentum_jacobi_ref(p["r"][:2], p["diag_u_inv2"], p["off_mom"], 8)
+    rhs = sk.schur_rhs_ref(p["r"][2], z, p["diag_pu2"], p["diag_pv2"],
+                           p["off_pu"], p["off_pv"])
+    zp = st.chebyshev_pressure_solve2(ss, rhs, 1.2, 4)
+    g = sk.pressure_gradient_ref(zp, p["diag_up2"], p["diag_vp2"],
+                                 p["off_up"], p["off_vp"])
+    gz = sk.momentum_jacobi_ref(g, p["diag_u_inv2"], p["off_mom"], 8)
+    assert torch.equal(got, torch.stack([z[0] - gz[0], z[1] - gz[1], zp]))
+    sk.reset_launches()
+    ss16 = st.cast_coeffs(ss, torch.bfloat16)
+    st.schur_precond_planar(ss16, p["r"].to(torch.bfloat16), 1.2, 4,
+                            mom_sweeps=8)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in sk.LAUNCHES.values())
 
 
 # ----------------------------------------------------------------------
@@ -542,7 +656,6 @@ def test_row_sharded_step_on_the_card_equals_one_process(cuda):
     (blocks of 20 rows, structured multigrid): equal outer counts on both
     ranks and against one process on the card, u within 1e-5, and every
     rank launched rbgs_leg."""
-    import torch_spatial_ranks as ranks
     from cfd2_tpu_torch.mesh import ChannelWithObstacle, \
         generate_cut_cell_mesh
     from cfd2_tpu_torch.models.coupled import step
@@ -583,7 +696,6 @@ def test_row_sharded_option_on_the_card_equals_one_process(cuda, name, run):
     column solves on blocks of 20 rows plus 15 ghost rows, ``rbgs_leg`` on
     both ranks): equal outer counts on both ranks and against one process
     on the card, u within 1e-5."""
-    import torch_spatial_ranks as ranks
     from cfd2_tpu_torch.mesh import ChannelWithObstacle, \
         generate_cut_cell_mesh
     from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh

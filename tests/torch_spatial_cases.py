@@ -105,12 +105,17 @@ def rank_runs(mesh, u0, runs: dict, timeout: float = 600) -> list:
 
 def all_runs(runs: dict, timeout: float = 600) -> dict:
     """The three ways of every run: ``jax``, ``one`` (the port in one
-    process) and ``ranks``.  The ranks run in their spawned processes while
-    this one compiles the JAX steps."""
+    process) and ``ranks``.  The JAX package's sharded steps run first, with
+    nothing else of this fixture beside them: run beside the spawning and
+    running ranks, they once aborted this process (SIGABRT under the full
+    suite's load; pytest-xdist then reports the crash against the file's
+    first case).  The ranks then run in their spawned processes while this
+    one runs the port's one-process steps."""
     mesh, u0 = channel()
+    out = dict(jax=jax_runs(mesh, u0, runs))
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(rank_runs, mesh, u0, runs, timeout)
-        out = dict(jax=jax_runs(mesh, u0, runs), one=port_runs(mesh, u0, runs))
+        out["one"] = port_runs(mesh, u0, runs)
         out["ranks"] = spawned.result()
     return out
 

@@ -349,3 +349,101 @@ def option_runs_over(rank, world, device, worlds, host_mesh, pad_rows_to, u0,
         return out
 
     return _over(rank, world, worlds, group_runs)
+
+
+# The coupled system's planes in the order of coupled_spmv's operands.
+OFF_NAMES = ("off_mom", "off_up", "off_vp", "off_pu", "off_pv", "off_pp")
+DIAG_NAMES = ("diag_u2", "diag_up2", "diag_vp2", "diag_pu2", "diag_pv2",
+              "diag_pp2")
+
+
+def stencil_planes(grid, seed: int) -> dict:
+    """A seeded random coupled system in stencil form on ``grid`` (numpy,
+    float32): the six (4, ny, nx) off-diagonal blocks, the six diagonals,
+    D_u^-1, and the operands of the four stencil kernels (x (3, ny, nx), r
+    (3, ny, nx), z (2, ny, nx), z_p (ny, nx))."""
+    ny, nx = grid
+    rng = np.random.default_rng(seed)
+    f = lambda a: a.astype(np.float32)
+    out = {name: f(rng.standard_normal((4, ny, nx)) * 0.1)
+           for name in OFF_NAMES}
+    out.update({name: f(rng.uniform(1.0, 2.0, (ny, nx)))
+                for name in ("diag_u2", "diag_pp2")})
+    out.update({name: f(rng.standard_normal((ny, nx)) * 0.5)
+                for name in ("diag_up2", "diag_vp2", "diag_pu2",
+                             "diag_pv2")})
+    out["diag_u_inv2"] = f(1.0 / out["diag_u2"])
+    out.update(x=f(rng.standard_normal((3, ny, nx))),
+               r=f(rng.standard_normal((3, ny, nx))),
+               z=f(rng.standard_normal((2, ny, nx))),
+               zp=f(rng.standard_normal((ny, nx))))
+    return out
+
+
+def stencil_tensors(grid, seed: int, device="cpu") -> dict:
+    """:func:`stencil_planes` as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in stencil_planes(grid, seed).items()}
+
+
+def made_up_halo(t):
+    """Halo rows of a block ``t`` (..., ny, nx) that differ from the clamp
+    (as a row-sharded block's do): (below, above) (..., 1, nx)."""
+    return ((0.5 * t[..., -1:, :]).contiguous(),
+            t[..., :1, :].flip(-1).contiguous())
+
+
+def stencil_calls(planes: dict, halo=None, sweeps=(1, 2, 8),
+                  plain: bool = False) -> dict:
+    """No-argument calls of the four stencil wrappers of
+    ``ops/stencil_kernels.py`` on ``planes`` (tensors), keyed by kernel
+    (``momentum_jacobi <sweeps>`` for each of ``sweeps``): the kernels on
+    CUDA tensors, the plain versions on CPU ones (``plain``: the plain
+    versions everywhere).  ``halo(t)``: the (below, above) rows of a block
+    ``t`` (..., ny, nx) on a row-sharded grid, or None."""
+    p = planes
+    rows = halo or (lambda t: (None, None))
+    fn = lambda name: getattr(sk, name + "_ref" if plain else name)
+    offs = tuple(p[k] for k in OFF_NAMES)
+    diags = tuple(p[k] for k in DIAG_NAMES)
+    calls = {
+        "coupled_spmv": lambda: fn("coupled_spmv")(p["x"], offs, diags,
+                                                   *rows(p["x"])),
+        "schur_rhs": lambda: fn("schur_rhs")(
+            p["r"][2], p["z"], p["diag_pu2"], p["diag_pv2"], p["off_pu"],
+            p["off_pv"], *rows(p["z"])),
+        "pressure_gradient": lambda: fn("pressure_gradient")(
+            p["zp"], p["diag_up2"], p["diag_vp2"], p["off_up"], p["off_vp"],
+            *rows(p["zp"])),
+    }
+    for s in sweeps:
+        calls[f"momentum_jacobi {s}"] = lambda s=s: fn("momentum_jacobi")(
+            p["r"][:2], p["diag_u_inv2"], p["off_mom"], s, halo=halo)
+    return calls
+
+
+def stencil_kernels(planes: dict, halo=None, sweeps=(1, 2, 8),
+                    plain: bool = False) -> dict:
+    """:func:`stencil_calls`' results as host arrays."""
+    return {k: c().cpu().numpy()
+            for k, c in stencil_calls(planes, halo, sweeps, plain).items()}
+
+
+def stencil_kernels_over(rank, world, device, worlds, grid, seed):
+    """:func:`stencil_kernels` on this rank's rows of
+    :func:`stencil_planes`, the halo rows from the neighbouring ranks
+    (``RowDecomposition.halo_rows``, one exchange per operand), for each
+    world size in ``worlds``; and the exchanges made."""
+    def run(group):
+        decomp = sp.RowDecomposition(*grid, transport="gloo", device=device,
+                                     group=group)
+        planes = {k: decomp.own_rows(torch.as_tensor(v, device=device),
+                                     dim=v.ndim - 2).contiguous()
+                  for k, v in stencil_planes(grid, seed).items()}
+        sp.reset_counts()
+        out = stencil_kernels(planes, lambda t: decomp.halo_rows(
+            t, 1, dim=t.dim() - 2))
+        out["exchanges"] = sp.COUNT["exchanges"]
+        return out
+
+    return _over(rank, world, worlds, run)
