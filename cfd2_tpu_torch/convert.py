@@ -8,6 +8,9 @@
 * :func:`load_developed_state` loads a developed-flow checkpoint such as
   ``bench_developed_1m.npz`` into a :class:`CoupledSolver`, as the JAX
   package's ``bench.py`` does.
+* :func:`load_developed_unstructured` loads a developed state that
+  ``tools/make_developed_unstructured.py`` wrote (fields in host cell order)
+  into a :class:`CoupledSolver` on the same mesh, with the healed time.
 """
 
 from __future__ import annotations
@@ -80,4 +83,32 @@ def load_developed_state(solver, path) -> dict:
     solver.state = replace(solver.state, u=u, u_old=u, u_old_old=u,
                            prev_u=u, p=p)
     solver.set_viscosity(meta["viscosity"])
+    return meta
+
+
+def load_developed_unstructured(solver, path) -> dict:
+    """Load a developed state written by
+    :mod:`cfd2_tpu_torch.tools.make_developed_unstructured` (keys ``u``
+    (N, 2) and ``p`` (N,) in host cell order, ``meta`` JSON) into
+    ``solver``: u and p set, the history fields set to u as
+    ``initialize_history`` sets them, viscosity and density taken from
+    ``meta``, and the state's time set to the heal's end (``solver_time``),
+    so that the inlet ramp carries on where the heal left it.  Returns
+    ``meta``.  Raises if the state's cell count is not the mesh's."""
+    with np.load(path) as d:
+        meta = json.loads(str(d["meta"]))
+        u = d["u"].astype(np.float32)
+        p = d["p"].astype(np.float32)
+    n = solver.host_mesh.num_cells
+    if int(meta["cells"]) != n or u.shape != (n, 2) or p.shape != (n,):
+        raise ValueError(f"state of {meta['cells']} cells (u {u.shape}) "
+                         f"does not fit a mesh of {n} cells")
+    solver.set_u(u)
+    solver.set_p(p)
+    solver.initialize_history()
+    solver.set_viscosity(meta["viscosity"])
+    solver.set_density(meta.get("density", 1.0))
+    solver.state = replace(solver.state, time=torch.tensor(
+        float(meta["solver_time"]), dtype=torch.float32,
+        device=solver.device))
     return meta

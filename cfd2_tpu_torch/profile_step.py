@@ -8,7 +8,10 @@ channel mesh, structured multigrid, the developed state from
 (default 0.003: the 403,491-cell Delaunay mesh), aggregation AMG, 2 untimed
 warm-up steps; ``--mesh refined``: the refined quadtree mesh from
 ``--min-cell`` to ``--max-cell`` (the multilevel layout at 0.0025 / 0.005),
-from rest the same way.  Prints:
+from rest the same way.  ``--case NAME``: a case of
+``tools/developed_cases.py`` (for example ``delaunay_1m_developed``), set up
+from its table, after its uncounted heal steps (at least one warm-up
+step).  Prints:
 
 * per step: wall time, outer and FGMRES iterations, host reads, launches;
 * device busy time (the union of kernel intervals) against wall time, i.e.
@@ -21,6 +24,7 @@ Run from the repository root on a machine with a CUDA device:
     python -m cfd2_tpu_torch.profile_step --mesh delaunay --min-cell 0.003
     python -m cfd2_tpu_torch.profile_step --mesh refined --min-cell 0.0025 \
         --max-cell 0.005
+    python -m cfd2_tpu_torch.profile_step --case structured_2m_developed
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from .convert import load_developed_state
 from .ops import banded_kernels as bk
 from .ops import stencil_kernels as sk
 from .runtime import host_reads
+from .tools import developed_cases as dc
 
 ROOT = Path(__file__).resolve().parent.parent
 MIN_CELL = 0.0017   # the main path's mesh: 996,558 cells on 589x1765
@@ -134,6 +139,9 @@ def main(argv=None) -> int:
                     help="cell size of the unstructured meshes")
     ap.add_argument("--max-cell", type=float, default=None,
                     help="largest cell size (default --min-cell)")
+    ap.add_argument("--case", choices=sorted(dc.CASES), default=None,
+                    help="a full-size case of tools/developed_cases.py "
+                    "(overrides --mesh)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -142,7 +150,13 @@ def main(argv=None) -> int:
 
     geo = ChannelWithObstacle(length=3.0, height=1.0,
                               obstacle_center=(1.0, 0.5), obstacle_radius=0.2)
-    if args.mesh == "cutcell":
+    if args.case is not None:
+        case = dc.CASES[args.case]
+        mesh = dc.case_mesh(case)
+        s, _ = dc.make_solver(case, mesh=mesh)
+        warm = max(case.heal_steps, 1)
+        args.mesh = args.case
+    elif args.mesh == "cutcell":
         mesh, s, warm = _structured_main_path(geo)
     else:
         mesh, s, warm = _unstructured_main_path(

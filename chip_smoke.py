@@ -166,9 +166,32 @@ Phases (any failure exits non-zero):
    equal outer counts.  The mesh is built once here and the ranks get its
    encoded arrays through a file; four CUDA contexts time-share the card
    and every halo crosses the host, so the walls show correctness work,
-   not speed.
+   not speed;
+13. the developed full-size cases of ``cfd2_tpu_torch/tools/
+   developed_cases.py``, set up from its table (their meshes generated by
+   ``tools/mesh_cache.py`` in background processes from the end of phase 1,
+   into ``.bench_cache``): (a) ``structured_2m_developed``, the 1,998,381-cell
+   channel (834x2500 grid) from ``bench_developed_2m.npz``, 3 heal steps and
+   3 counted ones, 12 momentum sweeps: the stencil kernels held bit for bit
+   on its assembled system (the predict at 12 sweeps, the widest temporal
+   tile) and the legs on its level grids, then ``momentum_jacobi`` in one
+   launch per predict, ``rbgs_leg`` 16 per FGMRES iteration and the other
+   stencil kernels at their rates (asserted); (b) ``delaunay_1m_developed``
+   (1,004,266 cells, uncapped map) and (c) ``voronoi_893k_developed``
+   (892,916 cells, ``bd_k`` 8 above the 12 MiB rule), both from the committed
+   states of ``cfd2_tpu_torch/data``: the banded kernels held on the solver's
+   maps, then 3 and 2 counted steps, with ``banded_jacobi_sweeps`` twice per
+   FGMRES iteration on (b) and none on (c), whose predict runs one momentum
+   dot per sweep (asserted); every field finite; each counted step held to
+   the round's bound (equal outers, FGMRES iterations within 2 per outer)
+   against ``cfd2_tpu_torch/data/fullsize_counts.json``'s JAX record where it
+   has the step, and logged beside its port-CPU record (phases 6 and 10(a)
+   log theirs beside the record's ``delaunay_403k_rest`` and
+   ``refined_132k_rest``, unchecked); (d) ``make_developed_unstructured``
+   itself for 3 heal steps on (b)'s mesh, into ``.phase13`` (removed after).
 
-Then the kernels' JSON line and the result line are printed.
+Then the kernels' JSON line, the script's total wall and the result line are
+printed.
 
 ``--phases 1,2`` runs only the listed phases (for bring-up: ``1,3,9`` runs
 phase 9 on the 1M state alone, leaving out its Delaunay run); the result
@@ -220,7 +243,7 @@ BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
 # Phase 10: the refined quadtree mesh on the multilevel layout.
 MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
 MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
 # Phase 11: the app at full width (the main path's mesh, smoothed as the
 # app smooths it) and on a Delaunay mesh, as subprocesses of the CLI.
 APP_MAIN = ("--geometry", "channel", "--cell-size", "0.0017", "--precond",
@@ -1316,7 +1339,6 @@ def phase_main(results, ctx):
     import torch
     from cfd2_tpu_torch.convert import load_developed_state
     from cfd2_tpu_torch.ops import stencil_kernels as sk
-    from cfd2_tpu_torch.ops import stencil_system as st
 
     t0 = time.time()
     mesh = _channel(0.0017)
@@ -1342,20 +1364,8 @@ def phase_main(results, ctx):
     n = mesh.num_cells
     ms = s.config.mom_sweeps(s.mesh.total_cells)
     _hold_on_assembled_system(results, s, ms)
-    # Every matvec of the solves (the FGMRES iterations' and the true
-    # residuals'), counted apart from the kernel's own launch count.
-    matvecs = [0]
-    spmv_planar = st.spmv_planar
-
-    def counted(*a, **k):
-        matvecs[0] += 1
-        return spmv_planar(*a, **k)
-
-    st.spmv_planar = counted
-    try:
+    with _counting_matvecs() as matvecs:
         lin_total, timed = _main_steps(s, ctx, n)
-    finally:
-        st.spmv_planar = spmv_planar
     counts = dict(sk.LAUNCHES)
     leg = counts["rbgs_leg"]
     for name, cnt in counts.items():
@@ -1413,9 +1423,9 @@ def _check_stencil_rates(phase, counts, lin, ms, sharded, matvecs=None):
             f"iterations + {matvecs - lin} true residuals")
 
 
-def _hold_on_assembled_system(results, s, ms):
-    """Phase 3, before stepping: the four stencil kernels bit-equal to
-    their plain versions on the solver's own system, assembled from its
+def _hold_on_assembled_system(results, s, ms, phase=3):
+    """Phases 3 and 13, before stepping: the four stencil kernels bit-equal
+    to their plain versions on the solver's own system, assembled from its
     developed state (the predicts at the path's ``ms`` sweeps and at 1)."""
     import torch
     from cfd2_tpu_torch.models.assembly import assemble_stencil, prepare
@@ -1431,7 +1441,7 @@ def _hold_on_assembled_system(results, s, ms):
               for k, shape in (("x", (3, ny, nx)), ("r", (3, ny, nx)),
                                ("z", (2, ny, nx)), ("zp", (ny, nx)))})
     before = dict(sk.LAUNCHES)
-    errs = _hold_stencils(3, sk, [("the assembled system", p, (1, ms))])
+    errs = _hold_stencils(phase, sk, [("the assembled system", p, (1, ms))])
     sk.LAUNCHES.update(before)
     for name, err in errs.items():
         if name in results:
@@ -1776,7 +1786,8 @@ def _check_sweeps_records(phase, s, calls=3):
 
 def _drive_unstructured(phase, s, n_cells, n_steps):
     """Step ``s`` with the launch counts zeroed just before; returns the
-    counts read just after and the FGMRES iterations taken."""
+    counts read just after, the FGMRES iterations taken and per step the
+    outers and FGMRES iterations."""
     import torch
     from cfd2_tpu_torch.ops import banded_kernels as bk
     from cfd2_tpu_torch.ops import stencil_kernels as sk
@@ -1785,6 +1796,7 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
     bk.reset_launches()
     sk.reset_launches()
     lin_total = 0
+    rows = []
     for i in range(n_steps):
         host_reads.reset()
         before = dict(bk.LAUNCHES)
@@ -1796,6 +1808,7 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
         outer = int(s.state.outer_iters)
         lins = int(s.state.linear_iters_total)
         lin_total += lins
+        rows.append((outer, lins))
         step_launch = {k: v - before[k] for k, v in bk.LAUNCHES.items()}
         log(f"phase {phase}: step {i}: wall {wall:.4f} s, outer_iters "
             f"{outer}, linear_iters_total {lins}, cell-updates/s "
@@ -1816,7 +1829,7 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
         f"{counts['banded_gather'] / lin_total:.2f} banded_gather, "
         f"{counts['banded_jacobi_sweeps'] / lin_total:.2f} "
         "banded_jacobi_sweeps calls")
-    return counts, lin_total
+    return counts, lin_total, rows
 
 
 def phase_delaunay(results, ctx):
@@ -1844,7 +1857,8 @@ def phase_delaunay(results, ctx):
     check(sizes == DELAUNAY_LEVELS,
           f"hierarchy levels {sizes} != {DELAUNAY_LEVELS}")
     _hold_on_solver_maps(6, s, results)
-    counts, lin_total = _drive_unstructured(6, s, mesh.num_cells, 3)
+    counts, lin_total, rows = _drive_unstructured(6, s, mesh.num_cells, 3)
+    _beside_record(6, "delaunay_403k_rest", rows)
     ctx["delaunay"] = s
     for name, cnt in counts.items():
         if name in results:
@@ -1917,22 +1931,6 @@ def _outer_slack(opts) -> int:
     return 2 if opts.get("anderson_depth") else 0
 
 
-def _record_solves():
-    """Wrap the solver's per-outer solve to record each one's FGMRES
-    iterations; returns (list, restore)."""
-    from cfd2_tpu_torch.models import coupled
-    orig = coupled._assemble_and_solve
-    its = []
-
-    def recorded(*a, **k):
-        r = orig(*a, **k)
-        its.append(r.iterations)
-        return r
-
-    coupled._assemble_and_solve = recorded
-    return its, lambda: setattr(coupled, "_assemble_and_solve", orig)
-
-
 def _timed_steps(s, n, mode="fused", step=None):
     """``n`` steps of ``s`` (or of ``step()``) with the launch counts zeroed
     just before and read just after; returns the rows (outers, FGMRES
@@ -1941,11 +1939,12 @@ def _timed_steps(s, n, mode="fused", step=None):
     from cfd2_tpu_torch.ops import banded_kernels as bk
     from cfd2_tpu_torch.ops import stencil_kernels as sk
     from cfd2_tpu_torch.runtime import host_reads
+    from cfd2_tpu_torch.tools import developed_cases as dc
     rows = []
     sk.reset_launches()
     bk.reset_launches()
     for _ in range(n):
-        its, restore = _record_solves()
+        its, restore = dc.record_solves()
         host_reads.reset()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2179,6 +2178,8 @@ def phase_multilevel(results):
     rows += more
     counts = {k: counts[k] + counts2[k] for k in counts}
     _log_run("multilevel", rows, counts, phase="10a")
+    _beside_record("10a", "refined_132k_rest",
+                   [(o, sum(its)) for o, its, _, _ in rows])
     lin_total = sum(sum(its) for _, its, _, _ in rows)
     per_apply = 2 * len(hier.fine.levels)
     for name in ("rbgs_leg", "banded_dot", "banded_gather"):
@@ -2239,21 +2240,34 @@ def _per_sweep_momentum_solve(es, mesh, r_u, r_v, sweeps):
 
 
 @contextlib.contextmanager
-def _counting_mom_dots():
-    """Counts the calls of ellsys._mom_dot2 (the per-sweep momentum dot)
-    while entered, in the one-element list it yields."""
-    from cfd2_tpu_torch.ops import ellsys
-    orig, n = ellsys._mom_dot2, [0]
+def _counting_calls(module, name):
+    """Counts the calls of ``module.name`` (``module`` imported by its
+    dotted name) while entered, in the one-element list it yields."""
+    import importlib
+    mod = importlib.import_module(module)
+    orig, n = getattr(mod, name), [0]
 
     def counted(*a, **k):
         n[0] += 1
         return orig(*a, **k)
 
-    ellsys._mom_dot2 = counted
+    setattr(mod, name, counted)
     try:
         yield n
     finally:
-        ellsys._mom_dot2 = orig
+        setattr(mod, name, orig)
+
+
+def _counting_mom_dots():
+    """Counts the per-sweep momentum dots (ellsys._mom_dot2)."""
+    return _counting_calls("cfd2_tpu_torch.ops.ellsys", "_mom_dot2")
+
+
+def _counting_matvecs():
+    """Counts the structured solves' matvecs (the FGMRES iterations' and
+    the true residuals'), apart from the kernel's own launch count."""
+    return _counting_calls("cfd2_tpu_torch.ops.stencil_system",
+                           "spmv_planar")
 
 
 def phase_block(results, ctx):
@@ -3539,9 +3553,276 @@ def phase_sharded(results, ctx):
         raise PhaseError(" | ".join(failed))
 
 
+# ----------------------------------------------------------------------
+# Phase 13: the developed full-size cases of tools/developed_cases.py.
+
+DEVELOPED_CASES = ("structured_2m_developed", "delaunay_1m_developed",
+                   "voronoi_893k_developed")
+DEVELOPED_2M_GRID = (834, 2500)
+COUNTS_RECORD = ROOT / "cfd2_tpu_torch" / "data" / "fullsize_counts.json"
+# The heal tool run on the card: its heal steps, and where it writes.
+HEAL_STEPS_ON_CARD = 3
+HEAL_DIR = ROOT / ".phase13"
+
+
+def _record_steps(case, package):
+    """The counted steps of ``case`` that ``tests/torch_fullsize_parity.py``
+    recorded for ``package`` (``jax`` or ``port_cpu``), or []."""
+    if not COUNTS_RECORD.exists():
+        return []
+    entry = json.loads(COUNTS_RECORD.read_text())["cases"].get(
+        case, {}).get(package)
+    return entry["steps"] if entry else []
+
+
+def _within_round_bound(card, ref):
+    """The round's bound on one step: equal outers, FGMRES iterations in
+    all within 2 per outer.  ``card`` and ``ref``: (outers, iterations)."""
+    return card[0] == ref[0] and abs(card[1] - ref[1]) <= 2 * ref[0]
+
+
+def _beside_record(phase, case, rows, enforce=False):
+    """Log the card's (outers, FGMRES iterations) per step beside the
+    record's JAX and port-CPU steps of ``case``; with ``enforce``, check
+    the round's bound on every step the JAX record holds.  Returns the
+    steps that miss it."""
+    jax_rows = _record_steps(case, "jax")
+    cpu_rows = _record_steps(case, "port_cpu")
+
+    def fmt(r):
+        return (f"{r['outers']} outers, {sum(r['its'])} it {r['its']}"
+                if r else "not recorded")
+
+    missed = []
+    for i, (outer, lin) in enumerate(rows):
+        j = jax_rows[i] if i < len(jax_rows) else None
+        c = cpu_rows[i] if i < len(cpu_rows) else None
+        verdict = "no JAX record"
+        if j is not None:
+            ok = _within_round_bound((outer, lin),
+                                     (j["outers"], sum(j["its"])))
+            verdict = "within the bound" if ok else "MISSES the bound"
+            if not ok:
+                missed.append(i)
+        log(f"phase {phase}: {case} step {i}: card {outer} outers, {lin} "
+            f"it; JAX (CPU) {fmt(j)}; port (CPU) {fmt(c)}: {verdict} "
+            "(equal outers, iterations within 2 per outer)")
+    if enforce:
+        check(not missed, f"{case}: steps {missed} miss the round's bound "
+              "against the JAX package's record")
+    return missed
+
+
+def _start_meshes(ctx):
+    """Phase 13's meshes, generated into ``.bench_cache`` by
+    ``tools/mesh_cache.py`` in one background process each (host work),
+    while the card runs the earlier phases."""
+    from cfd2_tpu_torch.tools import developed_cases as dc
+    from cfd2_tpu_torch.tools import mesh_cache
+    procs = {}
+    for name in DEVELOPED_CASES:
+        c = dc.CASES[name]
+        if os.path.exists(mesh_cache.mesh_path(c.mesh_type, c.min_cell,
+                                               max_cell=c.max_cell)):
+            continue
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "cfd2_tpu_torch.tools.mesh_cache",
+             c.mesh_type, str(c.min_cell)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.time())
+    ctx["mesh_procs"] = procs
+
+
+def _stop_meshes(ctx):
+    for proc, _ in ctx.get("mesh_procs", {}).values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def _wait_mesh(ctx, name):
+    proc, t0 = ctx.get("mesh_procs", {}).pop(name, (None, None))
+    if proc is None:
+        return
+    out, _ = proc.communicate()
+    log(f"phase 13: {name} mesh generated in the background, "
+        f"{time.time() - t0:.1f} s after it started: "
+        + " | ".join(out.strip().splitlines()[-2:]))
+    check(proc.returncode == 0, f"the {name} mesh failed: {out[-2000:]}")
+
+
+def _developed_solver(ctx, name):
+    """The case's solver on the card, set up from the case table; logs the
+    set-up's wall and layout.  Returns (case, host mesh, solver)."""
+    import torch
+    from cfd2_tpu_torch.tools import developed_cases as dc
+    case = dc.CASES[name]
+    _wait_mesh(ctx, name)
+    t0 = time.time()
+    mesh = dc.case_mesh(case)
+    t_mesh = time.time() - t0
+    check(mesh.num_cells == case.cells,
+          f"{name}: mesh has {mesh.num_cells} cells, expected {case.cells}")
+    s, meta = dc.make_solver(case, mesh=mesh)
+    hier = s._get_amg()
+    torch.cuda.synchronize()
+    dm = s.mesh
+    levels = ([lvl.grid for lvl in hier.levels] if dm.structured
+              else [lvl.n for lvl in hier.levels])
+    log(f"phase 13: {name}: set-up {time.time() - t0:.1f} s (mesh load "
+        f"{t_mesh:.1f} s; encode, hierarchy, state); {mesh.num_cells} "
+        f"cells, N_dev {dm.num_cells}, K {dm.max_faces}, bd_k {dm.bd_k}, "
+        f"levels {levels}; state time {float(s.state.time):.6f} s, dt "
+        f"{float(s.params.dt):.6g}, viscosity "
+        f"{float(s.params.viscosity):.6g}"
+        + (f", probe_v amplitude {meta['probe_v_amplitude']:.4f}"
+           if meta else ""))
+    return case, mesh, s
+
+
+def _developed_steps(s, case):
+    """The case's uncounted heal steps, then its counted steps with the
+    launch counts zeroed just before and read just after; logs each
+    step's wall and returns (rows, counts, momentum dots, matvecs)."""
+    import torch
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.tools import developed_cases as dc
+
+    def run(n, kind):
+        try:
+            rows = dc.run_steps(s, n)
+        except FloatingPointError as e:
+            raise PhaseError(f"{case.name}: {e}") from e
+        for i, r in enumerate(rows):
+            log(f"phase 13: {case.name} {kind} step {i}: wall "
+                f"{r['wall_s']:.4f} s, outers {r['outers']}, FGMRES "
+                f"iterations {sum(r['its'])} per outer {r['its']}, max|u| "
+                f"{r['max_u']:.4f}, max|p| {r['max_p']:.4f}, cell-updates/s "
+                f"{case.cells / r['wall_s']:.1f}")
+        return rows
+
+    run(case.heal_steps, "heal")
+    with _counting_matvecs() as matvecs, _counting_mom_dots() as mom_dots:
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        bk.reset_launches()
+        rows = run(case.steps, "counted")
+        counts = {**sk.LAUNCHES, **bk.LAUNCHES}
+    return rows, counts, mom_dots[0], matvecs[0]
+
+
+def _p13_structured(results, ctx):
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    case, _, s = _developed_solver(ctx, "structured_2m_developed")
+    check(tuple(s.mesh.grid_shape) == DEVELOPED_2M_GRID,
+          f"grid {s.mesh.grid_shape} != {DEVELOPED_2M_GRID}")
+    grids, coarsest = level_grids(*DEVELOPED_2M_GRID)
+    amg = s._get_amg()
+    check(len(amg.levels) == len(grids)
+          and tuple(amg.levels[-1].grid) == coarsest,
+          "hierarchy does not match the expected level grids")
+    ms = s.config.mom_sweeps(s.mesh.total_cells)
+    check(ms == sk.TILE_MAX_SWEEPS == 12
+          and sk.momentum_launches(ms, False) == 1,
+          f"{ms} momentum sweeps: expected the widest temporal tile (12)")
+    _hold_on_assembled_system(results, s, ms, phase=13)
+    before = dict(sk.LAUNCHES)
+    err_leg, err_fused, _ = _hold_legs(13, sk, grids)
+    sk.LAUNCHES.update(before)
+    if "rbgs_leg" in results:
+        results["rbgs_leg"]["max_abs_err"] = max(
+            results["rbgs_leg"]["max_abs_err"], err_leg, err_fused)
+    rows, counts, _, matvecs = _developed_steps(s, case)
+    lin = sum(sum(r["its"]) for r in rows)
+    per_apply = 2 * len(grids)
+    check(counts["rbgs_leg"] == per_apply * lin,
+          f"rbgs_leg launches {counts['rbgs_leg']} != {per_apply} per "
+          f"V-cycle x {lin} FGMRES iterations")
+    _check_stencil_rates(13, counts, lin, ms, False, matvecs)
+    log(f"phase 13: {case.name}: momentum_jacobi {counts['momentum_jacobi']}"
+        f" = 2 predicts of {ms} sweeps in one launch each x {lin} FGMRES "
+        f"iterations; rbgs_leg {counts['rbgs_leg']} = {per_apply} x {lin}")
+    _path_launches(results, f"{case.name} (phase 13)",
+                   {k: v for k, v in counts.items() if v})
+    _beside_record(13, case.name, [(r["outers"], sum(r["its"]))
+                                   for r in rows], enforce=True)
+
+
+def _p13_banded(results, ctx, name):
+    import torch
+    case, mesh, s = _developed_solver(ctx, name)
+    dm = s.mesh
+    capped = name.startswith("voronoi")
+    ms = s.config.mom_sweeps(dm.total_cells)
+    if capped:
+        check(dm.banded and dm.bd_k == 8 and not dm.banded_sweeps_fit(2),
+              f"{name}: expected a slot-capped map above the 12 MiB rule, "
+              f"got banded {dm.banded}, bd_k {dm.bd_k}")
+    else:
+        check(dm.banded and not dm.structured and dm.bd_k is None,
+              f"{name}: expected an uncapped banded map, got banded "
+              f"{dm.banded}, bd_k {dm.bd_k}")
+    _hold_on_solver_maps(13, s, results)
+    rows, counts, mom_dots, _ = _developed_steps(s, case)
+    lin = sum(sum(r["its"]) for r in rows)
+    for k in ("banded_gather", "banded_dot"):
+        check(counts[k] > 0, f"{name}: {k} was never launched")
+    check(sum(counts[k] for k in STENCIL_REPLACES) + counts["rbgs_leg"]
+          == 0, f"{name}: a structured-path kernel ran on a banded mesh")
+    if capped:
+        check(counts["banded_jacobi_sweeps"] == 0
+              and mom_dots == 2 * (ms - 1) * lin,
+              f"{name}: banded_jacobi_sweeps {counts['banded_jacobi_sweeps']}"
+              f", per-sweep momentum dots {mom_dots} != 2 x {ms - 1} per "
+              f"FGMRES iteration x {lin}")
+    else:
+        check(counts["banded_jacobi_sweeps"] == 2 * lin and mom_dots == 0,
+              f"{name}: banded_jacobi_sweeps {counts['banded_jacobi_sweeps']}"
+              f" != 2 per FGMRES iteration x {lin} (per-sweep dots "
+              f"{mom_dots})")
+    log(f"phase 13: {name}: {lin} FGMRES iterations; per iteration "
+        + ", ".join(f"{counts[k] / max(lin, 1):.2f} {k}"
+                    for k in ("banded_dot", "banded_gather",
+                              "banded_jacobi_sweeps"))
+        + f"; per-sweep momentum dots {mom_dots} ({ms} sweeps a predict)")
+    _path_launches(results, f"{name} (phase 13)",
+                   {k: v for k, v in counts.items() if v})
+    _beside_record(13, name, [(r["outers"], sum(r["its"])) for r in rows],
+                   enforce=True)
+    del s
+    torch.cuda.empty_cache()
+    return mesh
+
+
+def phase_developed(results, ctx):
+    """13: the three developed full-size cases on the card, set up from
+    the case table; then the heal tool itself for a few steps."""
+    import shutil
+    import torch
+    from cfd2_tpu_torch.tools import make_developed_unstructured as mdu
+    _p13_structured(results, ctx)
+    torch.cuda.empty_cache()
+    mesh = _p13_banded(results, ctx, "delaunay_1m_developed")
+    _p13_banded(results, ctx, "voronoi_893k_developed")
+    t0 = time.time()
+    try:
+        meta = mdu.make("delaunay", 0.0019, HEAL_STEPS_ON_CARD, mesh=mesh,
+                        out=HEAL_DIR / "developed_delaunay_0.0019.npz",
+                        log=lambda m: log(f"phase 13: heal tool: {m}"))
+    finally:
+        shutil.rmtree(HEAL_DIR, ignore_errors=True)
+    log(f"phase 13: make_developed_unstructured, {HEAL_STEPS_ON_CARD} heal "
+        f"steps on {meta['cells']} cells: {time.time() - t0:.1f} s in all "
+        f"(heal {meta['heal_wall_s']:.1f} s), max|u| {meta['max_u']:.4f}, "
+        f"solver time {meta['solver_time']:.6f} s, on {meta['device']}")
+    check(meta["device"] == torch.cuda.get_device_name(0),
+          "the heal tool did not run on the card")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
@@ -3581,15 +3862,26 @@ def main(argv=None) -> int:
              (9, lambda: phase_options(ctx)),
              (10, lambda: phase_generic(results, ctx)),
              (11, lambda: phase_app(results, ctx)),
-             (12, lambda: phase_sharded(results, ctx))]
-    for num, fn in steps:
-        if num in phases:
-            t0 = time.time()
-            fn()
-            log(f"# phase {num} done in {time.time() - t0:.1f} s")
-    log(f"# all phases in {time.time() - t_all:.1f} s")
+             (12, lambda: phase_sharded(results, ctx)),
+             (13, lambda: phase_developed(results, ctx))]
+    try:
+        if 13 in phases and 1 not in phases:
+            # Phase 13's meshes need the native library, built for this
+            # machine.
+            from cfd2_tpu_torch.mesh import native
+            native.build(rebuild=True)
+        for num, fn in steps:
+            if num in phases:
+                t0 = time.time()
+                fn()
+                log(f"# phase {num} done in {time.time() - t0:.1f} s")
+            if num == 1 and 13 in phases:
+                _start_meshes(ctx)
+    finally:
+        _stop_meshes(ctx)
     if results:
         print(json.dumps({"kernels": list(results.values())}), flush=True)
+    log(f"# all phases in {time.time() - t_all:.1f} s")
     if phases != ALL_PHASES:
         return 0
     print(json.dumps({"ok": True, "device": {

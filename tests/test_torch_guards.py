@@ -66,7 +66,9 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.runtime.profiling, cfd2_tpu_torch.viz, "
             "cfd2_tpu_torch.viz.live_server, cfd2_tpu_torch.parallel, "
             "cfd2_tpu_torch.parallel.batch, cfd2_tpu_torch.parallel.spatial, "
-            "cfd2_tpu_torch.parallel.launch; "
+            "cfd2_tpu_torch.parallel.launch, "
+            "cfd2_tpu_torch.tools.developed_cases, "
+            "cfd2_tpu_torch.tools.make_developed_unstructured; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
