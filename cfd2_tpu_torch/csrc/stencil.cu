@@ -45,16 +45,15 @@
 //     products and the partial sums of the eager version stay in registers;
 //   * the momentum predict (an iterate is read at neighbours, so a sweep
 //     needs the previous one around it) runs all its sweeps, up to 12 (the
-//     solver's 8, and 12 from 1.5M cells), in one launch of temporal tiles:
-//     a block keeps the seed and the iterates of its 32 x 32 tile plus a
-//     halo of one cell per later sweep (46 x 46 at 8 sweeps) in shared
-//     memory and recomputes the halo's cells that its neighbours own, about
-//     twice the cell-updates for one pass over the coefficients instead of
-//     one per sweep.  A row-sharded system, where each sweep waits for the
-//     neighbouring ranks' rows of the previous iterate, and more sweeps
-//     than a tile runs take one launch per sweep (the seed, then the
-//     sweeps; the caller loops).  PERF.md has the times of both, and of a
-//     first design that made the seed inside the first of 7 launches.
+//     solver's 8, and 12 from 1.5M cells), in one launch that streams each
+//     band of columns down its rows with every sweep one row behind the one
+//     before (below): each coefficient is read from device memory once per
+//     block, and the cells of the halos, recomputed, add 57% at 8 sweeps on
+//     589x1765 and 72% at 12 on 834x2500.  A row-sharded system, where each
+//     sweep waits for the neighbouring ranks' rows of the previous iterate,
+//     and more sweeps than a launch runs take one launch per sweep (the
+//     seed, then the sweeps; the caller loops).  PERF.md has the times of
+//     each design so far.
 //
 // All functions have a plain C interface (loaded with ctypes), launch on the
 // caller's stream, allocate nothing, and return cudaGetLastError() after
@@ -236,97 +235,393 @@ cudaError_t launch_momentum(const MomArgs& a, cudaStream_t st) {
 }
 
 
-// The whole predict of an unsharded grid in one launch: temporal tiles.
-// A block owns a TILE x TILE tile of the result and runs every sweep on the
-// tile plus a halo of (sweeps - 1) cells, whose iterates it recomputes
-// rather than reads from its neighbours: sweep k is valid on the region
-// shrunk by k from the halo's outer edge (a region clipped at the grid's
-// edges keeps its edge rows and columns, where the neighbour is the cell
-// itself).  The seed and the iterates of both components live in shared
-// memory, two buffers of the halo region; the coefficients are read
-// through L1/L2 at each sweep.  The same operations in the same order as
-// one launch per sweep: the bits are the same.
-constexpr int TILE = 32;
-constexpr int TILE_THREADS = 256;
+// The whole predict of an unsharded grid in one launch: temporal blocking
+// streamed down the rows.  A block of MOM_THREADS threads owns a band of
+// the grid's columns, one column per thread (a warp: 32 consecutive columns
+// of a row), and walks down its rows one row per step.  At step t the seed
+// takes row t and sweep k row t - k, so every sweep advances one row per
+// step behind the one before it:
+//   * a row's 7 coefficients (dinv, r_u, r_v, off E/W/N/S) are read from
+//     device memory once per block and held in a ring of rows in each
+//     thread's registers, where all S levels use them;
+//   * each level keeps its last two rows of the column in registers (its S
+//     and centre neighbours for the next level; the N neighbour is the row
+//     the level below computed in this step), and publishes its row in
+//     shared memory, where the neighbouring columns read their E and W
+//     values in the next step (two buffers, one __syncthreads a step);
+//   * a band carries a halo of S - 1 columns on either side and a block
+//     starts S - 1 rows above its rows and ends S - 1 below them, cells
+//     whose iterates it recomputes rather than reads from its neighbours;
+//     the plan (stencil_kernels.momentum_plan) cuts the rows so that the
+//     blocks fill the card once at the occupancy the card reports;
+//   * the edge clamp costs nothing inside: a thread at the grid's first
+//     or last column reads its own slot for W or E, and the rows' clamp
+//     (S or N taken from the centre) is compiled only into the steps that
+//     reach row 0 or row ny - 1.  Loads past the grid's or the band's edge
+//     read a clamped address: those cells' values reach no cell that the
+//     block writes.
+// Two forms, picked by the sweeps (measured on the H100, PERF.md):
+//   * up to 8 sweeps the step loop is unrolled over the ring's period, so
+//     that its slots are compile-time registers, and each row is loaded
+//     into its slot MOM_REG_AHEAD rows ahead of the seed;
+//   * above 8 the unrolled loop outgrows the registers and the instruction
+//     cache: one step per iteration, the ring shifted by register moves,
+//     and the rows copied MOM_STAGE_AHEAD rows ahead by cp.async into a
+//     ring of shared memory.
+// A Jacobi sweep reads only the previous iterate, so the same operations in
+// the same order give the bits of one launch per sweep.
+constexpr int MOM_THREADS = 128;
 constexpr int TILE_MAX_SWEEPS = 12;   // the solver's 8, and 12 from 1.5M cells
+constexpr int MOM_ROLLED_ABOVE = 8;   // more sweeps take the rolled form
+constexpr int MOM_REG_AHEAD = 3;      // unrolled form: rows loaded ahead
+constexpr int MOM_STAGE_AHEAD = 8;    // rolled form: rows in flight
+constexpr int MOM_STAGE = MOM_STAGE_AHEAD + 1;   // their shared slots
 
-__global__ void __launch_bounds__(TILE_THREADS)
-momentum_tiled_kernel(MomArgs a, int sweeps) {
-    extern __shared__ float sm[];
-    const int h = sweeps - 1;                 // halo: one cell per sweep
-    const int ex = TILE + 2 * h;              // the halo region's width
-    const int e = ex * ex;
-    const int r0 = blockIdx.y * TILE, c0 = blockIdx.x * TILE;
-    const int er0 = r0 - h, ec0 = c0 - h;     // its origin (may lie outside)
-    const int ny = a.ny, nx = a.nx;
-    const long long n = (long long)ny * nx;
-    float* zin = sm;                          // [2 components][e]
-    float* zout = sm + 2 * e;
-    // The seed on the region's cells that lie in the grid.
-    {
-        const int rlo = max(0, er0), rhi = min(ny, r0 + TILE + h);
-        const int clo = max(0, ec0), chi = min(nx, c0 + TILE + h);
-        const int rw = chi - clo, cells = rw * (rhi - rlo);
-        for (int i = threadIdx.x; i < cells; i += TILE_THREADS) {
-            const int yy = i / rw;
-            const int gr = rlo + yy, gc = clo + (i - yy * rw);
-            const int li = (gr - er0) * ex + (gc - ec0);
-            const long long g = (long long)gr * nx + gc;
-            const float di = __ldg(a.dinv + g);
-            zin[li] = __fmul_rn(di, __ldg(a.r + g));
-            zin[e + li] = __fmul_rn(di, __ldg(a.r + n + g));
+// Asynchronous 4-byte copies from device to shared memory (sm_80+), one
+// group per row.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+#else
+    *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+#endif
+}
+
+struct MomBand {
+    const float* __restrict__ r;
+    const float* __restrict__ dinv;
+    const float* __restrict__ off;
+    float* __restrict__ out;
+    float* stage;      // rolled form: [MOM_STAGE][7][MOM_THREADS]
+    long long n;       // cells of a plane
+    int ny, nx;
+    int gc;            // this thread's column
+    int gcl;           // the column it loads (clamped into the grid)
+    bool writes;       // an output column of this block
+    int ei, wi;        // the shared-memory slots of its E and W neighbours
+    int ra;            // first streamed row
+    int r0, r1;        // the block's output rows
+    int rb;            // end of its streamed rows
+};
+
+// The address of row ``row``'s cell in this thread's column, clamped to
+// the streamed rows.
+__device__ __forceinline__ long long mom_cell(const MomBand& b, int row) {
+    return (long long)min(row, b.rb - 1) * b.nx + b.gcl;
+}
+
+__device__ __forceinline__ void mom_load(float (&c)[7], const MomBand& b,
+                                         int row) {
+    const long long g = mom_cell(b, row);
+    c[0] = __ldg(b.dinv + g);
+    c[1] = __ldg(b.r + g);
+    c[2] = __ldg(b.r + b.n + g);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) c[3 + s] = __ldg(b.off + s * b.n + g);
+}
+
+__device__ __forceinline__ void mom_issue(const MomBand& b, int row) {
+    const long long g = mom_cell(b, row);
+    float* st = b.stage + ((row - b.ra) % MOM_STAGE) * 7 * MOM_THREADS
+        + threadIdx.x;
+    cp_async4(st, b.dinv + g);
+    cp_async4(st + MOM_THREADS, b.r + g);
+    cp_async4(st + 2 * MOM_THREADS, b.r + b.n + g);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+        cp_async4(st + (3 + s) * MOM_THREADS, b.off + s * b.n + g);
+    cp_async_commit();
+}
+
+// A level's last two rows of the column, both components.
+template <int S>
+struct MomRows {
+    float p1[S - 1][2];   // each level 0..S-2: its last row
+    float p2[S - 1][2];   // and the row before it
+};
+
+// Step t: the seed from ck[0] and levels 1..S-1 (level k on row t - k with
+// the coefficients ck[k]); E and W from rd; publish into wr, write the last
+// level's row, and move the rows along.  YC: the rows' clamp.
+template <int S, bool YC>
+__device__ __forceinline__ void mom_levels(const float* (&ck)[S],
+                                           MomRows<S>& m, const MomBand& b,
+                                           int t, const float2* rd,
+                                           float2* wr) {
+    constexpr int H = S - 1;
+    float z[S][2];
+    z[0][0] = __fmul_rn(ck[0][0], ck[0][1]);
+    z[0][1] = __fmul_rn(ck[0][0], ck[0][2]);
+#pragma unroll
+    for (int k = 1; k < S; ++k) {
+        const float* c = ck[k];
+        const float2 e = rd[(k - 1) * MOM_THREADS + b.ei];
+        const float2 w = rd[(k - 1) * MOM_THREADS + b.wi];
+        const int j = t - k;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const float zc = m.p1[k - 1][q];
+            float zs = m.p2[k - 1][q], zn = z[k - 1][q];
+            if (YC) {
+                if (j == 0) zs = zc;
+                if (j == b.ny - 1) zn = zc;
+            }
+            // _dot4's order: ((oE zE + oW zW) + oN zN) + oS zS.
+            float acc = __fadd_rn(__fmul_rn(c[3], q ? e.y : e.x),
+                                  __fmul_rn(c[4], q ? w.y : w.x));
+            acc = __fadd_rn(acc, __fmul_rn(c[5], zn));
+            acc = __fadd_rn(acc, __fmul_rn(c[6], zs));
+            z[k][q] = __fmul_rn(c[0], __fsub_rn(c[1 + q], acc));
         }
+    }
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+        wr[k * MOM_THREADS + threadIdx.x] = make_float2(z[k][0], z[k][1]);
+    const int jo = t - H;
+    if (b.writes && jo >= b.r0 && jo < b.r1) {
+        const long long g = (long long)jo * b.nx + b.gc;
+        b.out[g] = z[H][0];
+        b.out[b.n + g] = z[H][1];
+    }
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            m.p2[k][q] = m.p1[k][q];
+            m.p1[k][q] = z[k][q];
+        }
+    }
+}
+
+// Does a run of ``len`` steps from t0 reach row 0 (a level takes it at
+// steps 1 .. S - 1) or row ny - 1 (steps ny .. ny + S - 2)?
+__device__ __forceinline__ bool mom_clamps(const MomBand& b, int t0, int len,
+                                           int h) {
+    return (b.ra == 0 && t0 <= h)
+        || (b.rb == b.ny && t0 + len > b.ny && t0 <= b.ny + h - 1);
+}
+
+// The unrolled form: steps t0 .. t0 + L - 1 (up to t_end), the ring's slot
+// of row t being (t - ra) % L.
+template <int S, bool YC>
+__device__ __forceinline__ void mom_chunk(
+        float (&cf)[S + MOM_REG_AHEAD][7], MomRows<S>& m, const MomBand& b,
+        int t0, int t_end, float2*& rd, float2*& wr) {
+    constexpr int P = MOM_REG_AHEAD, L = S + P;
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+        const int t = t0 + u;
+        if (t >= t_end) break;
+        mom_load(cf[(u + P) % L], b, t + P);
+        const float* ck[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) ck[k] = cf[(u - k + L) % L];
+        mom_levels<S, YC>(ck, m, b, t, rd, wr);
+        __syncthreads();
+        float2* s = rd;
+        rd = wr;
+        wr = s;
+    }
+}
+
+// The rolled form's step t: the ring moves down one row and takes row t
+// from the stage.
+template <int S, bool YC>
+__device__ __forceinline__ void mom_rolled_step(float (&cf)[S][7],
+                                                MomRows<S>& m,
+                                                const MomBand& b, int t,
+                                                const float2* rd,
+                                                float2* wr) {
+    mom_issue(b, t + MOM_STAGE_AHEAD);
+    cp_async_wait<MOM_STAGE_AHEAD>();            // row t has landed
+#pragma unroll
+    for (int k = S - 1; k > 0; --k) {
+#pragma unroll
+        for (int s = 0; s < 7; ++s) cf[k][s] = cf[k - 1][s];
+    }
+    const float* st = b.stage + ((t - b.ra) % MOM_STAGE) * 7 * MOM_THREADS
+        + threadIdx.x;
+#pragma unroll
+    for (int s = 0; s < 7; ++s) cf[0][s] = st[s * MOM_THREADS];
+    const float* ck[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) ck[k] = cf[k];
+    mom_levels<S, YC>(ck, m, b, t, rd, wr);
+}
+
+template <int S>
+__host__ __device__ constexpr bool mom_rolled() {
+    return S > MOM_ROLLED_ABOVE;
+}
+
+template <int S>
+__global__ void __launch_bounds__(MOM_THREADS, 2)
+momentum_stream_kernel(MomArgs a, int tile_rows) {
+    constexpr int H = S - 1;
+    constexpr int TW = MOM_THREADS - 2 * H;   // output columns of a band
+    extern __shared__ float2 zsm[];   // [2][H][MOM_THREADS], then the stage
+    const int tid = threadIdx.x;
+    MomBand b;
+    b.r = a.r;
+    b.dinv = a.dinv;
+    b.off = a.off;
+    b.out = a.out;
+    b.stage = reinterpret_cast<float*>(zsm + 2 * H * MOM_THREADS);
+    b.ny = a.ny;
+    b.nx = a.nx;
+    b.n = (long long)a.ny * a.nx;
+    b.gc = blockIdx.x * TW - H + tid;
+    b.gcl = min(max(b.gc, 0), a.nx - 1);
+    b.writes = b.gc >= 0 && b.gc < a.nx && tid >= H && tid < H + TW;
+    b.ei = b.gc == a.nx - 1 ? tid : min(tid + 1, MOM_THREADS - 1);
+    b.wi = b.gc == 0 ? tid : max(tid - 1, 0);
+    b.r0 = blockIdx.y * tile_rows;
+    b.r1 = min(a.ny, b.r0 + tile_rows);
+    b.ra = max(0, b.r0 - H);
+    b.rb = min(a.ny, b.r1 + H);
+    const int t_end = b.r1 + H;               // the last output row's step + 1
+    if constexpr (mom_rolled<S>()) {
+        for (int i = 0; i < MOM_STAGE_AHEAD; ++i) mom_issue(b, b.ra + i);
+    }
+    for (int i = tid; i < 2 * H * MOM_THREADS; i += MOM_THREADS)
+        zsm[i] = make_float2(0.0f, 0.0f);
+    MomRows<S> m;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) m.p1[k][q] = m.p2[k][q] = 0.0f;
     }
     __syncthreads();
-    for (int k = 1; k < sweeps; ++k) {
-        const bool last = k == sweeps - 1;
-        const int rlo = max(0, er0 + k), rhi = min(ny, r0 + TILE + h - k);
-        const int clo = max(0, ec0 + k), chi = min(nx, c0 + TILE + h - k);
-        const int rw = chi - clo, cells = rw * (rhi - rlo);
-        for (int i = threadIdx.x; i < cells; i += TILE_THREADS) {
-            const int yy = i / rw;
-            const int gr = rlo + yy, gc = clo + (i - yy * rw);
-            const int li = (gr - er0) * ex + (gc - ec0);
-            const int le = gc == nx - 1 ? li : li + 1;
-            const int lw = gc == 0 ? li : li - 1;
-            const int ln = gr == ny - 1 ? li : li + ex;
-            const int ls = gr == 0 ? li : li - ex;
-            const long long g = (long long)gr * nx + gc;
-            const Off4 o = load_off(a.off, n, g);
-            const float di = __ldg(a.dinv + g);
+    float2* rd = zsm;
+    float2* wr = zsm + H * MOM_THREADS;
+    if constexpr (mom_rolled<S>()) {
+        float cf[S][7];
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                const float* zc = zin + c * e;
-                const Nbr v = {zc[li], zc[le], zc[lw], zc[ln], zc[ls]};
-                const float z = __fmul_rn(
-                    di, __fsub_rn(__ldg(a.r + c * n + g), dot4(o, v)));
-                if (last)
-                    a.out[c * n + g] = z;
-                else
-                    zout[c * e + li] = z;
-            }
+        for (int k = 0; k < S; ++k) {
+#pragma unroll
+            for (int s = 0; s < 7; ++s) cf[k][s] = 0.0f;
         }
-        __syncthreads();
-        float* t = zin;
-        zin = zout;
-        zout = t;
+        for (int t = b.ra; t < t_end; ++t) {
+            if (mom_clamps(b, t, 1, H))
+                mom_rolled_step<S, true>(cf, m, b, t, rd, wr);
+            else
+                mom_rolled_step<S, false>(cf, m, b, t, rd, wr);
+            __syncthreads();
+            float2* s = rd;
+            rd = wr;
+            wr = s;
+        }
+        cp_async_wait<0>();
+    } else {
+        constexpr int L = S + MOM_REG_AHEAD;
+        float cf[L][7];
+#pragma unroll
+        for (int i = 0; i < MOM_REG_AHEAD; ++i) mom_load(cf[i], b, b.ra + i);
+        for (int t0 = b.ra; t0 < t_end; t0 += L) {
+            if (mom_clamps(b, t0, L, H))
+                mom_chunk<S, true>(cf, m, b, t0, t_end, rd, wr);
+            else
+                mom_chunk<S, false>(cf, m, b, t0, t_end, rd, wr);
+        }
     }
 }
 
-// Two buffers of both components of the halo region: 33,856 bytes at 8
-// sweeps, 46,656 at 12, under the 48 KB a launch takes without opting in.
-constexpr int tile_smem(int sweeps) {
-    return 4 * (TILE + 2 * (sweeps - 1)) * (TILE + 2 * (sweeps - 1))
-        * (int)sizeof(float);
+// The levels' two buffers and, in the rolled form, the staged rows: 22,528
+// and 32,256 bytes at 12 sweeps, above the 48 KB a launch takes without
+// opting in.
+template <int S>
+constexpr int mom_smem() {
+    return 2 * (S - 1) * MOM_THREADS * (int)sizeof(float2)
+        + (mom_rolled<S>() ? MOM_STAGE * 7 * MOM_THREADS * (int)sizeof(float)
+                           : 0);
 }
-static_assert(tile_smem(TILE_MAX_SWEEPS) <= 48 * 1024,
-              "the temporal tiles' shared memory needs no opt-in");
+static_assert(mom_smem<TILE_MAX_SWEEPS>() <= 232448,
+              "the streamed predict's shared memory fits a block");
 
-cudaError_t launch_tiled(const MomArgs& a, int sweeps, cudaStream_t st) {
-    const size_t smem = (size_t)tile_smem(sweeps);
-    const dim3 grid((a.nx + TILE - 1) / TILE, (a.ny + TILE - 1) / TILE);
-    momentum_tiled_kernel<<<grid, TILE_THREADS, smem, st>>>(a, sweeps);
+// The opt-in above 48 KB, once per kernel and device (the attribute is a
+// device's).
+template <int S>
+cudaError_t opt_in_smem() {
+    constexpr int MAX_DEVICES = 64;
+    static bool done[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+    e = cudaFuncSetAttribute(momentum_stream_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             mom_smem<S>());
+    if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+    return e;
+}
+
+template <int S>
+cudaError_t launch_stream_s(const MomArgs& a, int tile_rows,
+                            cudaStream_t st) {
+    constexpr int TW = MOM_THREADS - 2 * (S - 1);
+    const cudaError_t opted = opt_in_smem<S>();
+    if (opted != cudaSuccess) return opted;
+    const dim3 grid((a.nx + TW - 1) / TW, (a.ny + tile_rows - 1) / tile_rows);
+    momentum_stream_kernel<S><<<grid, MOM_THREADS, mom_smem<S>(), st>>>(
+        a, tile_rows);
     return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t blocks_per_sm_s(int* out) {
+    const cudaError_t opted = opt_in_smem<S>();
+    if (opted != cudaSuccess) return opted;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, momentum_stream_kernel<S>, MOM_THREADS, mom_smem<S>());
+}
+
+// One case per sweep count of the streamed kernel, 2..TILE_MAX_SWEEPS.
+#define MOM_SWEEPS_CASES(CALL)                                              \
+    case 2: return CALL(2);                                                 \
+    case 3: return CALL(3);                                                 \
+    case 4: return CALL(4);                                                 \
+    case 5: return CALL(5);                                                 \
+    case 6: return CALL(6);                                                 \
+    case 7: return CALL(7);                                                 \
+    case 8: return CALL(8);                                                 \
+    case 9: return CALL(9);                                                 \
+    case 10: return CALL(10);                                               \
+    case 11: return CALL(11);                                               \
+    case 12: return CALL(12);
+static_assert(TILE_MAX_SWEEPS == 12, "MOM_SWEEPS_CASES lists 2..12");
+
+cudaError_t launch_stream(const MomArgs& a, int sweeps, int tile_rows,
+                          cudaStream_t st) {
+#define MOM_LAUNCH(S) launch_stream_s<S>(a, tile_rows, st)
+    switch (sweeps) {
+        MOM_SWEEPS_CASES(MOM_LAUNCH)
+        default: return cudaErrorInvalidValue;
+    }
+#undef MOM_LAUNCH
+}
+
+cudaError_t blocks_per_sm(int sweeps, int* out) {
+#define MOM_OCCUPANCY(S) blocks_per_sm_s<S>(out)
+    switch (sweeps) {
+        MOM_SWEEPS_CASES(MOM_OCCUPANCY)
+        default: return cudaErrorInvalidValue;
+    }
+#undef MOM_OCCUPANCY
 }
 
 // ---------------------------------------------------------------------
@@ -406,17 +701,20 @@ int coupled_spmv(const float* x, const float* off_mom, const float* off_up,
 
 // The momentum predict on an unsharded grid in one launch: 1 <= sweeps <=
 // TILE_MAX_SWEEPS Jacobi sweeps from the seed D^-1 r (the seed alone, or
-// the temporal tiles).  r: (2, ny, nx); dinv: (ny, nx); off: (4, ny, nx);
-// out (2, ny, nx) = z.  More sweeps take momentum_sweep, one launch each.
-// Returns a cudaError_t.
+// the streamed bands of tile_rows output rows each; the plan is
+// stencil_kernels.momentum_plan).  r: (2, ny, nx); dinv: (ny, nx); off:
+// (4, ny, nx); out (2, ny, nx) = z.  More sweeps take momentum_sweep, one
+// launch each.  Returns a cudaError_t.
 int momentum_jacobi(const float* r, const float* dinv, const float* off,
-                    float* out, int ny, int nx, int sweeps, void* stream) {
-    if (ny < 1 || nx < 1 || sweeps < 1 || sweeps > TILE_MAX_SWEEPS)
+                    float* out, int ny, int nx, int sweeps, int tile_rows,
+                    void* stream) {
+    if (ny < 1 || nx < 1 || sweeps < 1 || sweeps > TILE_MAX_SWEEPS
+            || tile_rows < 1)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const MomArgs a = {r, dinv, off, nullptr, nullptr, nullptr, out, ny, nx};
     if (sweeps == 1) return (int)launch_momentum<FROM_NONE>(a, st);
-    return (int)launch_tiled(a, sweeps, st);
+    return (int)launch_stream(a, sweeps, tile_rows, st);
 }
 
 // One launch of a predict run one sweep at a time (a row-sharded grid, or
@@ -465,9 +763,19 @@ int pressure_gradient(const float* zp, const float* d_up, const float* d_vp,
     return (int)cudaGetLastError();
 }
 
-// The most sweeps momentum_jacobi runs in one launch (TILE_MAX_SWEEPS):
-// ops/stencil_kernels.py checks its own constant against it at load.
+// The most sweeps momentum_jacobi runs in one launch (TILE_MAX_SWEEPS) and
+// its threads a block (MOM_THREADS): ops/stencil_kernels.py checks its own
+// constants against them at load.
 int stencil_tile_max_sweeps() { return TILE_MAX_SWEEPS; }
+int stencil_mom_threads() { return MOM_THREADS; }
+
+// The streamed predict's resident blocks per SM on the current device at
+// ``sweeps`` (2..TILE_MAX_SWEEPS) into *out, for the plan.  Returns a
+// cudaError_t.
+int stencil_mom_blocks_per_sm(int sweeps, int* out) {
+    if (out == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)blocks_per_sm(sweeps, out);
+}
 
 // Human-readable text of a cudaError_t returned above.
 const char* stencil_error_string(int err) {

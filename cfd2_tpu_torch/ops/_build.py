@@ -37,8 +37,8 @@ SIGNATURES = {
         # x, off_mom, off_up, off_vp, off_pu, off_pv, off_pp, d_u, d_up, d_vp,
         # d_pu, d_pv, d_pp, below, above, y, ny, nx, stream
         "coupled_spmv": ([_P] * 16 + [_I, _I, _P], _I),
-        # r, dinv, off, out, ny, nx, sweeps, stream
-        "momentum_jacobi": ([_P] * 4 + [_I, _I, _I, _P], _I),
+        # r, dinv, off, out, ny, nx, sweeps, tile_rows, stream
+        "momentum_jacobi": ([_P] * 4 + [_I, _I, _I, _I, _P], _I),
         # r, dinv, off, z, below, above, out, ny, nx, stream
         "momentum_sweep": ([_P] * 7 + [_I, _I, _P], _I),
         # rp, z, d_pu, d_pv, off_pu, off_pv, below, above, out, ny, nx, stream
@@ -46,6 +46,9 @@ SIGNATURES = {
         # zp, d_up, d_vp, off_up, off_vp, below, above, out, ny, nx, stream
         "pressure_gradient": ([_P] * 8 + [_I, _I, _P], _I),
         "stencil_tile_max_sweeps": ([], _I),
+        "stencil_mom_threads": ([], _I),
+        # sweeps, out
+        "stencil_mom_blocks_per_sm": ([_I, _P], _I),
         "stencil_error_string": ([_I], ctypes.c_char_p),
     },
     "banded": {

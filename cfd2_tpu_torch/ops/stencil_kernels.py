@@ -42,7 +42,9 @@ kernel launches per wrapper; :func:`reset_launches` zeroes it.
 
 from __future__ import annotations
 
+import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -427,37 +429,106 @@ def coupled_spmv(x, offs, diags, below=None, above=None):
     return y
 
 
-# The most sweeps one launch of temporal tiles runs: the solver's 8, and 12
-# from 1.5M cells (SolverConfig.mom_sweeps).  csrc/stencil.cu's constant of
-# the same name; _stencil_lib refuses a library that holds another.
+# The most sweeps one launch runs: the solver's 8, and 12 from 1.5M cells
+# (SolverConfig.mom_sweeps); and the threads of its blocks, one column of
+# a band each.  csrc/stencil.cu's constants of the same names; _stencil_lib
+# refuses a library that holds others.
 TILE_MAX_SWEEPS = 12
-_tile_limit_checked = False
+MOM_THREADS = 128
+_constants_checked = False
+# (device index, ny, nx, sweeps) -> the streamed predict's plan there.
+_MOM_PLANS: dict = {}
 
 
 def _stencil_lib():
-    """The built csrc/stencil.cu, its tile limit checked against
-    ``TILE_MAX_SWEEPS`` on first use."""
-    global _tile_limit_checked
+    """The built csrc/stencil.cu, its constants checked against
+    ``TILE_MAX_SWEEPS`` and ``MOM_THREADS`` on first use."""
+    global _constants_checked
     lib = _build.load("stencil")
-    if not _tile_limit_checked:
-        limit = lib.stencil_tile_max_sweeps()
-        if limit != TILE_MAX_SWEEPS:
-            raise RuntimeError(f"csrc/stencil.cu runs up to {limit} sweeps "
-                               f"in one launch, TILE_MAX_SWEEPS says "
-                               f"{TILE_MAX_SWEEPS}")
-        _tile_limit_checked = True
+    if not _constants_checked:
+        limit, threads = lib.stencil_tile_max_sweeps(), lib.stencil_mom_threads()
+        if (limit, threads) != (TILE_MAX_SWEEPS, MOM_THREADS):
+            raise RuntimeError(
+                f"csrc/stencil.cu runs up to {limit} sweeps in one launch "
+                f"on blocks of {threads} threads; stencil_kernels says "
+                f"{TILE_MAX_SWEEPS} and {MOM_THREADS}")
+        _constants_checked = True
     return lib
 
 
 def momentum_launches(sweeps: int, sharded: bool) -> int:
     """Kernel launches of one :func:`momentum_jacobi` call: one on an
     unsharded grid up to ``TILE_MAX_SWEEPS`` sweeps (the seed alone, or
-    temporal tiles running every sweep); else one for the seed and one per
-    sweep (``sweeps``), as on a row-sharded grid, where every sweep waits
-    for the neighbours' rows of the previous iterate."""
+    the streamed bands running every sweep); else one for the seed and one
+    per sweep (``sweeps``), as on a row-sharded grid, where every sweep
+    waits for the neighbours' rows of the previous iterate."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     return 1 if not sharded and sweeps <= TILE_MAX_SWEEPS else sweeps
+
+
+class MomentumPlan(NamedTuple):
+    """One launch of the streamed predict: ``bands`` column bands of
+    ``band_cols`` output columns (``MOM_THREADS`` less a halo of
+    ``sweeps - 1`` columns on either side) by ``row_blocks`` blocks of
+    ``tile_rows`` output rows; ``cells_per_output``: the cells a sweep
+    updates per output cell, halos included (the recomputed share)."""
+    bands: int
+    band_cols: int
+    row_blocks: int
+    tile_rows: int
+    cells_per_output: float
+
+
+def momentum_plan(ny: int, nx: int, sweeps: int, n_sm: int,
+                  blocks_per_sm: int = 1) -> MomentumPlan:
+    """The streamed predict's grid on a card of ``n_sm`` SMs that holds
+    ``blocks_per_sm`` of its blocks at once: the bands cover the columns,
+    and the rows are cut into as many blocks as fill those slots, so that
+    the whole launch is one wave.  Fewer, taller blocks would recompute
+    fewer halo rows but leave slots idle; the more blocks an SM holds, the
+    more of each one's waits (its chain of levels, its barrier) the others
+    fill."""
+    if not 2 <= sweeps <= TILE_MAX_SWEEPS:
+        raise ValueError(f"the streamed predict runs 2..{TILE_MAX_SWEEPS} "
+                         f"sweeps, not {sweeps}")
+    if n_sm < 1 or blocks_per_sm < 1:
+        raise ValueError(f"{n_sm} SMs holding {blocks_per_sm} blocks each")
+    h = sweeps - 1
+    cols = MOM_THREADS - 2 * h
+    bands = -(-nx // cols)
+    want = max(1, min(ny, n_sm * blocks_per_sm // bands))
+    tile_rows = -(-ny // want)
+    row_blocks = -(-ny // tile_rows)
+    streamed = sum(min(ny, (i + 1) * tile_rows + h) - max(0, i * tile_rows - h)
+                   for i in range(row_blocks))
+    return MomentumPlan(bands, cols, row_blocks, tile_rows,
+                        bands * MOM_THREADS * streamed / (ny * nx))
+
+
+def device_momentum_plan(dev: torch.device, ny: int, nx: int,
+                         sweeps: int) -> MomentumPlan:
+    """:func:`momentum_plan` on the card ``dev``: its SM count, and the
+    blocks per SM that its occupancy calculator gives the kernel at
+    ``sweeps``; kept per card and shape."""
+    key = (dev.index, ny, nx, sweeps)
+    plan = _MOM_PLANS.get(key)
+    if plan is None:
+        lib = _stencil_lib()
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.stencil_mom_blocks_per_sm(sweeps,
+                                                ctypes.addressof(per_sm))
+        if err:
+            _raise_on(lib.stencil_error_string, err, "momentum_jacobi")
+        if per_sm.value < 1:
+            raise RuntimeError(f"the streamed predict at {sweeps} sweeps does "
+                               f"not fit an SM of "
+                               f"{torch.cuda.get_device_name(dev)}")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _MOM_PLANS[key] = momentum_plan(ny, nx, sweeps, n_sm,
+                                               per_sm.value)
+    return plan
 
 
 def momentum_jacobi(r, dinv, off, sweeps: int, halo=None):
@@ -479,8 +550,10 @@ def momentum_jacobi(r, dinv, off, sweeps: int, halo=None):
     lib = _stencil_lib()
     if momentum_launches(sweeps, halo is not None) == 1:
         out = torch.empty_like(r)
+        rows = (1 if sweeps == 1 else
+                device_momentum_plan(dev, ny, nx, sweeps).tile_rows)
         err = launch(lib.momentum_jacobi, dev, r.data_ptr(), dinv.data_ptr(),
-                     off.data_ptr(), out.data_ptr(), ny, nx, sweeps)
+                     off.data_ptr(), out.data_ptr(), ny, nx, sweeps, rows)
         if err:
             _raise_on(lib.stencil_error_string, err, "momentum_jacobi")
         LAUNCHES["momentum_jacobi"] += 1

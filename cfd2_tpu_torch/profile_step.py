@@ -54,7 +54,7 @@ MIN_CELL = 0.0017   # the main path's mesh: 996,558 cells on 589x1765
 # Kernel-name fragments -> the code that issues them.
 _GROUPS = (
     ("coupled_spmv_kernel", "coupled_spmv (CUDA, matvec)"),
-    ("momentum_tiled_kernel", "momentum_jacobi (CUDA, momentum predict)"),
+    ("momentum_stream_kernel", "momentum_jacobi (CUDA, momentum predict)"),
     ("momentum_kernel", "momentum_jacobi (CUDA, momentum predict)"),
     ("schur_rhs_kernel", "schur_rhs (CUDA)"),
     ("pressure_gradient_kernel", "pressure_gradient (CUDA)"),

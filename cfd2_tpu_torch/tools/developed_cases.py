@@ -131,6 +131,55 @@ def make_solver(case: Case, device=None, mesh=None, state=None):
     return s, meta
 
 
+# What a step of the Euler scheme reads of the state it starts from, in host
+# cell order: u and p, and the d_p and grad_p of the last prepare (the
+# Rhie-Chow flux reads them before it overwrites them).  Fluxes and the
+# velocity gradients are recomputed first; u_old is set to u by the history
+# rotation; u_old_old is read only under BDF2.
+STEP_INPUT_FIELDS = ("u", "p", "d_p", "grad_p")
+
+
+def save_step_input(s, path, **meta):
+    """Write what the next step of ``s`` reads (``STEP_INPUT_FIELDS`` in
+    host order, f32) and, in ``meta``, the state's time and every parameter
+    as exact f32 values, beside ``meta``'s own entries."""
+    from ..runtime.state import PARAMS_FIELDS
+    arrs = {f: s.mesh.to_host_order(getattr(s.state, f)).cpu().numpy()
+            .astype(np.float32) for f in STEP_INPUT_FIELDS}
+    meta = dict(meta, cells=int(s.host_mesh.num_cells),
+                time=float(s.state.time),
+                params={f: float(getattr(s.params, f))
+                        for f in PARAMS_FIELDS})
+    np.savez_compressed(path, meta=json.dumps(meta), **arrs)
+
+
+def read_step_input(path) -> tuple[dict, dict]:
+    """(fields, meta) of a file :func:`save_step_input` wrote."""
+    with np.load(path) as d:
+        return ({f: d[f] for f in STEP_INPUT_FIELDS},
+                json.loads(str(d["meta"])))
+
+
+def load_step_input(s, path) -> dict:
+    """Start ``s`` from a file :func:`save_step_input` wrote: its fields,
+    the history set to u, time and parameters as saved.  Returns the
+    meta."""
+    import torch
+    from ..runtime.state import PARAMS_FIELDS
+    arrs, meta = read_step_input(path)
+    if int(meta["cells"]) != s.host_mesh.num_cells:
+        raise ValueError(f"step input of {meta['cells']} cells does not fit "
+                         f"a mesh of {s.host_mesh.num_cells}")
+    dev = {f: s.mesh.from_host_order(torch.from_numpy(a))
+           for f, a in arrs.items()}
+    f32 = dict(dtype=torch.float32, device=s.device)
+    s.state = replace(s.state, **dev, u_old=dev["u"], u_old_old=dev["u"],
+                      prev_u=dev["u"], time=torch.tensor(meta["time"], **f32))
+    s.params = replace(s.params, **{f: torch.tensor(meta["params"][f], **f32)
+                                    for f in PARAMS_FIELDS})
+    return meta
+
+
 def record_solves():
     """Wrap the solver's per-outer solve to record each one's FGMRES
     iterations; returns (list, restore)."""

@@ -37,7 +37,8 @@ Phases (any failure exits non-zero):
    under both flushes beside their read-once bounds, their plain versions
    and, but for the predict, the library's CSR product of the same
    function (A x of the assembled 3N x 3N matrix, G z_p, r_p - D z); the
-   predict also as one launch per sweep, its row-sharded form; the host's
+   predict also bit for bit and timed at 834x2500 with 12 sweeps (the 2M
+   case's) and as one launch per sweep, its row-sharded form; the host's
    time per wrapper call;
 3. drive the main path: the 996,558-cell channel-obstacle mesh
    (min_cell=0.0017, 589x1765 grid), ``CoupledSolver`` with the structured
@@ -61,9 +62,14 @@ Phases (any failure exits non-zero):
    mesh (min_cell=0.003), aggregation AMG (precond_type=1), 3 steps from
    rest; before stepping, each banded kernel is held against its plain
    version on the solver's own maps (the mesh's and every coarse level's);
-   all three banded kernels must be launched; after stepping, one V-cycle
-   under the profiler must prolong through one fused launch per level,
-   two device kernels per level fewer than the gather, product and sum;
+   all three banded kernels must be launched; steps 0-1 held to the round's
+   bound against the JAX package's from-rest record and step 2 against its
+   step from the card's own step-2 state (``--save-step2-input`` writes
+   that state; ``cfd2_tpu_torch/data/delaunay_403k_step2_card.npz`` is the
+   committed one, and the card's state is logged against it); after
+   stepping, one V-cycle under the profiler must prolong through one fused
+   launch per level, two device kernels per level fewer than the gather,
+   product and sum;
 7. the slot-capped path: the 115,505-cell Voronoi mesh (min_cell=0.004,
    ``bd_k == 8``), its maps held the same way, 2 steps from rest;
 8. one step of a ~5k-cell Delaunay mesh on the card and on the CPU: equal
@@ -173,8 +179,8 @@ Phases (any failure exits non-zero):
    into ``.bench_cache``): (a) ``structured_2m_developed``, the 1,998,381-cell
    channel (834x2500 grid) from ``bench_developed_2m.npz``, 3 heal steps and
    3 counted ones, 12 momentum sweeps: the stencil kernels held bit for bit
-   on its assembled system (the predict at 12 sweeps, the widest temporal
-   tile) and the legs on its level grids, then ``momentum_jacobi`` in one
+   on its assembled system (the predict at 12 sweeps, the most one launch
+   runs) and the legs on its level grids, then ``momentum_jacobi`` in one
    launch per predict, ``rbgs_leg`` 16 per FGMRES iteration and the other
    stencil kernels at their rates (asserted); (b) ``delaunay_1m_developed``
    (1,004,266 cells, uncapped map) and (c) ``voronoi_893k_developed``
@@ -186,8 +192,8 @@ Phases (any failure exits non-zero):
    the round's bound (equal outers, FGMRES iterations within 2 per outer)
    against ``cfd2_tpu_torch/data/fullsize_counts.json``'s JAX record where it
    has the step, and logged beside its port-CPU record (phases 6 and 10(a)
-   log theirs beside the record's ``delaunay_403k_rest`` and
-   ``refined_132k_rest``, unchecked); (d) ``make_developed_unstructured``
+   hold theirs to the record's ``delaunay_403k_rest`` and
+   ``refined_132k_rest`` the same way); (d) ``make_developed_unstructured
    itself for 3 heal steps on (b)'s mesh, into ``.phase13`` (removed after).
 
 Then the kernels' JSON line, the script's total wall and the result line are
@@ -436,6 +442,9 @@ def phase_build():
     if "banded" in outs:
         log("phase 1: ptxas, sweeps kernels: "
             + "; ".join(_ptxas_summary(outs["banded"], "jacobi_sweeps")))
+    if "stencil" in outs:
+        log("phase 1: ptxas, streamed predict: "
+            + "; ".join(_ptxas_summary(outs["stencil"], "momentum_stream")))
     for name in _build.SIGNATURES:
         _build.load(name)
     log(f"phase 1: built {sorted(_build.SIGNATURES)} in "
@@ -1189,6 +1198,46 @@ def _stencil_bounds(ny, nx, sweeps):
             "pressure_gradient": (13 * 4 * n, 18 * n)}
 
 
+def _momentum_plan_note(sk, ny, nx, sweeps):
+    """The streamed predict's plan on this card, where the wrapper has one
+    (a ``--tree`` checkout may not)."""
+    import torch
+    if not hasattr(sk, "device_momentum_plan"):
+        return "no plan (that checkout's temporal tiles)"
+    plan = sk.device_momentum_plan(torch.device("cuda"), ny, nx, sweeps)
+    return (f"{plan.bands} bands of {plan.band_cols} columns x "
+            f"{plan.row_blocks} blocks of {plan.tile_rows} rows, "
+            f"{plan.cells_per_output:.3f} cells updated per output cell")
+
+
+def _momentum_2m(sk, cc):
+    """The 2M developed case's predict (12 sweeps on 834x2500, one launch):
+    bit-equal to its plain version, timed under both flushes beside its
+    bound and the plain version.  Returns the keys it adds to the kernel's
+    JSON entry."""
+    import torch
+    (ny, nx), sweeps = DEVELOPED_2M_GRID, 12
+    p = cc.stencil_tensors((ny, nx), 29, "cuda")
+    key = f"momentum_jacobi {sweeps}"
+    call = cc.stencil_calls(p, sweeps=(sweeps,))[key]
+    plain = cc.stencil_calls(p, sweeps=(sweeps,), plain=True)[key]
+    got, ref = call(), plain()
+    err = float((got - ref).abs().max())
+    check(torch.equal(got, ref), f"momentum_jacobi at {ny}x{nx}, {sweeps} "
+          f"sweeps, differs from its plain version: max-abs {err:.3e}")
+    del got, ref
+    ms, ms_read = both_flushes_ms(call)
+    plain_ms = cuda_time_ms(plain, reps=10)
+    bnd, by = bound_ms(*_stencil_bounds(ny, nx, sweeps)["momentum_jacobi"])
+    log(f"phase 2: momentum_jacobi at {ny}x{nx}, {sweeps} sweeps "
+        f"({_momentum_plan_note(sk, ny, nx, sweeps)}): bit-equal; "
+        f"{ms:.4f} ms / {ms_read:.4f} ms under the read flush / bound "
+        f"{bnd:.4f} ({by}, {bnd / ms:.1%} of it) / plain {plain_ms:.4f}")
+    tag = f"{ny}x{nx}_{sweeps}"
+    return {f"ms_{tag}": ms, f"ms_read_flush_{tag}": ms_read,
+            f"bound_ms_{tag}": bnd, f"plain_ms_{tag}": plain_ms}
+
+
 def phase_stencil_kernels(results):
     """Phase 2's part for csrc/stencil.cu: each kernel bit-equal to its
     plain version on small grids and at 589x1765 (sweeps 1-14, with and
@@ -1206,6 +1255,7 @@ def phase_stencil_kernels(results):
     errs = _hold_stencils(2, sk, cases)
     ny, nx = MAIN_GRID
     p = cases[-1][1]
+    mom_2m = _momentum_2m(sk, cc)
     sweeps = 8
     calls = cc.stencil_calls(p, sweeps=(sweeps,))
     plain = cc.stencil_calls(p, sweeps=(sweeps,), plain=True)
@@ -1240,10 +1290,12 @@ def phase_stencil_kernels(results):
             replaces=STENCIL_REPLACES[name], launches=0,
             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bnd,
             bound_by=by, library_ms=lib_ms, ms_read_flush=ms_read)
+    results["momentum_jacobi"].update(mom_2m)
     del library
     n_launch = sk.momentum_launches(sweeps, False)
     log(f"phase 2: stencil kernels at {ny}x{nx} (momentum_jacobi {sweeps} "
-        f"sweeps, {n_launch} launch{'es' if n_launch > 1 else ''}), ms / ms "
+        f"sweeps, {n_launch} launch{'es' if n_launch > 1 else ''}: "
+        f"{_momentum_plan_note(sk, ny, nx, sweeps)}), ms / ms "
         "under the read flush / read-once bound ms / plain ms / library ms: "
         + "; ".join(rows))
     # The per-sweep launches (the seed, then one launch per sweep: the
@@ -1252,13 +1304,13 @@ def phase_stencil_kernels(results):
     own = lambda z: (z[:, :1].contiguous(), z[:, -1:].contiguous())
     per = lambda: sk.momentum_jacobi(r2, dinv, off, sweeps, halo=own)
     check(torch.equal(per(), calls[f"momentum_jacobi {sweeps}"]()),
-          "the per-sweep launches differ from the temporal tiles")
+          "the per-sweep launches differ from the one-launch predict")
     p_ms, p_read = both_flushes_ms(per)
     one = cc.stencil_calls(p, sweeps=(1,))["momentum_jacobi 1"]
     m1, m1_read = both_flushes_ms(one)
     log(f"phase 2: momentum_jacobi {sweeps} sweeps as {sweeps} per-sweep "
         f"launches (the row-sharded form) {p_ms:.4f} / {p_read:.4f} ms, "
-        f"bit-equal to the temporal tiles; 1 sweep (the seed alone) "
+        f"bit-equal to the one-launch predict; 1 sweep (the seed alone) "
         f"{m1:.4f} / {m1_read:.4f} ms")
     sp_ = cc.stencil_tensors((37, 111), 5, "cuda")
     h_k = {k: host_us(c) for k, c in cc.stencil_calls(sp_).items()}
@@ -1784,26 +1836,34 @@ def _check_sweeps_records(phase, s, calls=3):
           "not one each")
 
 
-def _drive_unstructured(phase, s, n_cells, n_steps):
+def _drive_unstructured(phase, s, n_cells, n_steps, before_step=None):
     """Step ``s`` with the launch counts zeroed just before; returns the
     counts read just after, the FGMRES iterations taken and per step the
-    outers and FGMRES iterations."""
+    outers and FGMRES iterations.  ``before_step(i)`` is called before step
+    ``i``, outside the timed span."""
     import torch
     from cfd2_tpu_torch.ops import banded_kernels as bk
     from cfd2_tpu_torch.ops import stencil_kernels as sk
     from cfd2_tpu_torch.runtime import host_reads
+    from cfd2_tpu_torch.tools import developed_cases as dc
 
     bk.reset_launches()
     sk.reset_launches()
     lin_total = 0
     rows = []
     for i in range(n_steps):
+        if before_step is not None:
+            before_step(i)
         host_reads.reset()
         before = dict(bk.LAUNCHES)
+        its, restore = dc.record_solves()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        s.step()
-        torch.cuda.synchronize()
+        try:
+            s.step()
+            torch.cuda.synchronize()
+        finally:
+            restore()
         wall = time.perf_counter() - t
         outer = int(s.state.outer_iters)
         lins = int(s.state.linear_iters_total)
@@ -1811,7 +1871,7 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
         rows.append((outer, lins))
         step_launch = {k: v - before[k] for k, v in bk.LAUNCHES.items()}
         log(f"phase {phase}: step {i}: wall {wall:.4f} s, outer_iters "
-            f"{outer}, linear_iters_total {lins}, cell-updates/s "
+            f"{outer}, linear_iters_total {lins} {its}, cell-updates/s "
             f"{n_cells / wall:.1f}, host reads {host_reads.COUNT['reads']}, "
             f"launches {step_launch}")
         check(_finite(s), f"non-finite fields after step {i}")
@@ -1830,6 +1890,31 @@ def _drive_unstructured(phase, s, n_cells, n_steps):
         f"{counts['banded_jacobi_sweeps'] / lin_total:.2f} "
         "banded_jacobi_sweeps calls")
     return counts, lin_total, rows
+
+
+# The card's state at the start of the 403k Delaunay case's step 2 (the
+# input of the JAX package's from-state record in fullsize_counts.json).
+STEP2_INPUT = ROOT / "cfd2_tpu_torch" / "data" / "delaunay_403k_step2_card.npz"
+
+
+def _step2_input(s, ctx):
+    """Before phase 6's step 2: write the state the step reads where
+    ``--save-step2-input`` asks, and log how far it lies from the committed
+    one."""
+    from cfd2_tpu_torch.tools import developed_cases as dc
+    if ctx.get("save_step2_input"):
+        dc.save_step_input(s, ctx["save_step2_input"],
+                           case="delaunay_403k_rest", step=2,
+                           card=card_line(), source="chip_smoke.py phase 6")
+        log(f"phase 6: step 2's input written to {ctx['save_step2_input']}")
+    if not STEP2_INPUT.exists():
+        return
+    ref, _ = dc.read_step_input(STEP2_INPUT)
+    diffs = {f: float(np.abs(s.mesh.to_host_order(getattr(s.state, f))
+                             .cpu().numpy() - a).max())
+             for f, a in ref.items()}
+    log(f"phase 6: step 2's input against the committed "
+        f"{STEP2_INPUT.name}: max-abs difference {diffs}")
 
 
 def phase_delaunay(results, ctx):
@@ -1857,8 +1942,18 @@ def phase_delaunay(results, ctx):
     check(sizes == DELAUNAY_LEVELS,
           f"hierarchy levels {sizes} != {DELAUNAY_LEVELS}")
     _hold_on_solver_maps(6, s, results)
-    counts, lin_total, rows = _drive_unstructured(6, s, mesh.num_cells, 3)
-    _beside_record(6, "delaunay_403k_rest", rows)
+    counts, lin_total, rows = _drive_unstructured(
+        6, s, mesh.num_cells, 3,
+        lambda i: _step2_input(s, ctx) if i == 2 else None)
+    # Steps 0-1 against the from-rest record; step 2 against the JAX
+    # package's step from the card's own step-2 state, which took the
+    # card's 7 outers and 232 FGMRES iterations to its 242: the step's gap
+    # to the from-rest record is roundoff carried in from steps 0-1.
+    case = "delaunay_403k_rest"
+    _beside_record(6, case, rows[:2], enforce=True)
+    _beside_record(6, case, rows[2:], first=2)
+    _beside_record(6, case, rows[2:], enforce=True, first=2,
+                   suffix="_from_card_step2")
     ctx["delaunay"] = s
     for name, cnt in counts.items():
         if name in results:
@@ -2178,8 +2273,10 @@ def phase_multilevel(results):
     rows += more
     counts = {k: counts[k] + counts2[k] for k in counts}
     _log_run("multilevel", rows, counts, phase="10a")
+    # Steps 0-1 are held to the JAX record (the card met it in every run
+    # since PR 12); its step 2 is not recorded.
     _beside_record("10a", "refined_132k_rest",
-                   [(o, sum(its)) for o, its, _, _ in rows])
+                   [(o, sum(its)) for o, its, _, _ in rows], enforce=True)
     lin_total = sum(sum(its) for _, its, _, _ in rows)
     per_apply = 2 * len(hier.fine.levels)
     for name in ("rbgs_leg", "banded_dot", "banded_gather"):
@@ -3567,7 +3664,8 @@ HEAL_DIR = ROOT / ".phase13"
 
 def _record_steps(case, package):
     """The counted steps of ``case`` that ``tests/torch_fullsize_parity.py``
-    recorded for ``package`` (``jax`` or ``port_cpu``), or []."""
+    recorded for ``package`` (``jax``, ``port_cpu``, or either of them
+    ``_from_card_step<N>``: one step from the card's saved state), or []."""
     if not COUNTS_RECORD.exists():
         return []
     entry = json.loads(COUNTS_RECORD.read_text())["cases"].get(
@@ -3581,20 +3679,24 @@ def _within_round_bound(card, ref):
     return card[0] == ref[0] and abs(card[1] - ref[1]) <= 2 * ref[0]
 
 
-def _beside_record(phase, case, rows, enforce=False):
+def _beside_record(phase, case, rows, enforce=False, first=0, suffix=""):
     """Log the card's (outers, FGMRES iterations) per step beside the
     record's JAX and port-CPU steps of ``case``; with ``enforce``, check
-    the round's bound on every step the JAX record holds.  Returns the
-    steps that miss it."""
-    jax_rows = _record_steps(case, "jax")
-    cpu_rows = _record_steps(case, "port_cpu")
+    the round's bound on every step the JAX record holds.  ``rows`` are
+    the case's steps from ``first`` on, and ``suffix`` picks the records
+    (``_from_card_step2``: the step from the card's saved state, whose
+    record holds that one step).  Returns the steps that miss it."""
+    jax_rows = _record_steps(case, "jax" + suffix)
+    cpu_rows = _record_steps(case, "port_cpu" + suffix)
+    if suffix:
+        jax_rows, cpu_rows = [None] * first + jax_rows, [None] * first + cpu_rows
 
     def fmt(r):
         return (f"{r['outers']} outers, {sum(r['its'])} it {r['its']}"
                 if r else "not recorded")
 
     missed = []
-    for i, (outer, lin) in enumerate(rows):
+    for i, (outer, lin) in enumerate(rows, first):
         j = jax_rows[i] if i < len(jax_rows) else None
         c = cpu_rows[i] if i < len(cpu_rows) else None
         verdict = "no JAX record"
@@ -3604,12 +3706,12 @@ def _beside_record(phase, case, rows, enforce=False):
             verdict = "within the bound" if ok else "MISSES the bound"
             if not ok:
                 missed.append(i)
-        log(f"phase {phase}: {case} step {i}: card {outer} outers, {lin} "
-            f"it; JAX (CPU) {fmt(j)}; port (CPU) {fmt(c)}: {verdict} "
+        log(f"phase {phase}: {case}{suffix} step {i}: card {outer} outers, "
+            f"{lin} it; JAX (CPU) {fmt(j)}; port (CPU) {fmt(c)}: {verdict} "
             "(equal outers, iterations within 2 per outer)")
     if enforce:
-        check(not missed, f"{case}: steps {missed} miss the round's bound "
-              "against the JAX package's record")
+        check(not missed, f"{case}{suffix}: steps {missed} miss the round's "
+              "bound against the JAX package's record")
     return missed
 
 
@@ -3725,7 +3827,7 @@ def _p13_structured(results, ctx):
     ms = s.config.mom_sweeps(s.mesh.total_cells)
     check(ms == sk.TILE_MAX_SWEEPS == 12
           and sk.momentum_launches(ms, False) == 1,
-          f"{ms} momentum sweeps: expected the widest temporal tile (12)")
+          f"{ms} momentum sweeps: expected the most one launch runs (12)")
     _hold_on_assembled_system(results, s, ms, phase=13)
     before = dict(sk.LAUNCHES)
     err_leg, err_fused, _ = _hold_legs(13, sk, grids)
@@ -3827,6 +3929,9 @@ def main(argv=None) -> int:
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
                     "reads of its state to PATH (.npz)")
+    ap.add_argument("--save-step2-input", metavar="PATH",
+                    help="phase 6 writes the state its step 2 starts from "
+                    "to PATH (.npz, host order)")
     ap.add_argument("--tree", metavar="PATH",
                     help="run phases 1 and 2 on the cfd2_tpu_torch of "
                     "another checkout, unpacked inside this one")
@@ -3850,7 +3955,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 basis dots
 
     log(card_line())
-    results, ctx = {}, {"export_forces": args.export_forces}
+    results, ctx = {}, {"export_forces": args.export_forces,
+                        "save_step2_input": args.save_step2_input}
     t_all = time.time()
     steps = [(1, phase_build), (2, lambda: phase_kernels(results)),
              (3, lambda: phase_main(results, ctx)),

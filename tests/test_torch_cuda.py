@@ -152,6 +152,27 @@ def test_stencil_kernels_equal_plain_bit_for_bit(cuda, ny, nx, halo):
         np.testing.assert_array_equal(got[key], r, err_msg=key)
 
 
+# The streamed predict's edge cases: one cell, one row, one column, grids
+# narrower and shorter than one band, ragged last bands and row blocks in
+# both directions, and the two full-size grids of the structured path.
+MOMENTUM_GRIDS = [(1, 1), (1, 300), (300, 1), (5, 7), (19, 243), (37, 485),
+                  (130, 250), (589, 1765), (834, 2500)]
+
+
+@pytest.mark.parametrize("ny,nx", MOMENTUM_GRIDS)
+def test_momentum_jacobi_equals_plain_at_every_sweep_count(cuda, ny, nx):
+    """The one-launch predict at sweeps 1-12 against momentum_jacobi_ref:
+    torch.equal, one launch per call."""
+    p = ranks.stencil_tensors((ny, nx), 70 + ny, cuda)
+    r2, dinv, off = p["r"][:2], p["diag_u_inv2"], p["off_mom"]
+    for sweeps in range(1, sk.TILE_MAX_SWEEPS + 1):
+        before = sk.LAUNCHES["momentum_jacobi"]
+        got = sk.momentum_jacobi(r2, dinv, off, sweeps)
+        assert sk.LAUNCHES["momentum_jacobi"] == before + 1
+        ref = sk.momentum_jacobi_ref(r2, dinv, off, sweeps)
+        assert torch.equal(got, ref), (ny, nx, sweeps)
+
+
 def test_stencil_kernels_count_their_launches(cuda):
     p = ranks.stencil_tensors((37, 53), 3, cuda)
     offs = tuple(p[k] for k in ("off_mom", "off_up", "off_vp", "off_pu",

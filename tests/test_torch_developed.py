@@ -17,7 +17,9 @@ steps.  The set-ups equal in dt, viscosity, density, time, every
 ``SolverConfig`` field and the loaded fields."""
 
 import json
+import sys
 from dataclasses import fields, replace
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -275,3 +277,73 @@ def test_entry_points_need_the_card_unless_told_otherwise():
         dc.step_case("delaunay_1m_developed")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mdu.main(["delaunay", "0.0019"])
+
+
+def test_step_input_round_trip_in_both_packages(tmp_path):
+    """``save_step_input`` after two steps of the reduced 403k case: a fresh
+    port solver loaded from it takes the next step bit for bit as the
+    solver that wrote it, the JAX package's loader in
+    ``tests/torch_fullsize_parity.py`` puts the same fields, time and
+    parameters into its solver (host order, exactly), and a file of
+    another mesh is refused."""
+    case, tmesh, jmesh = _reduced("delaunay_403k_rest")
+    s, _ = dc.make_solver(case, device="cpu", mesh=tmesh)
+    dc.run_steps(s, 2)
+    path = tmp_path / "step2.npz"
+    dc.save_step_input(s, path, case=case.name, step=2)
+    arrs, meta = dc.read_step_input(path)
+    assert meta["step"] == 2 and meta["cells"] == tmesh.num_cells
+    t, _ = dc.make_solver(case, device="cpu", mesh=tmesh)
+    dc.load_step_input(t, path)
+    ref, got = dc.run_steps(s, 1)[0], dc.run_steps(t, 1)[0]
+    assert (got["outers"], got["its"]) == (ref["outers"], ref["its"])
+    assert np.array_equal(t.get_u(), s.get_u())
+    assert np.array_equal(t.get_p(), s.get_p())
+    j = fp.jax_solver(case, jmesh)
+    fp.jax_load_step_input(j, path)
+    for f, a in arrs.items():
+        assert np.array_equal(np.asarray(j.mesh.to_host_order(
+            getattr(j.state, f))), a), f
+    assert np.array_equal(np.asarray(j.mesh.to_host_order(j.state.u_old)),
+                          arrs["u"])
+    assert float(j.state.time) == np.float32(meta["time"])
+    for f, v in meta["params"].items():
+        assert float(getattr(j.params, f)) == np.float32(v), f
+    other = tmp_path / "other.npz"
+    np.savez_compressed(other, **arrs, meta=json.dumps(
+        dict(meta, cells=tmesh.num_cells + 1)))
+    with pytest.raises(ValueError, match="does not fit"):
+        dc.load_step_input(t, other)
+    with pytest.raises(ValueError, match="does not fit"):
+        fp.jax_load_step_input(j, other)
+
+
+def test_phase_6_holds_step_2_to_the_from_state_record(tmp_path, monkeypatch,
+                                                       capsys):
+    """``chip_smoke._beside_record`` with the from-state suffix: the card's
+    step 2 is held to the one step of ``jax_from_card_step2`` (the round's
+    bound: equal outers, iterations within 2 per outer), the from-rest
+    record's step 2 only logged; the committed record holds both."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    rec = json.loads(cs.COUNTS_RECORD.read_text())["cases"]
+    case = rec["delaunay_403k_rest"]
+    assert case["jax_from_card_step2"]["complete"]
+    assert case["jax_from_card_step2"]["from_step"] == 2
+    step = lambda outers, its: {"outers": outers, "its": its}
+    record = tmp_path / "counts.json"
+    record.write_text(json.dumps({"cases": {"c": {
+        "jax": {"steps": [step(2, [3, 1]), step(2, [4, 1]),
+                          step(6, [10] * 6)]},
+        "jax_from_card_step2": {"steps": [step(7, [10] * 7)]}}}}))
+    monkeypatch.setattr(cs, "COUNTS_RECORD", record)
+    rows = [(2, 4), (2, 5), (7, 80)]
+    assert cs._beside_record(6, "c", rows[:2], enforce=True) == []
+    assert cs._beside_record(6, "c", rows[2:], first=2) == [2]
+    assert cs._beside_record(6, "c", rows[2:], enforce=True, first=2,
+                             suffix="_from_card_step2") == []
+    assert "c_from_card_step2 step 2: card 7 outers, 80 it; JAX (CPU) 7 " \
+        "outers, 70 it" in capsys.readouterr().out
+    with pytest.raises(cs.PhaseError, match="steps \\[2\\] miss"):
+        cs._beside_record(6, "c", [(7, 85)], enforce=True, first=2,
+                          suffix="_from_card_step2")

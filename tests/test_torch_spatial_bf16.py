@@ -41,3 +41,17 @@ def test_sharded_bf16_option_matches_jax_and_one_process(runs, world, name):
     assert got["lin"] == one["lin"]
     assert np.abs(got["u"] - one["u"]).max() < 1e-5
     assert np.abs(got["u"] - ref["u"]).max() < 1e-5
+
+
+def test_jax_reference_process_reports_its_stderr(tmp_path):
+    """A JAX reference process that fails raises with its exit code and the
+    end of its stderr, so that an abort is readable in the test's report."""
+    import subprocess
+    import sys
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.stderr.write('boom: the "
+         "reference aborted'); sys.exit(134)"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with pytest.raises(RuntimeError, match=r"exited with 134(.|\n)*boom: "
+                       "the reference aborted"):
+        sc.finish_jax_process(proc, str(tmp_path / "jax.pkl"), timeout=60)

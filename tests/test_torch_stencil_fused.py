@@ -170,27 +170,66 @@ def test_preconditioner_ends_with_the_second_predicts_difference(
 
 
 def test_tile_limit_is_the_kernel_sources():
-    """TILE_MAX_SWEEPS is csrc/stencil.cu's constant of the same name."""
+    """TILE_MAX_SWEEPS and MOM_THREADS are csrc/stencil.cu's constants of
+    the same names."""
     src = (Path(sk.__file__).parent.parent / "csrc" / "stencil.cu")
-    found = re.findall(r"constexpr int TILE_MAX_SWEEPS = (\d+);",
-                       src.read_text())
-    assert found == [str(sk.TILE_MAX_SWEEPS)]
+    for name in ("TILE_MAX_SWEEPS", "MOM_THREADS"):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src.read_text())
+        assert found == [str(getattr(sk, name))], name
 
 
 def test_stencil_lib_refuses_another_tile_limit(monkeypatch):
-    """A library whose tiles run another number of sweeps than
-    TILE_MAX_SWEEPS is refused at load, before any launch."""
+    """A library that runs another number of sweeps in one launch than
+    TILE_MAX_SWEEPS, or on other blocks than MOM_THREADS, is refused at
+    load, before any launch."""
     class Lib:
-        def __init__(self, limit):
+        def __init__(self, limit, threads=sk.MOM_THREADS):
             self.stencil_tile_max_sweeps = lambda: limit
+            self.stencil_mom_threads = lambda: threads
 
-    monkeypatch.setattr(sk, "_tile_limit_checked", False)
+    monkeypatch.setattr(sk, "_constants_checked", False)
     monkeypatch.setattr(_build, "load", lambda name: Lib(10))
     with pytest.raises(RuntimeError, match="up to 10 sweeps"):
+        sk._stencil_lib()
+    monkeypatch.setattr(_build, "load",
+                        lambda name: Lib(sk.TILE_MAX_SWEEPS, 256))
+    with pytest.raises(RuntimeError, match="blocks of 256 threads"):
         sk._stencil_lib()
     lib = Lib(sk.TILE_MAX_SWEEPS)
     monkeypatch.setattr(_build, "load", lambda name: lib)
     assert sk._stencil_lib() is lib
+
+
+@pytest.mark.parametrize("ny,nx,sweeps,per_sm,bands,rows,row_blocks", [
+    (589, 1765, 8, 2, 16, 37, 16),      # the 1M main path: 256 blocks
+    (834, 2500, 12, 3, 24, 53, 16),     # the 2M case: 384 blocks
+    (589, 1765, 8, 1, 16, 74, 8),
+    (1, 1, 2, 2, 1, 1, 1),
+    (1, 5000, 12, 1, 48, 1, 1),         # more bands than SMs: one row block
+    (40, 3, 5, 4, 1, 1, 40),            # fewer rows than slots: a row a block
+])
+def test_momentum_plan_fills_the_card_in_one_wave(ny, nx, sweeps, per_sm,
+                                                  bands, rows, row_blocks):
+    """The streamed predict's plan on 132 SMs holding ``per_sm`` blocks
+    each: bands of MOM_THREADS less the halo cover the columns, the rows
+    are cut so that the blocks fill the slots once; the recomputed share
+    is counted from the same cut."""
+    plan = sk.momentum_plan(ny, nx, sweeps, 132, per_sm)
+    h = sweeps - 1
+    assert plan.band_cols == sk.MOM_THREADS - 2 * h
+    assert (plan.bands, plan.tile_rows, plan.row_blocks) == (
+        bands, rows, row_blocks)
+    assert plan.bands * plan.band_cols >= nx > (plan.bands - 1) * plan.band_cols
+    assert plan.row_blocks * plan.tile_rows >= ny
+    assert plan.bands * plan.row_blocks <= max(132 * per_sm, plan.bands)
+    streamed = sum(min(ny, (i + 1) * rows + h) - max(0, i * rows - h)
+                   for i in range(row_blocks))
+    assert plan.cells_per_output == pytest.approx(
+        bands * sk.MOM_THREADS * streamed / (ny * nx))
+    for bad in ((1, 132, 1), (sk.TILE_MAX_SWEEPS + 1, 132, 1), (8, 0, 1),
+                (8, 132, 0)):
+        with pytest.raises(ValueError):
+            sk.momentum_plan(ny, nx, *bad)
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,7 @@ same mesh cache and the same state; the counts go to
 ``cfd2_tpu_torch/data/fullsize_counts.json``.
 
     JAX_PLATFORMS=cpu python tests/torch_fullsize_parity.py CASE \\
-        [--package jax|port] [--threads T] [--force]
+        [--package jax|port] [--threads T] [--force] [--from-state PATH]
 
 One case and one package per call: at these sizes a step takes the JAX
 package minutes to hours on a CPU.  Each step is written to the record as
@@ -15,6 +15,14 @@ complete starts the case again.  Per case and package the record holds the
 outers per step, the FGMRES iterations per outer, max|u| and max|p| after
 each step, the command, the jax and torch versions and the walls.
 ``chip_smoke.py`` phase 13 reads the record (a JSON file, no JAX import).
+
+``--from-state PATH`` starts both packages from a state another run saved
+at the start of one of the case's steps (``developed_cases.save_step_input``:
+u, p, d_p and grad_p in host order, the time and the parameters) and takes
+that one step; it is recorded under ``<package>_from_card_step<N>`` (the
+card wrote the states committed so far).  Both packages then step the very
+same input, so a difference in the counts is the step's own and not
+roundoff carried in from earlier steps.
 
 Both packages load the mesh through their own ``mesh_cache.load_mesh`` from
 ``.bench_cache`` (generated by the port's ``get_mesh`` when missing).  The
@@ -112,6 +120,25 @@ def jax_load_unstructured(s, path) -> dict:
     return meta
 
 
+def jax_load_step_input(s, path) -> dict:
+    """A state ``developed_cases.save_step_input`` wrote into a JAX solver,
+    as ``developed_cases.load_step_input`` loads it into the port's: its
+    fields, the history set to u, the time and every parameter."""
+    import jax.numpy as jnp
+    arrs, meta = dc.read_step_input(path)
+    n = int(s.mesh.grid_of_cell.shape[0])
+    if int(meta["cells"]) != n:
+        raise ValueError(f"step input of {meta['cells']} cells does not fit "
+                         f"a mesh of {n}")
+    dev = {f: s.mesh.from_host_order(jnp.asarray(a)) for f, a in arrs.items()}
+    s.state = replace(s.state, **dev, u_old=dev["u"], u_old_old=dev["u"],
+                      prev_u=dev["u"],
+                      time=jnp.asarray(meta["time"], jnp.float32))
+    s.params = replace(s.params, **{f: jnp.asarray(v, jnp.float32)
+                                    for f, v in meta["params"].items()})
+    return meta
+
+
 def jax_solver(case: dc.Case, mesh, state=None):
     """A JAX CoupledSolver set up and started as ``make_solver`` sets up
     the port's."""
@@ -204,24 +231,31 @@ def save_entry(case: str, package: str, entry: dict):
     os.replace(tmp, RECORD)
 
 
-def run(case_name: str, package: str, force: bool):
+def _entry(case: dc.Case) -> dict:
+    """A record entry's provenance: the command, versions, host, threads."""
     import torch
+    return dict(command=" ".join(["python", "tests/torch_fullsize_parity.py"]
+                                 + sys.argv[1:]),
+                torch=torch.__version__, numpy=np.__version__,
+                python=platform.python_version(),
+                host=f"{platform.machine()}, {os.cpu_count()} CPUs",
+                cpus_allowed=len(os.sched_getaffinity(0)),
+                torch_threads=torch.get_num_threads(), cells=case.cells,
+                steps=[], complete=False)
+
+
+def run(case_name: str, package: str, force: bool, from_state=None):
     case = dc.CASES[case_name]
     key = "jax" if package == "jax" else "port_cpu"
+    if from_state is not None:
+        return run_from_state(case, key, force, from_state)
     old = load_record()["cases"].get(case_name, {}).get(key)
     if old and old.get("complete") and not force:
         print(f"{case_name} / {package}: complete in the record; --force "
               "runs it again", flush=True)
         return old
     n = case.steps
-    entry = dict(command=" ".join(["python", "tests/torch_fullsize_parity.py"]
-                                  + sys.argv[1:]),
-                 torch=torch.__version__, numpy=np.__version__,
-                 python=platform.python_version(),
-                 host=f"{platform.machine()}, {os.cpu_count()} CPUs",
-                 cpus_allowed=len(os.sched_getaffinity(0)),
-                 torch_threads=torch.get_num_threads(), cells=case.cells,
-                 heal_steps=case.heal_steps, steps=[], complete=False)
+    entry = dict(_entry(case), heal_steps=case.heal_steps)
     t0 = time.time()
     if package == "jax":
         import jax
@@ -264,6 +298,40 @@ def run(case_name: str, package: str, force: bool):
     return entry
 
 
+def run_from_state(case: dc.Case, key: str, force: bool, path) -> dict:
+    """One step of ``case`` from the saved state ``path``, recorded under
+    ``<key>_from_card_step<N>``."""
+    path = Path(path)
+    _, meta = dc.read_step_input(path)
+    name = f"{key}_from_card_step{meta['step']}"
+    old = load_record()["cases"].get(case.name, {}).get(name)
+    if old and old.get("complete") and not force:
+        print(f"{case.name} / {name}: complete in the record; --force runs "
+              "it again", flush=True)
+        return old
+    entry = _entry(case)
+    entry.update(state=os.path.relpath(path, ROOT), from_step=meta["step"],
+                 state_source=meta.get("source"), state_card=meta.get("card"))
+    t0 = time.time()
+    if key == "jax":
+        import jax
+        entry["jax"] = jax.__version__
+        entry["jax_backend"] = jax.default_backend()
+        s = jax_solver(case, jax_mesh(case))
+        jax_load_step_input(s, path)
+        entry["setup_s"] = time.time() - t0
+        rows = jax_steps(s, 1)
+    else:
+        s, _ = dc.make_solver(case, device="cpu")
+        dc.load_step_input(s, path)
+        entry["setup_s"] = time.time() - t0
+        rows = dc.run_steps(s, 1)
+    entry.update(steps=rows, complete=True, wall_s=time.time() - t0)
+    save_entry(case.name, name, entry)
+    print(f"{case.name} / {name}: {json.dumps(rows[-1])}", flush=True)
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("case", choices=sorted(dc.CASES))
@@ -271,6 +339,8 @@ def main(argv=None) -> int:
     ap.add_argument("--threads", type=int, default=None,
                     help="torch threads of the port's run")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--from-state", metavar="PATH", default=None,
+                    help="one step from a state save_step_input wrote")
     a = ap.parse_args(argv)
     if a.package == "jax":
         import jax
@@ -278,7 +348,7 @@ def main(argv=None) -> int:
     import torch
     if a.threads:
         torch.set_num_threads(a.threads)
-    run(a.case, a.package, a.force)
+    run(a.case, a.package, a.force, a.from_state)
     return 0
 
 

@@ -15,10 +15,24 @@ A run is ``tests/torch_spatial_ranks.option_run``'s keywords: ``config``
 (SolverConfig overrides), ``steps``, ``pallas`` (CFD2_PALLAS for the port's
 run; the JAX package on the CPU runs its plain stencils, level 0, the
 reference of every level) and ``simple`` (``simple_step``).
+
+The JAX package's runs take a Python process of their own (``python -c``
+on :func:`jax_process_main`), so that the JAX runtime and the spawned gloo
+ranks never share a process: beside them in one process, the suite's
+worker once aborted (SIGABRT, no message) while this fixture ran.  The
+runs go in and the results come back through pickle files in a temporary
+directory; a process that fails puts its exit code and the end of its
+stderr into the fixture's error.
 """
 
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -103,20 +117,81 @@ def rank_runs(mesh, u0, runs: dict, timeout: float = 600) -> list:
                      args=(WORLDS, mesh, PAD, u0, DT, runs))
 
 
+TESTS = Path(__file__).resolve().parent
+
+
+def jax_process_main(src: str, dst: str) -> None:
+    """The JAX reference process: :func:`jax_runs` of the runs pickled at
+    ``src`` on the channel, on the 8 virtual CPU devices its environment
+    asks for, pickled to ``dst``."""
+    jax.config.update("jax_platforms", "cpu")
+    with open(src, "rb") as f:
+        runs = pickle.load(f)
+    mesh, u0 = channel()
+    out = jax_runs(mesh, u0, runs)
+    with open(dst, "wb") as f:
+        pickle.dump(out, f)
+
+
+def start_jax_process(runs: dict, tmp: str):
+    """Start the JAX reference process for ``runs`` (files in ``tmp``);
+    returns (process, path of its result)."""
+    src, dst = os.path.join(tmp, "runs.pkl"), os.path.join(tmp, "jax.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(runs, f)
+    flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
+                     if "host_platform_device_count" not in f)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"{flags} --xla_force_host_platform_device_count=8"
+               .strip(),
+               PYTHONPATH=os.pathsep.join(
+                   [str(TESTS), str(TESTS.parent)]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    code = ("import sys, torch_spatial_cases as sc; "
+            "sc.jax_process_main(sys.argv[1], sys.argv[2])")
+    proc = subprocess.Popen([sys.executable, "-c", code, src, dst], env=env,
+                            cwd=str(TESTS.parent), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, dst
+
+
+def finish_jax_process(proc, dst: str, timeout: float) -> dict:
+    """Wait for the JAX reference process; its results, or an error that
+    carries its exit code and the end of its stderr."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+        raise RuntimeError(f"the JAX reference process ran past {timeout} s;"
+                           f" its stderr ends:\n{err[-6000:]}") from None
+    if proc.returncode != 0 or not os.path.exists(dst):
+        raise RuntimeError(f"the JAX reference process exited with "
+                           f"{proc.returncode}; its stderr ends:\n"
+                           f"{err[-6000:]}")
+    with open(dst, "rb") as f:
+        return pickle.load(f)
+
+
 def all_runs(runs: dict, timeout: float = 600) -> dict:
     """The three ways of every run: ``jax``, ``one`` (the port in one
-    process) and ``ranks``.  The JAX package's sharded steps run first, with
-    nothing else of this fixture beside them: run beside the spawning and
-    running ranks, they once aborted this process (SIGABRT under the full
-    suite's load; pytest-xdist then reports the crash against the file's
-    first case).  The ranks then run in their spawned processes while this
-    one runs the port's one-process steps."""
+    process) and ``ranks``.  The JAX package's sharded steps run in a
+    process of their own while the ranks run in their spawned processes and
+    this one runs the port's one-process steps."""
     mesh, u0 = channel()
-    out = dict(jax=jax_runs(mesh, u0, runs))
-    with ThreadPoolExecutor(1) as pool:
-        spawned = pool.submit(rank_runs, mesh, u0, runs, timeout)
-        out["one"] = port_runs(mesh, u0, runs)
-        out["ranks"] = spawned.result()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, dst = start_jax_process(runs, tmp)
+        try:
+            with ThreadPoolExecutor(1) as pool:
+                spawned = pool.submit(rank_runs, mesh, u0, runs, timeout)
+                out["one"] = port_runs(mesh, u0, runs)
+                out["ranks"] = spawned.result()
+        except BaseException:
+            proc.kill()
+            proc.communicate()
+            raise
+        out["jax"] = finish_jax_process(proc, dst, timeout)
     return out
 
 

@@ -1,0 +1,229 @@
+"""How close the 403k Delaunay case's step 2 solves end to their targets,
+and whether the two packages' operators agree on the same outer input.
+
+    python3 tests/torch_step_margins.py card [--save-outers DIR]
+    JAX_PLATFORMS=cpu python tests/torch_step_margins.py cpu DIR [--outer K]
+
+``card`` (on a GPU; no JAX): the case's solver (``developed_cases``) started
+from the card's committed step-2 input (``cfd2_tpu_torch/data/
+delaunay_403k_step2_card.npz``) takes step 2 and prints, for every outer,
+its FGMRES iterations and the true residual over the solve's target after
+each cycle (the solve ends below 1, at the restart cap or at the
+stagnation exit); ``--save-outers DIR`` writes the fields each outer's
+solve reads (u, p, d_p, grad_p in host order) as ``outer<K>.npz``.
+
+``cpu``: on the saved input of outer K (default 4) and the one before it,
+the JAX package and the port's plain path on the CPU, one operator at a
+time: the step-entry ``prepare`` and frozen coarse operators, the outer's
+``prepare`` (also against the card's), ``assemble_ell``, the matvec and the
+Schur preconditioner on a seeded vector, then the port's FGMRES loop with
+either package's operators, its true residual over the target after each
+cycle.
+
+The FGMRES loop is the port's ``ops/fgmres.py`` with one line added after
+each cycle's true residual (and after each iteration's estimate) that
+records it; the arithmetic is the module's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import sys
+import time
+from dataclasses import fields, replace
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from cfd2_tpu_torch.tools import developed_cases as dc  # noqa: E402
+
+CASE = "delaunay_403k_rest"
+STEP2 = ROOT / "cfd2_tpu_torch" / "data" / "delaunay_403k_step2_card.npz"
+_CYCLE = "        conv = bool(res_new < target)\n"
+_ITER = "            stop = resid < target\n"
+
+
+def recording_fgmres():
+    """The port's ``fgmres_solve`` with each cycle's true residual and each
+    iteration's estimate recorded over the target; returns (solve,
+    cycles, estimates), one list per solve appended on each call."""
+    import cfd2_tpu_torch.ops.fgmres as tf
+    src = inspect.getsource(tf.fgmres_solve)
+    if _CYCLE not in src or _ITER not in src:
+        raise RuntimeError("ops/fgmres.py changed: update the recorded lines")
+    src = src.replace(_CYCLE, _CYCLE + "        _CYC[-1].append(float(res_new)"
+                      " / float(target))\n")
+    src = src.replace(_ITER, _ITER + "            _EST[-1].append(float(resid)"
+                      " / float(target))\n")
+    cycles, estimates = [], []
+    ns = dict(vars(tf), _CYC=cycles, _EST=estimates)
+    exec(src, ns)
+
+    def solve(*a, **k):
+        cycles.append([])
+        estimates.append([])
+        return ns["fgmres_solve"](*a, **k)
+    return solve, cycles, estimates
+
+
+def card(save_outers=None) -> int:
+    import torch
+    from cfd2_tpu_torch.models import coupled
+    case = dc.CASES[CASE]
+    s, _ = dc.make_solver(case)
+    dc.load_step_input(s, STEP2)
+    solve, cycles, estimates = recording_fgmres()
+    orig_solve, orig_outer = coupled.fgmres_solve, coupled._assemble_and_solve
+    its = []
+
+    def outer(mesh, state, *a, **k):
+        if save_outers is not None:
+            Path(save_outers).mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(
+                Path(save_outers) / f"outer{len(its)}.npz",
+                **{f: s.mesh.to_host_order(getattr(state, f)).cpu().numpy()
+                   for f in dc.STEP_INPUT_FIELDS})
+        r = orig_outer(mesh, state, *a, **k)
+        its.append(int(r.iterations))
+        return r
+
+    coupled.fgmres_solve, coupled._assemble_and_solve = solve, outer
+    try:
+        s.step()
+        torch.cuda.synchronize()
+    finally:
+        coupled.fgmres_solve = orig_solve
+        coupled._assemble_and_solve = orig_outer
+    print(f"step 2 from {STEP2.name}: {int(s.state.outer_iters)} outers, "
+          f"FGMRES iterations {its}", flush=True)
+    for i, (c, e) in enumerate(zip(cycles, estimates)):
+        print(f"outer {i}: {its[i]} iterations in {len(c)} cycles; true "
+              "residual / target after each cycle "
+              + " ".join(f"{v:.4f}" for v in c) + "; estimate / target at "
+              "the last 6 iterations " + " ".join(f"{v:.3f}" for v in e[-6:]),
+              flush=True)
+    print(json.dumps({"its": its, "cycles": cycles,
+                      "card": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def cpu(outers: Path, k: int) -> int:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_fullsize_parity as fp
+    import cfd2_tpu.models.assembly as ja
+    import cfd2_tpu.ops.ellsys as jel
+    from cfd2_tpu.ops.amg import coarse_level_values as j_levels
+    from cfd2_tpu.ops.amg import make_pressure_solve as j_pressure
+    import cfd2_tpu_torch.models.assembly as ta
+    import cfd2_tpu_torch.models.coupled as tc
+    import cfd2_tpu_torch.ops.ellsys as tel
+    from cfd2_tpu_torch.ops.amg import coarse_level_values as t_levels
+    from cfd2_tpu_torch.ops.amg import make_pressure_solve as t_pressure
+
+    t0 = time.time()
+    case = dc.CASES[CASE]
+    j = fp.jax_solver(case, fp.jax_mesh(case))
+    fp.jax_load_step_input(j, STEP2)
+    s, _ = dc.make_solver(case, device="cpu")
+    dc.load_step_input(s, STEP2)
+    tm, jm = s.mesh, j.mesh
+
+    def host(mesh, x):
+        return np.asarray(mesh.to_host_order(x))
+
+    def cmp(name, a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        d, sc = np.abs(a - b).max(), np.abs(b).max()
+        print(f"[{time.time() - t0:6.1f} s] {name:24s} max-abs {d:.3e} of "
+              f"{sc:.3e} ({d / max(sc, 1e-30):.3e} relative)", flush=True)
+
+    # Step entry: the history rotation, prepare, the frozen coarse levels.
+    ts0 = ta.prepare(tm, replace(s.state, u_old_old=s.state.u_old,
+                                 u_old=s.state.u), s.params, s.config)
+    js0 = ja.prepare(jm, replace(j.state, u_old_old=j.state.u_old,
+                                 u_old=j.state.u), j.params, j.config)
+    cmp("entry prepare: d_p", host(tm, ts0.d_p), host(jm, js0.d_p))
+    amg_t, amg_j = s._get_amg(), j._get_amg()
+    fr_t = t_levels(amg_t, *ta.assemble_pressure(tm, ts0, s.params))
+    fr_j = j_levels(amg_j, *ja.assemble_pressure(jm, js0, j.params))
+    # Outer k's input: its u and p, the d_p and grad_p of outer k - 1.
+    cur = np.load(outers / f"outer{k}.npz")
+    prev = np.load(outers / f"outer{k - 1}.npz")
+    inp = dict(u=cur["u"], p=cur["p"], d_p=prev["d_p"],
+               grad_p=prev["grad_p"])
+    tp = ta.prepare(tm, replace(ts0, **{
+        f: tm.from_host_order(torch.from_numpy(np.ascontiguousarray(a)))
+        for f, a in inp.items()}), s.params, s.config)
+    jp = ja.prepare(jm, replace(js0, **{
+        f: jm.from_host_order(jnp.asarray(a)) for f, a in inp.items()}),
+        j.params, j.config)
+    for f in ("d_p", "grad_p"):
+        cmp(f"prepare: {f} port/JAX", host(tm, getattr(tp, f)),
+            host(jm, getattr(jp, f)))
+        cmp(f"prepare: {f} card/JAX", cur[f], host(jm, getattr(jp, f)))
+    es_t = ta.assemble_ell(tm, tp, s.params, s.config)
+    es_j = ja.assemble_ell(jm, jp, j.params, j.config)
+    for f in fields(es_t):
+        a, b = getattr(es_t, f.name), getattr(es_j, f.name, None)
+        if isinstance(a, torch.Tensor) and b is not None:
+            cmp(f"assemble_ell: {f.name}", a.numpy(), np.asarray(b))
+    n = tm.total_cells
+    rv = np.random.default_rng(0).standard_normal((3, n)).astype(np.float32)
+    rv[:, ~tm.c_valid.numpy().astype(bool)] = 0
+    cmp("matvec", tel.spmv(es_t, tm, torch.from_numpy(rv)).numpy(),
+        np.asarray(jel.spmv(es_j, jm, jnp.asarray(rv))))
+    ps_t = t_pressure(amg_t, tm, es_t, coeff=s.params.density * tp.d_p,
+                      cycle_opts=s.config.cycle_opts(), frozen=fr_t)
+    ps_j = j_pressure(amg_j, jm, es_j, coeff=j.params.density * jp.d_p,
+                      cycle_opts=j.config.cycle_opts(), frozen=fr_j)
+    sweeps = s.config.pressure_sweeps(n)
+    omega = s.config.precond_omega
+    pc_t = lambda r: tel.schur_precond(es_t, tm, r, omega, sweeps,
+                                       pressure_solve=ps_t, mom_sweeps=8)
+    pc_j = jax.jit(lambda r: jel.schur_precond(
+        es_j, jm, r, omega, sweeps, pressure_solve=ps_j, mom_sweeps=8))
+    mv_j = jax.jit(lambda x: jel.spmv(es_j, jm, x))
+    cmp("Schur preconditioner", pc_t(torch.from_numpy(rv)).numpy(),
+        np.asarray(pc_j(jnp.asarray(rv))))
+    solve, cycles, _ = recording_fgmres()
+    x0 = torch.cat([tp.u, tp.p[:, None]], 1).T.contiguous()
+    b = es_t.rhs.T.contiguous()
+    via_jax = lambda f: (lambda x: torch.from_numpy(
+        np.asarray(f(jnp.asarray(x.numpy())))))
+    for name, mv, pc in (
+            ("the port's operators", lambda x: tel.spmv(es_t, tm, x), pc_t),
+            ("the JAX package's operators", via_jax(mv_j), via_jax(pc_j))):
+        r = solve(mv, pc, b, x0, tol=s.config.fgmres_tol,
+                  abstol=s.config.fgmres_abstol, **tc._fgmres_kwargs(s.config))
+        print(f"[{time.time() - t0:6.1f} s] outer {k}, FGMRES with {name}: "
+              f"{int(r.iterations)} iterations in {len(cycles[-1])} cycles; "
+              "true residual / target after each cycle "
+              + " ".join(f"{v:.4f}" for v in cycles[-1]), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="mode", required=True)
+    c = sub.add_parser("card")
+    c.add_argument("--save-outers", default=None)
+    p = sub.add_parser("cpu")
+    p.add_argument("outers", type=Path)
+    p.add_argument("--outer", type=int, default=4)
+    a = ap.parse_args(argv)
+    if a.mode == "card":
+        return card(a.save_outers)
+    return cpu(a.outers, a.outer)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
