@@ -55,7 +55,26 @@ class FgmresResult:
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
+    """The float32 2-norm.  On the CPU it is the square root of
+    ``torch.sum``'s cascaded sum of squares: torch's CPU ``vector_norm``
+    accumulates float32 with an error that grows with the length
+    (tests/test_torch_fgmres.py holds the norm to float64 at 1.2M
+    entries)."""
+    if v.device.type == "cpu":
+        return torch.sqrt(torch.sum(v * v))
     return torch.linalg.vector_norm(v)
+
+
+def _dots(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``V @ w``: each row's dot with ``w``.  On the CPU each is a cascaded
+    ``torch.sum`` of the products, one row at a time: the BLAS product
+    accumulates float32 along the rows with an error that grows with their
+    length.  With both this and :func:`_norm` as torch's CPU library calls,
+    the 403k Delaunay case's first step-2 solve ran to its restart cap
+    (155 iterations against 98 on the card and in the JAX package)."""
+    if w.device.type == "cpu":
+        return torch.stack([torch.sum(v * w) for v in V])
+    return torch.mv(V, w)
 
 
 def make_norm(f64_norms: bool, dtype=torch.float32, reduce=None):
@@ -127,7 +146,7 @@ def _recycled_start(recycle, mv, nrm, x, r, beta0, reduce=None):
     values, are the same on every rank, so every rank takes the same
     columns and the same decision."""
     V_r, Z_r, R_r, cs_r, sn_r, j_r = recycle
-    d = torch.mv(V_r[:j_r + 1].to(r.dtype), r)
+    d = _dots(V_r[:j_r + 1].to(r.dtype), r)
     if reduce is not None:
         d = reduce(d)
     d = read(d).astype(np.float32)
@@ -241,7 +260,7 @@ def fgmres_solve(
             Z[j] = z
             w = mv(z)
             Vj = V[:j + 1].to(dtype)
-            dots = torch.mv(Vj, w)
+            dots = _dots(Vj, w)
             if reduce is not None:
                 dots = reduce(dots)
             w = w - torch.mv(Vj.T, dots)

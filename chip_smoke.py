@@ -194,7 +194,33 @@ Phases (any failure exits non-zero):
    has the step, and logged beside its port-CPU record (phases 6 and 10(a)
    hold theirs to the record's ``delaunay_403k_rest`` and
    ``refined_132k_rest`` the same way); (d) ``make_developed_unstructured
-   itself for 3 heal steps on (b)'s mesh, into ``.phase13`` (removed after).
+   itself for 3 heal steps on (b)'s mesh, into ``.phase13`` (removed after);
+14. the physics-validation path of ``cfd2_tpu_torch/tools/``: (a)
+   Schäfer–Turek 2D-2 at D/h = 20 (35,804 cells on 82x440; parabolic inlet,
+   BDF2, ``dt_old`` pinned) from rest through ``validate_turek``'s chunk
+   loop for one 200-step chunk, every step's Cd and Cl finite, after the
+   stencil kernels are held bit for bit on its assembled system and the
+   legs on its level grids: ``rbgs_leg`` twice per smoothed level per
+   FGMRES iteration and the four stencil kernels at their rates (asserted);
+   (b) 3 Turek steps from ``cfd2_tpu_torch/data/turek_window_0.005.npz``,
+   the state the card's full run saved at the start of its measurement
+   window, held against the JAX package's steps from it
+   (``cfd2_tpu_torch/data/validation_counts.json``, written by
+   ``tests/torch_validation_counts.py``): the counts to the round's bound,
+   max|u| within 1e-4 and max|p| within 1e-3 of the record's after each
+   step; (c) the water backwards step (32,500 smoothed cells on the 100x350
+   structured layout, asserted) through ``stiff_water.run``, 50 steps, each
+   outer residual finite and below 1e10, the kernels held and counted as in
+   (a), steps 0-2 held to the JAX package's record as in (b) and max|u|
+   within 1e-3 (relative) of ``STIFF_X64.json``'s 0.386558; (d) the 32x32
+   lid-driven cavity of ``tests/test_physics.py`` (set up by
+   ``tests/torch_physics_cases.py``) for 100 steps with the JAX test's
+   configuration and with ``precond_type=1`` (``rbgs_leg`` launched), each
+   on the card and on the CPU: the centreline within 0.06 of Ghia et al.
+   (1982), equal step counts, u within 1e-4 * max|u|; (e)
+   ``measure_strouhal`` from ``bench_developed_1m.npz`` cut to 20 heal
+   steps and one force sample: finite, and its Cd within 5e-3 (relative) of
+   the JAX package's at the same cut (the same record).
 
 Then the kernels' JSON line, the script's total wall and the result line are
 printed.
@@ -224,6 +250,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import inspect
 import json
 import os
@@ -249,7 +276,7 @@ BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
 # Phase 10: the refined quadtree mesh on the multilevel layout.
 MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
 MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
 # Phase 11: the app at full width (the main path's mesh, smoothed as the
 # app smooths it) and on a Delaunay mesh, as subprocesses of the CLI.
 APP_MAIN = ("--geometry", "channel", "--cell-size", "0.0017", "--precond",
@@ -1086,15 +1113,20 @@ STENCIL_GRIDS = ((7, 19), (37, 53), (300, 128), MAIN_GRID)
 EAGER_TIMED_LIN = (90, 57, 28)
 
 
-def _stencil_cases():
-    """tests/torch_spatial_ranks.py, which makes the seeded random stencil
-    systems and the four wrappers' calls that tests/test_torch_cuda.py
-    holds too (it imports torch, numpy and the port, no JAX)."""
+def _tests_module(name):
+    """A helper module of tests/ that imports no JAX (torch, numpy and the
+    port at most), shared with the CPU tests."""
     tests = str(ROOT / "tests")
     if tests not in sys.path:
         sys.path.append(tests)
-    import torch_spatial_ranks
-    return torch_spatial_ranks
+    return importlib.import_module(name)
+
+
+def _stencil_cases():
+    """tests/torch_spatial_ranks.py, which makes the seeded random stencil
+    systems and the four wrappers' calls that tests/test_torch_cuda.py
+    holds too."""
+    return _tests_module("torch_spatial_ranks")
 
 
 def _hold_stencils(phase, sk, cases):
@@ -3662,14 +3694,16 @@ HEAL_STEPS_ON_CARD = 3
 HEAL_DIR = ROOT / ".phase13"
 
 
-def _record_steps(case, package):
+def _record_steps(case, package, record=None):
     """The counted steps of ``case`` that ``tests/torch_fullsize_parity.py``
     recorded for ``package`` (``jax``, ``port_cpu``, or either of them
-    ``_from_card_step<N>``: one step from the card's saved state), or []."""
-    if not COUNTS_RECORD.exists():
+    ``_from_card_step<N>``: one step from the card's saved state), or [];
+    ``record``: another file of that form than ``COUNTS_RECORD``
+    (``VALIDATION_COUNTS``)."""
+    record = COUNTS_RECORD if record is None else record
+    if not record.exists():
         return []
-    entry = json.loads(COUNTS_RECORD.read_text())["cases"].get(
-        case, {}).get(package)
+    entry = json.loads(record.read_text())["cases"].get(case, {}).get(package)
     return entry["steps"] if entry else []
 
 
@@ -3679,15 +3713,16 @@ def _within_round_bound(card, ref):
     return card[0] == ref[0] and abs(card[1] - ref[1]) <= 2 * ref[0]
 
 
-def _beside_record(phase, case, rows, enforce=False, first=0, suffix=""):
+def _beside_record(phase, case, rows, enforce=False, first=0, suffix="",
+                   record=None):
     """Log the card's (outers, FGMRES iterations) per step beside the
     record's JAX and port-CPU steps of ``case``; with ``enforce``, check
     the round's bound on every step the JAX record holds.  ``rows`` are
     the case's steps from ``first`` on, and ``suffix`` picks the records
     (``_from_card_step2``: the step from the card's saved state, whose
     record holds that one step).  Returns the steps that miss it."""
-    jax_rows = _record_steps(case, "jax" + suffix)
-    cpu_rows = _record_steps(case, "port_cpu" + suffix)
+    jax_rows = _record_steps(case, "jax" + suffix, record)
+    cpu_rows = _record_steps(case, "port_cpu" + suffix, record)
     if suffix:
         jax_rows, cpu_rows = [None] * first + jax_rows, [None] * first + cpu_rows
 
@@ -3922,9 +3957,290 @@ def phase_developed(results, ctx):
           "the heal tool did not run on the card")
 
 
+
+# ----------------------------------------------------------------------
+# Phase 14: the physics-validation path (cfd2_tpu_torch/tools/).
+
+VALIDATION_COUNTS = ROOT / "cfd2_tpu_torch" / "data" / "validation_counts.json"
+TUREK_H, TUREK_CELLS, TUREK_GRID = 0.005, 35_804, (82, 440)
+WATER_CELLS, WATER_GRID = 32_500, (100, 350)
+WATER_STEPS = 50
+# STIFF_X64.json: the JAX package's 50 steps in float64 on a CPU.  The JAX
+# package's own float32 run on a TPU (STIFF_TPU.json, 0.386665) lies 2.8e-4
+# of it away; an f32 run is held within 1e-3 of it.
+WATER_X64_MAX_VEL, WATER_REL = 0.3865579664707184, 1e-3
+# The CPU parity tests' field bounds (tests/torch_parity.py), here on the
+# card's max|u| and max|p| after each step against the JAX package's.
+STATE_U_REL, STATE_P_REL = 1e-4, 1e-3
+# (e): the one force sample of the cut Strouhal measurement against the JAX
+# package's at the same cut (record case "strouhal_cut": 22.5703).  In the
+# heal's transient this Cd moves with the solver's float32 sums far more
+# than the fields do: the port's CPU path gave 22.6143 before its FGMRES
+# norms were summed in cascade and 22.5700 after, the card 22.5926 (9.9e-4
+# off).  The bound is 5e-3; a wrong restriction or heal moves Cd by far more
+# (the developed wake's mean Cd is 3.64).
+STROUHAL_HEAL, STROUHAL_CD_REL = 20, 5e-3
+
+
+def _hold_validation_counts(case, rows):
+    """Each of ``rows`` (``developed_cases.run_steps``' dicts) held against
+    the JAX package's record of ``case`` in ``VALIDATION_COUNTS``, which must
+    hold every step: the outers and FGMRES iterations to the round's bound,
+    max|u| within ``STATE_U_REL`` and max|p| within ``STATE_P_REL`` of the
+    record's."""
+    jax_rows = _record_steps(case, "jax", VALIDATION_COUNTS)
+    check(len(jax_rows) >= len(rows), f"{case}: the JAX record holds "
+          f"{len(jax_rows)} steps of {len(rows)}")
+    _beside_record(14, case, [(r["outers"], sum(r["its"])) for r in rows],
+                   enforce=True, record=VALIDATION_COUNTS)
+    for i, (r, j) in enumerate(zip(rows, jax_rows)):
+        du, dp = abs(r["max_u"] - j["max_u"]), abs(r["max_p"] - j["max_p"])
+        lu, lp = STATE_U_REL * j["max_u"], STATE_P_REL * j["max_p"]
+        log(f"phase 14: {case} step {i}: card max|u| {r['max_u']:.7g}, max|p| "
+            f"{r['max_p']:.7g}; JAX (CPU) {j['max_u']:.7g}, {j['max_p']:.7g}: "
+            f"off by {du:.3e} (limit {lu:.3e}) and {dp:.3e} (limit {lp:.3e})")
+        check(du <= lu and dp <= lp, f"{case} step {i}: the card's max|u| or "
+              "max|p| is off the JAX package's")
+
+
+def _structured_path(results, s, label):
+    """Before a structured run: the solver's layout checked, the legs held
+    on its level grids and the stencil kernels on its assembled system.
+    Returns (smoothed level grids, momentum sweeps)."""
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    check(s.mesh.structured, f"{label}: not on the structured layout")
+    grids, _ = level_grids(*s.mesh.grid_shape)
+    amg = s._get_amg()
+    check(len(amg.levels) == len(grids),
+          f"{label}: {len(amg.levels)} levels, expected {len(grids)}")
+    ms = s.config.mom_sweeps(s.mesh.total_cells)
+    _hold_on_assembled_system(results, s, ms, phase=14)
+    before = dict(sk.LAUNCHES)
+    err_leg, err_fused, _ = _hold_legs(14, sk, grids)
+    sk.LAUNCHES.update(before)
+    if "rbgs_leg" in results:
+        results["rbgs_leg"]["max_abs_err"] = max(
+            results["rbgs_leg"]["max_abs_err"], err_leg, err_fused)
+    return grids, ms
+
+
+def _check_structured_launches(results, label, counts, lin, grids, ms,
+                               matvecs):
+    """``rbgs_leg`` twice per smoothed level per FGMRES iteration and the
+    four stencil kernels at their rates (asserted); recorded by path."""
+    per_apply = 2 * len(grids)
+    check(counts["rbgs_leg"] == per_apply * lin and lin > 0,
+          f"{label}: rbgs_leg launches {counts['rbgs_leg']} != {per_apply} "
+          f"per V-cycle x {lin} FGMRES iterations")
+    _check_stencil_rates(14, counts, lin, ms, False, matvecs)
+    log(f"phase 14: {label}: rbgs_leg {counts['rbgs_leg']} = {per_apply} x "
+        f"{lin} FGMRES iterations")
+    _path_launches(results, f"{label} (phase 14)",
+                   {k: v for k, v in counts.items() if v})
+
+
+def _p14_turek(results, ctx):
+    """(a) Schäfer–Turek at D/h = 20 from rest, the tool's chunk loop for
+    one 200-step chunk."""
+    import torch
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.tools import developed_cases as dc
+    from cfd2_tpu_torch.tools import validate_turek as vt
+    from cfd2_tpu_torch.utils.forces import obstacle_face_mask
+    t0 = time.time()
+    mesh = vt.make_mesh(TUREK_H)
+    check(mesh.num_cells == TUREK_CELLS,
+          f"Turek mesh has {mesh.num_cells} cells, expected {TUREK_CELLS}")
+    s = vt.make_solver(mesh, TUREK_H)
+    check(tuple(s.mesh.grid_shape) == TUREK_GRID,
+          f"Turek grid {s.mesh.grid_shape} != {TUREK_GRID}")
+    grids, ms = _structured_path(results, s, "Turek")
+    log(f"phase 14: (a) Turek D/h 20: {mesh.num_cells} cells on "
+        f"{s.mesh.grid_shape}, levels {grids}, set-up and checks "
+        f"{time.time() - t0:.1f} s")
+    mask = obstacle_face_mask(s.mesh)
+    out = torch.empty((vt.CHUNK, 2), dtype=torch.float32, device=s.device)
+    its, restore = dc.record_solves()
+    try:
+        with _counting_matvecs() as matvecs:
+            torch.cuda.synchronize()
+            sk.reset_launches()
+            t0 = time.perf_counter()
+            f = vt.run_chunk(s, mask, vt.CHUNK, out)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(sk.LAUNCHES)
+    finally:
+        restore()
+    lin = sum(its)
+    log(f"phase 14: (a) {vt.CHUNK} steps in {wall:.2f} s "
+        f"({1e3 * wall / vt.CHUNK:.2f} ms a step), t = "
+        f"{float(s.state.time):.4f} s, {len(its)} outers, {lin} FGMRES "
+        f"iterations; Cd {f[-1, 0]:.4f}, Cl {f[-1, 1]:+.4e} at the end, "
+        f"should_stop {s.should_stop}")
+    check(np.isfinite(f).all() and f.shape == (vt.CHUNK, 2),
+          "a step's Cd or Cl is not finite")
+    check(_finite(s), "Turek fields are not finite")
+    _check_structured_launches(results, "Turek D/h 20 from rest", counts,
+                               lin, grids, ms, matvecs[0])
+    ctx["turek_mesh"] = mesh
+
+
+def _p14_turek_window(ctx):
+    """(b) 3 Turek steps from the state the card's full run saved at the
+    start of its measurement window, held to the JAX package's steps from
+    the same state."""
+    from cfd2_tpu_torch.tools import developed_cases as dc
+    from cfd2_tpu_torch.tools import validate_turek as vt
+    mesh = ctx.get("turek_mesh") or vt.make_mesh(TUREK_H)
+    state = vt.window_path(TUREK_H)
+    s = vt.make_solver(mesh, TUREK_H)
+    meta = dc.load_step_input(s, state)
+    t0 = time.perf_counter()
+    rows = dc.run_steps(s, 3)
+    log(f"phase 14: (b) Turek from {state.name} (t = {meta['time']:.4f} s, "
+        f"step {meta.get('step')} of the run on {meta.get('card')}): 3 steps "
+        f"in {time.perf_counter() - t0:.2f} s")
+    _hold_validation_counts("turek_window", rows)
+
+
+def _p14_water(results):
+    """(c) The water backwards step at full size, 50 steps."""
+    import torch
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    from cfd2_tpu_torch.tools import stiff_water as sw
+    t0 = time.time()
+    mesh = sw.make_mesh(0.01)
+    check(mesh.num_cells == WATER_CELLS,
+          f"water mesh has {mesh.num_cells} cells, expected {WATER_CELLS}")
+    s = sw.make_solver(mesh)
+    check(s.mesh.structured and tuple(s.mesh.grid_shape) == WATER_GRID,
+          f"the smoothed water mesh is not on the {WATER_GRID} structured "
+          f"layout: grid {s.mesh.grid_shape}")
+    grids, ms = _structured_path(results, s, "water")
+    log(f"phase 14: (c) water step: {mesh.num_cells} cells, smoothed, on "
+        f"the structured layout {s.mesh.grid_shape}, levels {grids}; set-up "
+        f"and checks {time.time() - t0:.1f} s")
+    with _counting_matvecs() as matvecs:
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        # The tool raises on a residual that is not finite or not < 1e10.
+        row = sw.run(steps=WATER_STEPS, out=None, solver=s,
+                     log=lambda m: log(f"phase 14: (c) {m}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sk.LAUNCHES)
+    rows = row["per_step"]
+    lin = sum(sum(r["its"]) for r in rows)
+    check(row["finite"], "water fields are not finite")
+    max_vel = row["max_vel"]
+    rel = abs(max_vel - WATER_X64_MAX_VEL) / WATER_X64_MAX_VEL
+    log(f"phase 14: (c) {WATER_STEPS} steps in {wall:.2f} s, outers "
+        f"{[r['outers'] for r in rows]}, FGMRES iterations {lin}; max outer "
+        f"residual {row['max_outer_residual_u']:.4e}; max|u| {max_vel:.6f} "
+        f"against STIFF_X64.json's {WATER_X64_MAX_VEL:.6f}: {rel:.3e} "
+        f"relative (limit {WATER_REL:g})")
+    check(rel <= WATER_REL, "the water step's max|u| is off STIFF_X64.json")
+    _check_structured_launches(results, "water step", counts, lin, grids,
+                               ms, matvecs[0])
+    _hold_validation_counts("stiff_water", rows[:3])
+
+
+def _cavity_run(device, precond_type):
+    """The lid-driven cavity of tests/test_physics.py (tests/
+    torch_physics_cases.py: 32 x 32, Re 100, dt 0.1, 100 steps or until
+    should_stop): (u in host order, steps, the centreline error against
+    Ghia, the solver)."""
+    from cfd2_tpu_torch import (CoupledSolver, RectangularChannel,
+                                generate_cut_cell_mesh)
+    from cfd2_tpu_torch.mesh import retag_lid_cavity
+    pc = _tests_module("torch_physics_cases")
+    mesh, s = pc.cavity(CoupledSolver, RectangularChannel,
+                        generate_cut_cell_mesh, retag_lid_cavity,
+                        precond_type, device=device)
+    n = 0
+    for n in range(1, pc.CAVITY_STEPS + 1):
+        s.step()
+        if s.should_stop:
+            break
+    u = s.get_u()
+    return u, n, pc.centreline_error(mesh, u)[0], s
+
+
+def _p14_cavity(results):
+    """(d) The cavity with the JAX test's configuration and with
+    precond_type=1, card against Ghia and against the CPU."""
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    pc = _tests_module("torch_physics_cases")
+    for precond in (None, 1):
+        label = ("the JAX test's configuration" if precond is None
+                 else "precond_type=1")
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        u_card, n_card, err_card, s = _cavity_run("cuda", precond)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in sk.LAUNCHES.items() if v}
+        u_cpu, n_cpu, err_cpu, _ = _cavity_run("cpu", precond)
+        scale = float(np.abs(u_cpu).max())
+        diff = float(np.abs(u_card - u_cpu).max())
+        log(f"phase 14: (d) cavity {pc.CAVITY_N}x{pc.CAVITY_N}, {label}: "
+            f"card {n_card} steps in {wall:.2f} s, Ghia error {err_card:.4f} "
+            f"(bound {pc.GHIA_BOUND}); CPU {n_cpu} steps, Ghia error "
+            f"{err_cpu:.4f}; max|u_card - u_cpu| {diff:.3e} (limit "
+            f"{1e-4 * scale:.3e}); launches {counts}")
+        check(np.isfinite(u_card).all(), "cavity fields are not finite")
+        check(err_card < pc.GHIA_BOUND,
+              f"cavity ({label}): centreline error {err_card:.4f} against "
+              f"Ghia >= {pc.GHIA_BOUND}")
+        check(n_card == n_cpu and diff <= 1e-4 * scale,
+              f"cavity ({label}): card and CPU disagree")
+        if precond == 1:
+            check(counts.get("rbgs_leg", 0) > 0,
+                  "cavity with precond_type=1: rbgs_leg never launched")
+        _path_launches(results, f"cavity, {label} (phase 14)", counts)
+
+
+def _p14_strouhal():
+    """(e) measure_strouhal from bench_developed_1m.npz, 20 heal steps and
+    one force batch (a span under one batch's time), its one Cd held to
+    the JAX package's at the same cut."""
+    from cfd2_tpu_torch.tools import measure_strouhal as ms
+    t0 = time.time()
+    out = ms.run(ROOT / "bench_developed_1m.npz", heal_steps=STROUHAL_HEAL,
+                 t_span=1e-9, log=lambda m: log(f"phase 14: (e) {m}"))
+    log(f"phase 14: (e) measure_strouhal in {time.time() - t0:.1f} s: "
+        f"{json.dumps(out)}")
+    check(np.isfinite([out["St"], out["Cd_mean"], out["Cl_amp"]]).all()
+          and out["samples"] == 1, "measure_strouhal gave no finite forces")
+    rec = json.loads(VALIDATION_COUNTS.read_text())["cases"]["strouhal_cut"]
+    j = rec["jax"]
+    check(j["heal_steps"] == STROUHAL_HEAL and j["cells"] == out["cells"],
+          "the strouhal_cut record is of another cut")
+    d, lim = abs(out["Cd_mean"] - j["Cd"]), STROUHAL_CD_REL * abs(j["Cd"])
+    log(f"phase 14: (e) Cd {out['Cd_mean']} against the JAX package's "
+        f"{j['Cd']:.6g} (port CPU {rec['port_cpu']['Cd']}) at the same cut: "
+        f"off by {d:.3e} (limit {lim:.3e})")
+    check(d <= lim, "measure_strouhal's Cd is off the JAX package's")
+
+
+def phase_validation(results, ctx):
+    """14: the physics-validation tools of cfd2_tpu_torch/tools on the
+    card (Turek from rest and from its developed state, the water step,
+    the cavity, the Strouhal measurement)."""
+    for part in (lambda: _p14_turek(results, ctx),
+                 lambda: _p14_turek_window(ctx),
+                 lambda: _p14_water(results),
+                 lambda: _p14_cavity(results), _p14_strouhal):
+        t0 = time.time()
+        part()
+        log(f"phase 14: part done in {time.time() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
@@ -3969,7 +4285,8 @@ def main(argv=None) -> int:
              (10, lambda: phase_generic(results, ctx)),
              (11, lambda: phase_app(results, ctx)),
              (12, lambda: phase_sharded(results, ctx)),
-             (13, lambda: phase_developed(results, ctx))]
+             (13, lambda: phase_developed(results, ctx)),
+             (14, lambda: phase_validation(results, ctx))]
     try:
         if 13 in phases and 1 not in phases:
             # Phase 13's meshes need the native library, built for this

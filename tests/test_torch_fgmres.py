@@ -131,6 +131,26 @@ def test_make_norm_f64_against_numpy():
         jax.numpy.asarray(v))))
 
 
+def test_f32_norm_is_accurate_at_full_size():
+    """The f32 norm (make_norm(False)) on the CPU at a full-size length
+    (1,210,752 entries: the 403k Delaunay case's three rows of 403,584)
+    within 1e-7 (relative) of the float64 norm, as the JAX package's f32
+    norm is.  FGMRES reads every basis vector's norm: torch's CPU
+    ``vector_norm``, which the port used before, misses by far more there
+    and ended that case's first step-2 solve at its restart cap."""
+    from cfd2_tpu.ops.fgmres import make_norm as j_make_norm
+    from cfd2_tpu_torch.ops.fgmres import make_norm
+    rng = np.random.default_rng(7)
+    n = 1_210_752
+    v = (rng.standard_normal(n) * rng.random(n) ** 4).astype(np.float32)
+    ref = np.sqrt(np.sum(v.astype(np.float64) ** 2))
+    got = make_norm(False)(torch.as_tensor(v))
+    assert got.dtype == torch.float32
+    assert abs(float(got) - ref) <= 1e-7 * ref
+    jgot = j_make_norm(False, jax.numpy.float32)(jax.numpy.asarray(v))
+    assert abs(float(jgot) - ref) <= 1e-7 * ref
+
+
 @pytest.mark.parametrize("option,slack", [
     (dict(f64_norms=True), 1),
     (dict(basis_dtype="bf16"), 2),

@@ -68,7 +68,12 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.parallel.batch, cfd2_tpu_torch.parallel.spatial, "
             "cfd2_tpu_torch.parallel.launch, "
             "cfd2_tpu_torch.tools.developed_cases, "
-            "cfd2_tpu_torch.tools.make_developed_unstructured; "
+            "cfd2_tpu_torch.tools.make_developed_unstructured, "
+            "cfd2_tpu_torch.tools.validate_turek, "
+            "cfd2_tpu_torch.tools.stiff_water, "
+            "cfd2_tpu_torch.tools.make_developed, "
+            "cfd2_tpu_torch.tools.make_developed_2m, "
+            "cfd2_tpu_torch.tools.measure_strouhal; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

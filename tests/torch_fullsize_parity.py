@@ -22,7 +22,10 @@ u, p, d_p and grad_p in host order, the time and the parameters) and takes
 that one step; it is recorded under ``<package>_from_card_step<N>`` (the
 card wrote the states committed so far).  Both packages then step the very
 same input, so a difference in the counts is the step's own and not
-roundoff carried in from earlier steps.
+roundoff carried in from earlier steps.  ``--perturb-ulp SEED`` adds one
+ulp to both components of u in a seeded 1% of the cells before that step
+(recorded under ``<package>_from_card_step<N>_ulp<SEED>``): how far the
+step's counts move under roundoff alone.
 
 Both packages load the mesh through their own ``mesh_cache.load_mesh`` from
 ``.bench_cache`` (generated by the port's ``get_mesh`` when missing).  The
@@ -120,12 +123,26 @@ def jax_load_unstructured(s, path) -> dict:
     return meta
 
 
-def jax_load_step_input(s, path) -> dict:
+def perturb_u(u: np.ndarray, seed: int) -> np.ndarray:
+    """``u`` (host order, (n, 2) f32) with both components moved up by one
+    ulp in a seeded 1% of the cells."""
+    u = np.array(u, np.float32)
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(u.shape[0], size=max(1, u.shape[0] // 100),
+                       replace=False)
+    u[cells] = np.nextafter(u[cells], np.float32(np.inf))
+    return u
+
+
+def jax_load_step_input(s, path, perturb=None) -> dict:
     """A state ``developed_cases.save_step_input`` wrote into a JAX solver,
     as ``developed_cases.load_step_input`` loads it into the port's: its
-    fields, the history set to u, the time and every parameter."""
+    fields, the history set to u, the time and every parameter;
+    ``perturb``: a seed for :func:`perturb_u`."""
     import jax.numpy as jnp
     arrs, meta = dc.read_step_input(path)
+    if perturb is not None:
+        arrs["u"] = perturb_u(arrs["u"], perturb)
     n = int(s.mesh.grid_of_cell.shape[0])
     if int(meta["cells"]) != n:
         raise ValueError(f"step input of {meta['cells']} cells does not fit "
@@ -244,11 +261,12 @@ def _entry(case: dc.Case) -> dict:
                 steps=[], complete=False)
 
 
-def run(case_name: str, package: str, force: bool, from_state=None):
+def run(case_name: str, package: str, force: bool, from_state=None,
+        perturb=None):
     case = dc.CASES[case_name]
     key = "jax" if package == "jax" else "port_cpu"
     if from_state is not None:
-        return run_from_state(case, key, force, from_state)
+        return run_from_state(case, key, force, from_state, perturb)
     old = load_record()["cases"].get(case_name, {}).get(key)
     if old and old.get("complete") and not force:
         print(f"{case_name} / {package}: complete in the record; --force "
@@ -298,12 +316,16 @@ def run(case_name: str, package: str, force: bool, from_state=None):
     return entry
 
 
-def run_from_state(case: dc.Case, key: str, force: bool, path) -> dict:
+def run_from_state(case: dc.Case, key: str, force: bool, path,
+                   perturb=None) -> dict:
     """One step of ``case`` from the saved state ``path``, recorded under
-    ``<key>_from_card_step<N>``."""
+    ``<key>_from_card_step<N>`` (``_ulp<SEED>`` after it when u is
+    perturbed by :func:`perturb_u`)."""
     path = Path(path)
     _, meta = dc.read_step_input(path)
     name = f"{key}_from_card_step{meta['step']}"
+    if perturb is not None:
+        name += f"_ulp{perturb}"
     old = load_record()["cases"].get(case.name, {}).get(name)
     if old and old.get("complete") and not force:
         print(f"{case.name} / {name}: complete in the record; --force runs "
@@ -311,19 +333,22 @@ def run_from_state(case: dc.Case, key: str, force: bool, path) -> dict:
         return old
     entry = _entry(case)
     entry.update(state=os.path.relpath(path, ROOT), from_step=meta["step"],
-                 state_source=meta.get("source"), state_card=meta.get("card"))
+                 state_source=meta.get("source"), state_card=meta.get("card"),
+                 perturb_ulp_seed=perturb)
     t0 = time.time()
     if key == "jax":
         import jax
         entry["jax"] = jax.__version__
         entry["jax_backend"] = jax.default_backend()
         s = jax_solver(case, jax_mesh(case))
-        jax_load_step_input(s, path)
+        jax_load_step_input(s, path, perturb)
         entry["setup_s"] = time.time() - t0
         rows = jax_steps(s, 1)
     else:
         s, _ = dc.make_solver(case, device="cpu")
         dc.load_step_input(s, path)
+        if perturb is not None:
+            s.set_u(perturb_u(s.get_u(), perturb))   # history = u too
         entry["setup_s"] = time.time() - t0
         rows = dc.run_steps(s, 1)
     entry.update(steps=rows, complete=True, wall_s=time.time() - t0)
@@ -341,14 +366,19 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--from-state", metavar="PATH", default=None,
                     help="one step from a state save_step_input wrote")
+    ap.add_argument("--perturb-ulp", metavar="SEED", type=int, default=None,
+                    help="with --from-state: u one ulp up in a seeded 1%% "
+                         "of the cells")
     a = ap.parse_args(argv)
+    if a.perturb_ulp is not None and a.from_state is None:
+        ap.error("--perturb-ulp needs --from-state")
     if a.package == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
     import torch
     if a.threads:
         torch.set_num_threads(a.threads)
-    run(a.case, a.package, a.force, a.from_state)
+    run(a.case, a.package, a.force, a.from_state, a.perturb_ulp)
     return 0
 
 

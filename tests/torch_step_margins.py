@@ -12,12 +12,16 @@ each cycle (the solve ends below 1, at the restart cap or at the
 stagnation exit); ``--save-outers DIR`` writes the fields each outer's
 solve reads (u, p, d_p, grad_p in host order) as ``outer<K>.npz``.
 
-``cpu``: on the saved input of outer K (default 4) and the one before it,
-the JAX package and the port's plain path on the CPU, one operator at a
+``cpu``: on the saved input of outer K (default 4) and the one before it
+(outer 0 reads no saved outer: its input is the step input itself, so
+``DIR`` is not read), the JAX package and the port's plain path on the
+CPU, one operator at a
 time: the step-entry ``prepare`` and frozen coarse operators, the outer's
 ``prepare`` (also against the card's), ``assemble_ell``, the matvec and the
 Schur preconditioner on a seeded vector, then the port's FGMRES loop with
-either package's operators, its true residual over the target after each
+either package's operators, with the port's and the loop's products and
+norms accumulated in float64, and with each mix of one package's matvec and
+the other's preconditioner, its true residual over the target after each
 cycle.
 
 The FGMRES loop is the port's ``ops/fgmres.py`` with one line added after
@@ -48,10 +52,27 @@ _CYCLE = "        conv = bool(res_new < target)\n"
 _ITER = "            stop = resid < target\n"
 
 
-def recording_fgmres():
+class _F64Products:
+    """``torch`` for the FGMRES loop, its matrix-vector products (the
+    Gram-Schmidt dots, the basis update and the solution update) accumulated
+    in float64 and returned in the vectors' dtype."""
+
+    def __getattr__(self, name):
+        import torch
+        return getattr(torch, name)
+
+    @staticmethod
+    def mv(a, v):
+        import torch
+        return torch.mv(a.double(), v.double()).to(v.dtype)
+
+
+def recording_fgmres(f64=False):
     """The port's ``fgmres_solve`` with each cycle's true residual and each
     iteration's estimate recorded over the target; returns (solve,
-    cycles, estimates), one list per solve appended on each call."""
+    cycles, estimates), one list per solve appended on each call.  ``f64``:
+    the loop's products (:class:`_F64Products`) and norms accumulate in
+    float64, the rest of its arithmetic as it is."""
     import cfd2_tpu_torch.ops.fgmres as tf
     src = inspect.getsource(tf.fgmres_solve)
     if _CYCLE not in src or _ITER not in src:
@@ -62,6 +83,11 @@ def recording_fgmres():
                       " / float(target))\n")
     cycles, estimates = [], []
     ns = dict(vars(tf), _CYC=cycles, _EST=estimates)
+    if f64:
+        ns["torch"] = _F64Products()
+        ns["_dots"] = _F64Products.mv
+        ns["make_norm"] = lambda f64_norms, dtype, reduce: tf.make_norm(
+            True, dtype, reduce)
     exec(src, ns)
 
     def solve(*a, **k):
@@ -155,21 +181,29 @@ def cpu(outers: Path, k: int) -> int:
     amg_t, amg_j = s._get_amg(), j._get_amg()
     fr_t = t_levels(amg_t, *ta.assemble_pressure(tm, ts0, s.params))
     fr_j = j_levels(amg_j, *ja.assemble_pressure(jm, js0, j.params))
-    # Outer k's input: its u and p, the d_p and grad_p of outer k - 1.
-    cur = np.load(outers / f"outer{k}.npz")
-    prev = np.load(outers / f"outer{k - 1}.npz")
-    inp = dict(u=cur["u"], p=cur["p"], d_p=prev["d_p"],
-               grad_p=prev["grad_p"])
-    tp = ta.prepare(tm, replace(ts0, **{
-        f: tm.from_host_order(torch.from_numpy(np.ascontiguousarray(a)))
-        for f, a in inp.items()}), s.params, s.config)
-    jp = ja.prepare(jm, replace(js0, **{
-        f: jm.from_host_order(jnp.asarray(a)) for f, a in inp.items()}),
-        j.params, j.config)
+    if k == 0:
+        # Outer 0 solves on the step entry's own prepare (upwind scheme: no
+        # second prepare before the first solve), so no saved outer is read.
+        if s.config.scheme != 0:
+            raise ValueError("--outer 0 assumes the upwind scheme")
+        tp, jp = ts0, js0
+    else:
+        # Outer k's input: its u and p, the d_p and grad_p of outer k - 1.
+        cur = np.load(outers / f"outer{k}.npz")
+        prev = np.load(outers / f"outer{k - 1}.npz")
+        inp = dict(u=cur["u"], p=cur["p"], d_p=prev["d_p"],
+                   grad_p=prev["grad_p"])
+        tp = ta.prepare(tm, replace(ts0, **{
+            f: tm.from_host_order(torch.from_numpy(np.ascontiguousarray(a)))
+            for f, a in inp.items()}), s.params, s.config)
+        jp = ja.prepare(jm, replace(js0, **{
+            f: jm.from_host_order(jnp.asarray(a)) for f, a in inp.items()}),
+            j.params, j.config)
     for f in ("d_p", "grad_p"):
         cmp(f"prepare: {f} port/JAX", host(tm, getattr(tp, f)),
             host(jm, getattr(jp, f)))
-        cmp(f"prepare: {f} card/JAX", cur[f], host(jm, getattr(jp, f)))
+        if k > 0:
+            cmp(f"prepare: {f} card/JAX", cur[f], host(jm, getattr(jp, f)))
     es_t = ta.assemble_ell(tm, tp, s.params, s.config)
     es_j = ja.assemble_ell(jm, jp, j.params, j.config)
     for f in fields(es_t):
@@ -194,14 +228,22 @@ def cpu(outers: Path, k: int) -> int:
     mv_j = jax.jit(lambda x: jel.spmv(es_j, jm, x))
     cmp("Schur preconditioner", pc_t(torch.from_numpy(rv)).numpy(),
         np.asarray(pc_j(jnp.asarray(rv))))
-    solve, cycles, _ = recording_fgmres()
+    port, port64 = recording_fgmres(), recording_fgmres(f64=True)
     x0 = torch.cat([tp.u, tp.p[:, None]], 1).T.contiguous()
     b = es_t.rhs.T.contiguous()
     via_jax = lambda f: (lambda x: torch.from_numpy(
         np.asarray(f(jnp.asarray(x.numpy())))))
-    for name, mv, pc in (
-            ("the port's operators", lambda x: tel.spmv(es_t, tm, x), pc_t),
-            ("the JAX package's operators", via_jax(mv_j), via_jax(pc_j))):
+    mv_t = lambda x: tel.spmv(es_t, tm, x)
+    for name, mv, pc, (solve, cycles, _) in (
+            ("the port's operators", mv_t, pc_t, port),
+            ("the port's operators, the loop's products and norms in "
+             "float64", mv_t, pc_t, port64),
+            ("the JAX package's operators", via_jax(mv_j), via_jax(pc_j),
+             port),
+            ("the port's matvec, JAX's preconditioner", mv_t, via_jax(pc_j),
+             port),
+            ("JAX's matvec, the port's preconditioner", via_jax(mv_j), pc_t,
+             port)):
         r = solve(mv, pc, b, x0, tol=s.config.fgmres_tol,
                   abstol=s.config.fgmres_abstol, **tc._fgmres_kwargs(s.config))
         print(f"[{time.time() - t0:6.1f} s] outer {k}, FGMRES with {name}: "
