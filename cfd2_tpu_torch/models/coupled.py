@@ -48,8 +48,10 @@ the ADI predict's column solves take deep ghost rows, and every value behind
 a decision (the outer max-diffs, ``check_evolution``'s sums, the CFL max,
 FGMRES's dots and norms, the recycled projection, Anderson's normal
 equations, the presolve gate) is reduced across the ranks, so every rank
-takes the same branches.  Only the aggregation-AMG fallback is not sharded
-(:func:`_check_sharded`).
+takes the same branches.  A structured grid too small for the structured
+multigrid takes the block path there too: with the aggregation AMG its
+V-cycle runs replicated on every rank (``ops/amg.py``), without a hierarchy
+its Chebyshev pressure relaxation is local.
 """
 
 from __future__ import annotations
@@ -92,18 +94,6 @@ def _use_stencil_path(mesh: DeviceMesh, config: SolverConfig, amg) -> bool:
     if config.precond_type == PRECOND_AMG:
         return isinstance(amg, StructuredAmgHierarchy)
     return True
-
-
-def _check_sharded(mesh: DeviceMesh, config: SolverConfig, amg) -> None:
-    """A row-sharded mesh takes every option and ``precond_type``, except
-    ``precond_type=1`` without a structured hierarchy (the aggregation-AMG
-    fallback), which raises."""
-    if (mesh.decomp is not None and config.precond_type == PRECOND_AMG
-            and not isinstance(amg, StructuredAmgHierarchy)):
-        raise NotImplementedError(
-            "under a row-sharded mesh precond_type=1 needs the structured "
-            "multigrid hierarchy: the aggregation-AMG fallback is not "
-            "sharded")
 
 
 def _reduce(mesh: DeviceMesh):
@@ -472,7 +462,6 @@ def step(mesh: DeviceMesh, state: SolverState, params: SolverParams,
     On a row-sharded mesh every rank calls it with its own rows of the
     state (the same ``amg``, built on the whole mesh) and gets its own rows
     back."""
-    _check_sharded(mesh, config, amg)
     n_sweeps = config.pressure_sweeps(mesh.total_cells)
     dev = state.u.device
 
@@ -589,7 +578,6 @@ def outer_iteration(mesh: DeviceMesh, state: SolverState,
     """One outer corrector: (prepare) -> assemble -> solve -> update.
     Returns (state, diff_u, diff_p, aa) with the max-diffs as 0-d device
     tensors; ``aa`` is the Anderson history pair (or None)."""
-    _check_sharded(mesh, config, amg)
     n_sweeps = config.pressure_sweeps(mesh.total_cells)
     if do_prepare:
         state = prepare(mesh, state, params, config)

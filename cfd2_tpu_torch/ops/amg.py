@@ -32,7 +32,7 @@ All end in a regularized dense LU at the coarsest level.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -1052,6 +1052,36 @@ def _multilevel_pressure_solve(hier: MultilevelAmg, mesh, sys, coeff):
     return pressure_solve
 
 
+def _replicated_pressure_solve(hier: AmgHierarchy, mesh, sys, cycle_opts):
+    """The aggregation V-cycle on a row-sharded structured mesh (a grid too
+    small for the structured multigrid): every rank all-gathers the fine
+    pressure operator once (here) and the right-hand side with its Jacobi
+    seed once per cycle, runs the whole hierarchy's V-cycle on the whole
+    grid, and keeps its own rows.  The JAX package's GSPMD placement
+    replicates the same computation; on the same operator every rank's
+    cycle is one process's, bit for bit.  ``hier`` is the whole mesh's
+    (``parallel.spatial.shard_cellwise`` leaves it whole)."""
+    d = mesh.decomp
+    whole = d.all_gather_rows(torch.cat([sys.P_diag[:, None], sys.P_off], 1))
+    level_values = compute_level_values(
+        hier, whole[:, 0].contiguous(), whole[:, 1:].contiguous())
+    dc, oc = level_values[-1]
+    factors = _dense_factor(
+        dc, oc, _coarsest_cols(hier, dc.shape[0], dc.device))
+    grid = replace(mesh, num_cells=d.rows * d.row_size,
+                   grid_shape=(d.rows, d.row_size), decomp=None)
+    opts = dict(cycle_opts or {})
+
+    def pressure_solve(rhs_p):
+        b_x = d.all_gather_rows(torch.stack([rhs_p, sys.diag_p_inv * rhs_p],
+                                            1))
+        x = v_cycle(hier, level_values, grid, b_x[:, 0].contiguous(),
+                    b_x[:, 1].contiguous(), coarse_factors=factors, **opts)
+        return x[d.cells]
+
+    return pressure_solve
+
+
 def make_pressure_solve(hier, mesh, sys, coeff=None, cycle_opts=None,
                         frozen=None):
     """pressure_solve(rhs_p) closure for the Schur preconditioner.  ``sys``
@@ -1065,10 +1095,14 @@ def make_pressure_solve(hier, mesh, sys, coeff=None, cycle_opts=None,
     factors)`` from :func:`coarse_level_values` — skip the per-call Galerkin
     re-coarsening and use these level-1+ operators instead (level 0 stays
     current; FGMRES is flexible, so the staleness never touches the solve
-    contract).
+    contract).  On a row-sharded mesh the aggregation cycle runs replicated
+    (:func:`_replicated_pressure_solve`; the block path, which never
+    freezes).
     """
     if isinstance(hier, MultilevelAmg):
         return _multilevel_pressure_solve(hier, mesh, sys, coeff)
+    if mesh.decomp is not None:
+        return _replicated_pressure_solve(hier, mesh, sys, cycle_opts)
     if frozen is not None:
         coarse_vals, factors = frozen
         level_values = [(sys.P_diag, sys.P_off)] + list(coarse_vals)

@@ -110,30 +110,70 @@ def banded_prolong_add_ref(base, x, idx, alpha: float):
     return base + alpha * x[idx[:, 0].long()]
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, as the card's fused multiply-add rounds
+    it: float32 operands are taken through float64, where the product is
+    exact.  Rounding the float64 sum to float32 rounds the exact sum except
+    where the float64 sum lies on a float32 midpoint (the 29 bits under a
+    float32 mantissa: 1, then 0s) or under float32's normal range; there it
+    is rounded to odd first (TwoSum's error picks the odd neighbour), whose
+    float32 rounding is the correctly rounded one.  Other dtypes are
+    computed as they are."""
+    if a.dtype != torch.float32:
+        return a * b + c
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bits = s.view(torch.int64).reshape(-1)
+    near = ((bits & 0x1FFFFFFF == 0x10000000)
+            | (s.reshape(-1).abs() < 2.0 ** -126)).nonzero()[:, 0]
+    if near.numel():
+        pn, cn = p.reshape(-1)[near], c.reshape(-1)[near]
+        sn, bn = s.reshape(-1)[near], bits[near]
+        z = sn - pn
+        err = (pn - (sn - z)) + (cn - z)
+        step = torch.where((err > 0) == (sn > 0), 1, -1)
+        bits[near] = torch.where((err != 0) & (bn & 1 == 0), bn + step, bn)
+    return s.float()
+
+
 def banded_dot_ref(xs, offs, idx, prods):
-    """Plain version of :func:`banded_dot`: per output, the products are
-    summed per slot first and over the slots last, as the kernel does."""
+    """Plain version of :func:`banded_dot`, in the kernel's arithmetic: per
+    output and slot the first product rounded, each further one added by a
+    fused multiply-add (nvcc contracts the kernel's ``s += o * x``), then
+    the slots added in ascending order."""
     idx = idx.long()
     gs = [x[idx] for x in xs]
     out = []
     for pairs in prods:
         acc = None
         for (oi, ci) in pairs:
-            t = offs[oi] * gs[ci]
-            acc = t if acc is None else acc + t
-        out.append(acc.sum(dim=1))
+            acc = (offs[oi] * gs[ci] if acc is None
+                   else fma(offs[oi], gs[ci], acc))
+        out.append(_slot_sum(acc))
     return tuple(out)
+
+
+def _slot_sum(t: torch.Tensor) -> torch.Tensor:
+    """The rows of an (M, K) tensor summed from zero in ascending slot
+    order, as the kernels add them (torch's ``sum`` takes another order for
+    K > 3); K may be 0 (a slot cap of 0)."""
+    tot = t.new_zeros(t.shape[:1])
+    for k in range(t.shape[1]):
+        tot = tot + t[:, k]
+    return tot
 
 
 def banded_jacobi_sweeps_ref(rs, dinv, off, idx, sweeps: int, k_cap=None):
     """Plain version of :func:`banded_jacobi_sweeps`: the loop of
-    ``ellsys._momentum_solve`` over the first ``k_cap`` slots."""
+    ``ellsys._momentum_solve`` over the first ``k_cap`` slots, each sweep's
+    products added in ascending slot order as the kernel adds them."""
     if k_cap is not None:
         off, idx = off[:, :k_cap], idx[:, :k_cap]
     idx = idx.long()
     zs = [dinv * r for r in rs]
     for _ in range(sweeps - 1):
-        zs = [dinv * (r - (off * z[idx]).sum(dim=1)) for r, z in zip(rs, zs)]
+        zs = [dinv * (r - _slot_sum(off * z[idx])) for r, z in zip(rs, zs)]
     return tuple(zs)
 
 

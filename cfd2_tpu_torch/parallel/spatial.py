@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import ellsys as el
+from ..ops.amg import AmgHierarchy
 
 TRANSPORTS = ("gloo", "nccl")
 # Exchanges, bytes sent by this rank in them, and collectives, since the
@@ -262,6 +263,9 @@ def row_sharding(decomp: RowDecomposition) -> slice:
 
 
 def _place(x, num_cells: int, decomp: RowDecomposition, skip=()):
+    if isinstance(x, AmgHierarchy) and num_cells >= 0:
+        # Its V-cycle runs replicated on every rank: moved whole.
+        return _place(x, -1, decomp)
     if isinstance(x, torch.Tensor):
         if x.dim() >= 1 and x.shape[0] == num_cells:
             x = x[row_sharding(decomp)]
@@ -284,7 +288,8 @@ def shard_cellwise(tree, num_cells: int, decomp: RowDecomposition):
     tensor copied whole, each onto the rank's device.  Works for
     SolverState, an assembled system and a multigrid hierarchy alike (a
     structured hierarchy's planes are (ny, nx): they stay whole, and the
-    V-cycle takes its rows itself)."""
+    V-cycle takes its rows itself; an aggregation hierarchy stays whole, its
+    V-cycle replicated on every rank)."""
     if num_cells != decomp.rows * decomp.row_size:
         raise ValueError(f"{num_cells} cells, the decomposition covers "
                          f"{decomp.rows} x {decomp.row_size}")

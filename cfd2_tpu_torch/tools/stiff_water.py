@@ -101,6 +101,12 @@ def run(h: float = 0.01, steps: int = 50, device=None, out=OUT,
            "max_vel": float(np.linalg.norm(u, axis=1).max()),
            "wall_s": round(time.time() - t0, 1), "per_step": rows}
     log(json.dumps({k: v for k, v in rec.items() if k != "per_step"}))
+    return write_record(rec, out)
+
+
+def write_record(rec: dict, out) -> dict:
+    """Write ``rec`` to ``out`` as indented JSON (nothing when ``out`` is
+    None); returns ``rec``."""
     if out:
         out = Path(out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -220,7 +220,27 @@ Phases (any failure exits non-zero):
    (1982), equal step counts, u within 1e-4 * max|u|; (e)
    ``measure_strouhal`` from ``bench_developed_1m.npz`` cut to 20 heal
    steps and one force sample: finite, and its Cd within 5e-3 (relative) of
-   the JAX package's at the same cut (the same record).
+   the JAX package's at the same cut (the same record);
+15. the solver tools of ``cfd2_tpu_torch/tools/`` (the JAX package's
+   ``tools/`` of the same names), each with every kernel's launch count
+   zeroed just before and read just after: (a) ``live_demo_1m`` on the
+   996,558-cell channel, 3 steps through the live server, then
+   ``control?inlet=1.2`` read back from the solver's params (no frame: no
+   matplotlib on the card's machine); (b) ``iters_1m`` (3 host-mode steps
+   from rest on phase 3's mesh) and ``prof_step_iters`` (2 on phase 6's
+   Delaunay mesh): their per-outer ladders, ``rbgs_leg``, ``banded_dot``
+   and ``banded_jacobi_sweeps`` launched; (c) ``prof_precond`` at 1M (7
+   variants) and ``prof_amg_variants`` at 403k (8 variants, with the
+   V-cycle's contraction); (d) ``bf16_smoke`` at 0.005 (the four bf16
+   combinations, 5 timed steps each); (e) ``probe_cavity`` at its defaults
+   on the card and on the CPU: the Ghia error within 0.06 on the card and
+   within 1e-3 of the CPU's; (f) ``stiff_water_x64`` (the water step with
+   float64 norms, 50 steps): finite, max|u| within 1e-3 (relative) of
+   ``STIFF_X64.json``'s; (g) the row-sharded aggregation fallback
+   (``tests/torch_spatial_ranks.FALLBACK``: the 0.05 channel with the
+   aggregation hierarchy, the 0.25 channel with none) on 4 gloo ranks
+   sharing the card against one process on the card: equal counts, u
+   within 1e-5, the replicated V-cycle's all-gathers and banded kernels.
 
 Then the kernels' JSON line, the script's total wall and the result line are
 printed.
@@ -276,7 +296,7 @@ BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
 # Phase 10: the refined quadtree mesh on the multilevel layout.
 MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
 MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
 # Phase 11: the app at full width (the main path's mesh, smoothed as the
 # app smooths it) and on a Delaunay mesh, as subprocesses of the CLI.
 APP_MAIN = ("--geometry", "channel", "--cell-size", "0.0017", "--precond",
@@ -4237,10 +4257,256 @@ def phase_validation(results, ctx):
         log(f"phase 14: part done in {time.time() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the solver tools of cfd2_tpu_torch/tools on the card.
+
+# (e) the cavity probe's bound and the card's distance from the CPU run.
+CAVITY_PROBE_BOUND, CAVITY_PROBE_CPU = 0.06, 1e-3
+TOOLS_BF16_CELL = 0.005
+LIVE_INLET = 1.2
+
+
+def _tool_run(results, part, path, need, fn):
+    """``fn()`` with every kernel's launch count at 0 just before and read
+    just after: each kernel of ``need`` must have launched; the counts go
+    beside the kernels' main-path counts.  Returns fn's result."""
+    import torch
+    from cfd2_tpu_torch.ops import banded_kernels as bk
+    from cfd2_tpu_torch.ops import stencil_kernels as sk
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in {**sk.LAUNCHES, **bk.LAUNCHES}.items() if v}
+    log(f"phase 15: ({part}) {path}: {wall:.1f} s, launches {counts}")
+    for name in need:
+        check(counts.get(name, 0) > 0, f"{path}: {name} never launched")
+    _path_launches(results, f"{path} (phase 15)", counts)
+    return out
+
+
+def _p15_live(results):
+    """(a) live_demo_1m on the 996,558-cell channel: 3 steps, then
+    control?inlet=1.2 read back from the solver's params (no frame: the
+    card's machine has no matplotlib; the tool fetches one where it has)."""
+    from cfd2_tpu_torch.tools import live_demo_1m
+    res = _tool_run(results, "a", "live_demo_1m", ("rbgs_leg",),
+                    lambda: live_demo_1m.run(
+                        cell=0.0017, steps=3, wait=600, inlet=LIVE_INLET,
+                        log=lambda m: log(f"phase 15: (a) {m}")))
+    check(res["cells"] == MAIN_CELLS, f"live demo on {res['cells']} cells")
+    check(res["steps"] >= 3, "the live solver did not take 3 steps")
+    check(abs(res["inlet"] - LIVE_INLET) < 1e-6,
+          f"control?inlet={LIVE_INLET} read back as {res['inlet']}")
+
+
+def _delaunay_mesh(ctx):
+    """Phase 6's 403,491-cell Delaunay mesh, or the same mesh made here
+    (once)."""
+    from cfd2_tpu_torch.tools import probes
+    if "delaunay" in ctx:
+        return ctx["delaunay"].host_mesh
+    if "delaunay_mesh" not in ctx:
+        mesh = probes.channel_mesh(DELAUNAY_MIN_CELL, "delaunay")
+        check(mesh.num_cells == DELAUNAY_CELLS,
+              f"Delaunay mesh has {mesh.num_cells} cells")
+        ctx["delaunay_mesh"] = mesh
+    return ctx["delaunay_mesh"]
+
+
+def _main_mesh(ctx):
+    """Phase 3's 996,558-cell channel, or the same mesh made here."""
+    return ctx.get("main_mesh") or _channel(0.0017)
+
+
+def _p15_ladders(results, ctx):
+    """(b) iters_1m (3 host steps from rest at 0.0017) and prof_step_iters
+    (the 403k Delaunay mesh, 2 steps): their per-outer ladders."""
+    from cfd2_tpu_torch.tools import iters_1m, prof_step_iters
+    for k in ("IT_CELL", "IT_STEPS", "IT_EXTRAP", "IT_INCYCLE", "CFD2_CHEB",
+              "CFD2_OC", "CFD2_MS", "CFD2_RESTART", "CFD2_AGGP",
+              "CFD2_VCYCLES", "CFD2_MAXCELL"):
+        os.environ.pop(k, None)
+    lad = _tool_run(results, "b", "iters_1m", ("rbgs_leg",),
+                    lambda: iters_1m.run(
+                        cell=0.0017, steps=3, mesh=_main_mesh(ctx),
+                        log=lambda m: log(f"phase 15: (b) {m}")))
+    log(f"phase 15: (b) iters_1m ladders {lad}")
+    check(len(lad) == 3 and all(lad) and sum(lad[0]) > 0,
+          f"iters_1m ladders {lad}")
+    lad = _tool_run(results, "b", "prof_step_iters",
+                    ("banded_dot", "banded_jacobi_sweeps"),
+                    lambda: prof_step_iters.run(
+                        DELAUNAY_MIN_CELL, "delaunay", 2,
+                        mesh=_delaunay_mesh(ctx),
+                        log=lambda m: log(f"phase 15: (b) {m}")))
+    log(f"phase 15: (b) prof_step_iters ladders {lad}")
+    check(len(lad) == 2 and all(lad) and sum(lad[0]) > 0,
+          f"prof_step_iters ladders {lad}")
+
+
+def _p15_precond(results, ctx):
+    """(c) prof_precond at 1M (2 warm steps) and prof_amg_variants on the
+    403k Delaunay mesh: every variant's iterations."""
+    from cfd2_tpu_torch.tools import prof_amg_variants, prof_precond
+    got = _tool_run(results, "c", "prof_precond", ("rbgs_leg",),
+                    lambda: prof_precond.run(
+                        0.0017, 2, mesh=_main_mesh(ctx),
+                        log=lambda m: log(f"phase 15: (c) {m}")))
+    check(list(got) == [v[0] for v in prof_precond.VARIANTS]
+          and all(np.isfinite(r["residual"]) for r in got.values()),
+          f"prof_precond: {got}")
+    got = _tool_run(results, "c", "prof_amg_variants",
+                    ("banded_dot", "banded_gather"),
+                    lambda: prof_amg_variants.run(
+                        DELAUNAY_MIN_CELL, "delaunay",
+                        mesh=_delaunay_mesh(ctx),
+                        log=lambda m: log(f"phase 15: (c) {m}")))
+    check(list(got) == [v[0] for v in prof_amg_variants.VARIANTS]
+          and all(r["iterations"] > 0 and np.isfinite(r["contraction"])
+                  for r in got.values()),
+          f"prof_amg_variants: {got}")
+
+
+def _p15_bf16(results):
+    """(d) bf16_smoke at 0.005: the four combinations' outers."""
+    from cfd2_tpu_torch.tools import bf16_smoke
+    os.environ.pop("SMOKE_VARIANTS", None)
+    got = _tool_run(results, "d", "bf16_smoke", ("rbgs_leg",),
+                    lambda: bf16_smoke.run(
+                        size=TOOLS_BF16_CELL,
+                        log=lambda m: log(f"phase 15: (d) {m}")))
+    check(list(got) == [v[0] for v in bf16_smoke.VARIANTS]
+          and all(len(r["outers"]) == 5 for r in got.values()),
+          f"bf16_smoke: {got}")
+
+
+def _p15_cavity(results):
+    """(e) probe_cavity at its defaults (h 1/48, dt 0.25, 80 steps; the
+    default Chebyshev pressure block, so the stencil kernels but no leg) on
+    the card and on the CPU: the Ghia error within the bound on the card
+    and within 1e-3 of the CPU's (the steady-state stop within a
+    step)."""
+    from cfd2_tpu_torch.tools import probe_cavity
+    card = _tool_run(results, "e", "probe_cavity",
+                     ("coupled_spmv", "momentum_jacobi"),
+                     lambda: probe_cavity.run(
+                         log=lambda m: log(f"phase 15: (e) {m}")))
+    cpu = probe_cavity.run(device="cpu", log=lambda m: None)
+    d = abs(card["max_err"] - cpu["max_err"])
+    log(f"phase 15: (e) cavity {card['cells']} cells, {card['steps']} steps: "
+        f"Ghia max error card {card['max_err']:.6f}, CPU "
+        f"{cpu['max_err']:.6f} ({cpu['steps']} steps): {d:.3e} apart "
+        f"(limit {CAVITY_PROBE_CPU:g})")
+    check(np.isfinite(card["ui"]).all()
+          and card["max_err"] <= CAVITY_PROBE_BOUND,
+          f"cavity probe: Ghia error {card['max_err']:.4f}")
+    # The steps may differ by one: the steady-state stop trips on a
+    # threshold that roundoff moves.
+    check(abs(card["steps"] - cpu["steps"]) <= 1 and d <= CAVITY_PROBE_CPU,
+          "cavity probe: card and CPU disagree")
+
+
+def _p15_water_x64(results):
+    """(f) stiff_water_x64 at its defaults (h 0.01, 50 steps, float64
+    norms): finite, max|u| beside STIFF_X64.json's."""
+    from cfd2_tpu_torch.tools import stiff_water_x64
+    rec = _tool_run(results, "f", "stiff_water_x64", ("rbgs_leg",),
+                    lambda: stiff_water_x64.run(
+                        out=None, log=lambda m: log(f"phase 15: (f) {m}")))
+    rel = abs(rec["max_vel"] - WATER_X64_MAX_VEL) / WATER_X64_MAX_VEL
+    log(f"phase 15: (f) {rec['cells']} cells, {rec['steps']} steps, outers "
+        f"{[r['outers'] for r in rec['per_step']]}; max|u| "
+        f"{rec['max_vel']:.6f} against STIFF_X64.json's "
+        f"{WATER_X64_MAX_VEL:.6f}: {rel:.3e} relative (limit {WATER_REL:g})")
+    check(rec["finite"] and rec["f64_norms_active"],
+          "the float64-norm water step is not finite")
+    check(rel <= WATER_REL, "the float64-norm water step's max|u| is off "
+          "STIFF_X64.json")
+
+
+def _p15_fallback(results):
+    """(g) the aggregation fallback row-sharded: 4 ranks sharing the card
+    (gloo) against one process on the card, for both of
+    tests/torch_spatial_ranks.FALLBACK's grids: equal counts on every rank
+    and with one process, u within 1e-5."""
+    from cfd2_tpu_torch.parallel.launch import run_ranks
+    ranks = _tests_module("torch_spatial_ranks")
+
+    def channel(h):
+        mesh = _channel(h)
+        u0 = np.zeros((mesh.num_cells, 2))
+        u0[mesh.cell_cx < h, 0] = 1.0
+        return mesh, u0
+
+    cases = ranks.fallback_cases(channel)
+    # Each step zeroes the counts itself and returns them: the aggregation
+    # V-cycle launches banded_dot and the fused prolongation; without a
+    # hierarchy the block path's Chebyshev relaxation launches none.
+    one = {n: ranks.fallback_step(c[0], "cuda", *c[1:], group=False)
+           for n, c in cases.items()}
+    counts = {k: v for k, v in one["aggregation"]["launches"].items() if v}
+    log(f"phase 15: (g) aggregation fallback, one process: launches "
+        f"{counts}")
+    for name in ("banded_dot", "banded_gather"):
+        check(counts.get(name, 0) > 0,
+              f"aggregation fallback: {name} never launched")
+    _path_launches(results, "aggregation fallback, one process (phase 15)",
+                   counts)
+    res = run_ranks(ranks.fallback_steps_over, SHARD_WORLD, device="cuda",
+                    timeout=600, args=((SHARD_WORLD,), cases))
+    for name in cases:
+        rs = [r[SHARD_WORLD][name] for r in res]
+        u = np.concatenate([r["u"] for r in rs])
+        err = float(np.abs(u - one[name]["u"]).max())
+        log(f"phase 15: (g) {name} (levels {one[name]['levels']}): one "
+            f"process {one[name]['outer']} outers, {one[name]['lin']} FGMRES "
+            f"iterations; {SHARD_WORLD} ranks {[r['outer'] for r in rs]} / "
+            f"{[r['lin'] for r in rs]}; max|du| {err:.3e}; all-gathers per "
+            f"iteration {rs[0]['counts']['per_iteration']['allgathers']:.2f}"
+            f"; rank 0 launches "
+            f"{ {k: v for k, v in rs[0]['launches'].items() if v} }")
+        check(all(r["outer"] == one[name]["outer"]
+                  and r["lin"] == one[name]["lin"] for r in rs),
+              f"fallback {name}: the ranks' counts differ from one process")
+        check(err <= 1e-5, f"fallback {name}: u off one process by {err}")
+        if one[name]["levels"]:
+            check(rs[0]["counts"]["allgathers"] > 0
+                  and rs[0]["launches"]["banded_dot"] > 0,
+                  f"fallback {name}: the replicated V-cycle did not run")
+
+
+def phase_tools(results, ctx):
+    """15: the solver tools of cfd2_tpu_torch/tools on the card (the live
+    demo, the ladders, the preconditioner probes, the bf16 smoke, the cavity
+    probe, the float64-norm water step) and the sharded aggregation
+    fallback."""
+    failed = []
+    for part, fn in (("a", lambda: _p15_live(results)),
+                     ("b", lambda: _p15_ladders(results, ctx)),
+                     ("c", lambda: _p15_precond(results, ctx)),
+                     ("d", lambda: _p15_bf16(results)),
+                     ("e", lambda: _p15_cavity(results)),
+                     ("f", lambda: _p15_water_x64(results)),
+                     ("g", lambda: _p15_fallback(results))):
+        t0 = time.time()
+        try:
+            fn()
+        except PhaseError as e:     # the other parts still run
+            log(f"phase 15({part}) FAILED: {e}")
+            failed.append(f"15({part}): {e}")
+        log(f"# phase 15({part}) done in {time.time() - t0:.1f} s")
+    if failed:
+        raise PhaseError(" | ".join(failed))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
@@ -4286,7 +4552,8 @@ def main(argv=None) -> int:
              (11, lambda: phase_app(results, ctx)),
              (12, lambda: phase_sharded(results, ctx)),
              (13, lambda: phase_developed(results, ctx)),
-             (14, lambda: phase_validation(results, ctx))]
+             (14, lambda: phase_validation(results, ctx)),
+             (15, lambda: phase_tools(results, ctx))]
     try:
         if 13 in phases and 1 not in phases:
             # Phase 13's meshes need the native library, built for this

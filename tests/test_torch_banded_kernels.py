@@ -6,11 +6,21 @@ the JAX package's on the same meshes.
 Tolerances: the gather is a copy, so it must be exact.  The dots and the
 Jacobi sweeps run the same float32 products on both sides and differ in the
 order of the per-row sum over slots (the Pallas walk accumulates window by
-window, PyTorch reduces along the slot axis), a few ulps of the largest
+window, the plain versions add the slots in order), a few ulps of the largest
 term: 1e-5 relative to each output's largest magnitude.  On the slot-capped
 Voronoi mesh the port's dot walks all K slots where the JAX package walks 8
-and adds a COO correction: the same terms in another order, same bound."""
+and adds a COO correction: the same terms in another order, same bound.
 
+The plain dot does the card's arithmetic: each slot's further products
+added by a fused multiply-add, as nvcc contracts the kernel's
+``s += o * x``, and as XLA contracts the JAX package's on the CPU.  Two
+tests pin it: the emulated multiply-add is correctly rounded, and at the
+403k Delaunay case's length the plain spmv's float32 error is XLA's and
+under that of every product rounded on its own (the plain version before,
+whose larger residual error held that case's later step-2 solves at the
+restart cap)."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -322,3 +332,78 @@ def test_mesh_jacobi_sweeps(meshes):
     for g, r in zip(got, ref):
         _close(g, r)
     assert jm.banded_sweeps_fit(2) == tm.banded_sweeps_fit(2)
+
+
+def test_fma_is_correctly_rounded():
+    """``banded_kernels.fma`` against the exact a * b + c rounded to
+    float32 (Python fractions), on seeded values and on sums that a plain
+    float64 evaluation would round twice: one bit past a float32 midpoint,
+    either sign, and the midpoint itself (ties to even)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.standard_normal(2000).astype(np.float32)
+               * np.float32(10.0) ** rng.integers(-6, 6, 2000)
+               for _ in range(3))
+    e = np.float32(1 + 2 ** -12)
+    a = np.concatenate([a, [e, -e, e, e]]).astype(np.float32)
+    b = np.concatenate([b, [e, e, e, e]]).astype(np.float32)
+    c = np.concatenate([c, [2 ** -80, -2 ** -80, -2 ** -80, 0.0]]
+                       ).astype(np.float32)
+    got = bk.fma(_t(a), _t(b), _t(c)).numpy()
+
+    def rounded(x):   # the float32 nearest the fraction x, ties to even
+        f = np.float32(float(x))
+        cands = [np.nextafter(f, np.float32(-np.inf)), f,
+                 np.nextafter(f, np.float32(np.inf))]
+        return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                         int(v.view(np.uint32)) & 1))
+
+    want = [rounded(Fraction(float(x)) * Fraction(float(y))
+                    + Fraction(float(z))) for x, y, z in zip(a, b, c)]
+    assert np.array_equal(got, np.array(want, np.float32))
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert not np.array_equal(naive[-4:], got[-4:])
+
+
+def test_plain_spmv_rounds_as_the_card_at_full_size():
+    """The spmv product form of the plain dot at the 403k Delaunay case's
+    map shape (403,584 rows x 3 slots), its pressure row's three products
+    cancelling as continuity makes them: the norm of its float32 error is
+    XLA's contracted arithmetic's (within 2%), and every product rounded on
+    its own (the plain version before) errs by 30% more."""
+    rng = np.random.default_rng(3)
+    M, K = 403_584, 3
+    idx = rng.integers(0, M, (M, K)).astype(np.int32)
+    xs = [rng.standard_normal(M).astype(np.float32) for _ in range(3)]
+    g = [x[idx] for x in xs]
+    offs = [rng.standard_normal((M, K)).astype(np.float32) for _ in range(5)]
+    t = offs[3].astype(np.float64) * g[0] + offs[4] * g[1]
+    offs.append((-(t / g[2]) * (1 + 1e-3 * rng.standard_normal((M, K))))
+                .astype(np.float32))
+    pairs = ((3, 0), (4, 1), (5, 2))
+    exact = sum(offs[o].astype(np.float64) * g[c] for o, c in pairs).sum(1)
+
+    def err(v):
+        return (np.linalg.norm(np.asarray(v, np.float64) - exact)
+                / np.linalg.norm(exact))
+
+    got = bk.banded_dot([_t(x) for x in xs], [_t(o) for o in offs],
+                        _t(idx, torch.int32), PRODS["spmv"][2])[2]
+    ps = [offs[o] * g[c] for o, c in pairs]
+    separate = ps[0] + ps[1] + ps[2]
+    xla = jax.jit(lambda o, g: sum(o[i] * g[c] for i, c in pairs))(offs, g)
+    slots = lambda s: s[:, 0] + s[:, 1] + s[:, 2]
+    assert err(got.numpy()) <= 1.02 * err(slots(np.asarray(xla)))
+    assert err(slots(separate)) >= 1.3 * err(got.numpy())
+
+
+def test_plain_sweeps_take_a_zero_slot_cap():
+    """A slot cap of 0 leaves every sweep the seed: z = dinv * r (the
+    kernels take it; the plain versions' in-order slot sum must too)."""
+    idx, n, _, rng = _map("mesh_k3")
+    r = _t(rng.standard_normal(n))
+    dinv = _t(1.0 / (1.0 + rng.random(n)))
+    off = _t(rng.standard_normal(idx.shape))
+    (got,) = bk.banded_jacobi_sweeps_ref((r,), dinv, off, _t(idx, torch.int32),
+                                         3, k_cap=0)
+    assert torch.equal(got, dinv * r)

@@ -7,8 +7,11 @@ V-cycle; on the CPU its wrappers run their plain versions), block-Jacobi
 ``n_outer_correctors=1``) and one ``simple_step``, over 2, 4 and 8 gloo
 ranks on the CPU, against the JAX package's sharded step on 8 virtual
 devices (its plain stencils stand for every smoother level) and the port's
-one-process step.  Also: the entry points that default to the card raise
-without one.
+one-process step.  Also: ``precond_type=1`` on the aggregation fallback
+(the structured grid's block path with the aggregation AMG, or with no
+hierarchy) over 2 and 4 ranks against one process and the JAX package's
+sharded step (tests/torch_spatial_cases.fallback_runs), and the entry points
+that default to the card raise without one.
 
 Tolerances and why: the counts equal on every rank; the coupled steps'
 outer and FGMRES counts equal to one process and their outers to the JAX
@@ -87,25 +90,31 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert hier.levels and hier.levels[0].agg.device.type == "cpu"
 
 
-def test_sharded_step_refuses_only_the_aggregation_fallback():
-    """``precond_type=1`` without a structured hierarchy (the aggregation
-    AMG, or none) is the one configuration a row-sharded step refuses; the
-    same mesh steps with ``precond_type=2`` (here a one-rank
-    decomposition, in this process)."""
-    from cfd2_tpu_torch.models.coupled import step
-    from cfd2_tpu_torch.parallel import spatial as sp
-    from cfd2_tpu_torch.runtime import state as ts
-    from cfd2_tpu_torch.runtime.device_mesh import encode_mesh
-    mesh, u0 = sc.channel()
-    dm = encode_mesh(mesh, device="cpu", pad_rows_to=sc.PAD)
-    d = sp.RowDecomposition(*dm.grid_shape, transport="gloo", device="cpu")
-    m, s = sp.shard_mesh(dm, d), sp.shard_state(
-        dm, ts.initial_state(dm, u0=u0), d)
-    params = ts.SolverParams.default(dt=sc.DT, device="cpu")
-    args = [dm.amg_host[k] for k in ("ck_neighbor", "ck_mask", "c_valid")]
-    for amg in (None, tamg.build_hierarchy(*args, device="cpu")):
-        with pytest.raises(NotImplementedError, match="aggregation"):
-            step(m, s, params, ts.SolverConfig(precond_type=1), amg)
-    out = step(m, s, params, ts.SolverConfig(precond_type=2,
-                                             n_outer_correctors=1))
-    assert np.isfinite(out.u.numpy()).all() and int(out.outer_iters) > 0
+@pytest.fixture(scope="module")
+def fallback():
+    return sc.fallback_runs()
+
+
+@pytest.mark.parametrize("world", sc.FALLBACK_WORLDS)
+@pytest.mark.parametrize("name", ["aggregation", "auto"])
+def test_sharded_step_refuses_only_the_aggregation_fallback(fallback, world,
+                                                            name):
+    """``precond_type=1`` on a structured grid without the structured
+    multigrid (tests/torch_spatial_cases.fallback_cases: the aggregation
+    AMG passed in, or a grid too small for any hierarchy) is no longer
+    refused on a row-sharded mesh: the block path's aggregation V-cycle runs
+    replicated on every rank (one all-gather of the fine operator per outer
+    and of the right-hand side per cycle), and the step takes one process's
+    outers and FGMRES iterations and the JAX package's sharded step's, u
+    within 1e-5 of both."""
+    got = sc.sharded(fallback["ranks"], world, name)
+    one, ref = fallback["one"][name], fallback["jax"][(world, name)]
+    assert np.isfinite(got["u"]).all()
+    assert got["outer"] == one["outer"] == ref["outer"]
+    assert got["lin"] == one["lin"] == ref["lin"]
+    assert np.abs(got["u"] - one["u"]).max() < 1e-5
+    assert np.abs(got["u"] - ref["u"]).max() < 1e-5
+    levels = one["levels"]
+    assert (levels is None) == (name == "auto")
+    allgathers = got["counts"][0]["allgathers"]
+    assert allgathers > 0 if levels else allgathers == 0

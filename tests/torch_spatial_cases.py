@@ -56,13 +56,48 @@ DT = 0.01
 PAD = 8
 
 
-def channel():
-    """The mesh and the inlet-column start of test_structured.py:118-139."""
+def channel(h: float = 0.05):
+    """The mesh and the inlet-column start of test_structured.py:118-139
+    (at cell size ``h``)."""
     geo = ChannelWithObstacle(3.0, 1.0, (1.0, 0.5), 0.2)
-    mesh = generate_cut_cell_mesh(geo, 0.05, 0.05, 1.2, (3.0, 1.0))
+    mesh = generate_cut_cell_mesh(geo, h, h, 1.2, (3.0, 1.0))
     u0 = np.zeros((mesh.num_cells, 2))
-    u0[mesh.cell_cx < 0.05, 0] = 1.0
+    u0[mesh.cell_cx < h, 0] = 1.0
     return mesh, u0
+
+
+FALLBACK_WORLDS = (2, 4)
+
+
+def fallback_cases() -> dict:
+    """tests/torch_spatial_ranks.FALLBACK on :func:`channel`'s meshes."""
+    return ranks.fallback_cases(channel)
+
+
+def jax_fallback_runs(cases: dict) -> dict:
+    """Each fallback case on the JAX package's sharded step over 2 and 4
+    virtual devices, its hierarchy placed by ``shard_cellwise``: {(world,
+    name): u, outers, FGMRES iterations}."""
+    out = {}
+    for name, (mesh, pad, u0, dt, kind) in cases.items():
+        dm = jencode(mesh, pad_rows_to=pad)
+        if kind == "aggregation":
+            hier = jamg.build_hierarchy(*[jamg._host(dm, k) for k in (
+                "ck_neighbor", "ck_mask", "c_valid")])
+        else:
+            hier = jamg.build_hierarchy_for_mesh(dm)
+            assert not isinstance(hier, jamg.StructuredAmgHierarchy)
+        params = js.SolverParams.default(dt=dt)
+        for w in FALLBACK_WORLDS:
+            jm = JMesh(np.array(jax.devices("cpu")[:w]), axis_names=("y",))
+            a = (None if hier is None
+                 else jsp.shard_cellwise(hier, dm.num_cells, jm))
+            s = jc.step(jsp.shard_mesh(dm, jm), jsp.shard_state(
+                dm, js.initial_state(dm, u0=u0), jm), params,
+                js.SolverConfig(precond_type=1), a)
+            out[(w, name)] = dict(u=np.asarray(s.u), outer=int(s.outer_iters),
+                                  lin=int(s.linear_iters_total))
+    return out
 
 
 def jax_runs(mesh, u0, runs: dict) -> dict:
@@ -122,18 +157,22 @@ TESTS = Path(__file__).resolve().parent
 
 def jax_process_main(src: str, dst: str) -> None:
     """The JAX reference process: :func:`jax_runs` of the runs pickled at
-    ``src`` on the channel, on the 8 virtual CPU devices its environment
+    ``src`` on the channel (or, for the runs ``"fallback"``,
+    :func:`jax_fallback_runs`), on the 8 virtual CPU devices its environment
     asks for, pickled to ``dst``."""
     jax.config.update("jax_platforms", "cpu")
     with open(src, "rb") as f:
         runs = pickle.load(f)
-    mesh, u0 = channel()
-    out = jax_runs(mesh, u0, runs)
+    if runs == "fallback":
+        out = jax_fallback_runs(fallback_cases())
+    else:
+        mesh, u0 = channel()
+        out = jax_runs(mesh, u0, runs)
     with open(dst, "wb") as f:
         pickle.dump(out, f)
 
 
-def start_jax_process(runs: dict, tmp: str):
+def start_jax_process(runs, tmp: str):
     """Start the JAX reference process for ``runs`` (files in ``tmp``);
     returns (process, path of its result)."""
     src, dst = os.path.join(tmp, "runs.pkl"), os.path.join(tmp, "jax.pkl")
@@ -195,6 +234,28 @@ def all_runs(runs: dict, timeout: float = 600) -> dict:
     return out
 
 
+def fallback_runs(timeout: float = 600) -> dict:
+    """The fallback cases three ways: ``jax`` (:func:`jax_fallback_runs`,
+    in a process of its own), ``one`` (the port in this process) and
+    ``ranks`` (2 and 4 gloo ranks on the CPU, one spawn)."""
+    cases = fallback_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, dst = start_jax_process("fallback", tmp)
+        try:
+            one = {n: ranks.fallback_step(c[0], "cpu", *c[1:], group=False)
+                   for n, c in cases.items()}
+            res = run_ranks(ranks.fallback_steps_over, max(FALLBACK_WORLDS),
+                            device="cpu", timeout=timeout,
+                            collective_timeout=timeout,
+                            args=(FALLBACK_WORLDS, cases))
+        except BaseException:
+            proc.kill()
+            proc.communicate()
+            raise
+        return dict(one=one, ranks=res,
+                    jax=finish_jax_process(proc, dst, timeout))
+
+
 def sharded(res: list, world: int, name: str) -> dict:
     """One run over ``world`` ranks: the whole u, and the counts, which
     every rank must report alike (a rank that took another branch would
@@ -205,7 +266,7 @@ def sharded(res: list, world: int, name: str) -> dict:
             assert r[key] == rs[0][key], (name, world, key)
     return dict(u=np.concatenate([r["u"] for r in rs]),
                 outer=rs[0]["outer"], lin=rs[0]["lin"],
-                launches=[r["launches"] for r in rs],
+                launches=[r.get("launches") for r in rs],
                 counts=[r["counts"] for r in rs])
 
 

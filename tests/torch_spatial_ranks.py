@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from cfd2_tpu_torch.models.coupled import (multi_step_adaptive, step,
                                            step_host)
+from cfd2_tpu_torch.ops import banded_kernels as bk
 from cfd2_tpu_torch.ops import stencil_kernels as sk
 from cfd2_tpu_torch.ops.amg import build_hierarchy_for_mesh, split_level
 from cfd2_tpu_torch.parallel import spatial as sp
@@ -349,6 +350,82 @@ def option_runs_over(rank, world, device, worlds, host_mesh, pad_rows_to, u0,
         return out
 
     return _over(rank, world, worlds, group_runs)
+
+
+# The aggregation fallback of ``precond_type=1`` on a structured grid (the
+# block path): name -> (cell size of the obstacle channel, pad_rows_to,
+# hierarchy).  The 0.05 channel with the aggregation hierarchy built and
+# passed in (570, 152, 42 cells; the grid also has the structured one), and
+# the 0.25 channel padded to 4 rows (4 x 12 = 48 cells, no more than the
+# structured multigrid's 100), where ``build_hierarchy_for_mesh`` falls back
+# by itself and finds no aggregation level either: None, the Chebyshev
+# pressure relaxation.  dt 0.01, the inlet column at 1.
+FALLBACK = {"aggregation": (0.05, 8, "aggregation"),
+            "auto": (0.25, 4, "auto")}
+FALLBACK_DT = 0.01
+
+
+def fallback_cases(channel) -> dict:
+    """:data:`FALLBACK` as :func:`fallback_step`'s cases, name ->
+    (mesh, pad_rows_to, u0, dt, hierarchy), the meshes and starts made by
+    ``channel(h)`` -> (host mesh, u0)."""
+    out = {}
+    for name, (h, pad, kind) in FALLBACK.items():
+        mesh, u0 = channel(h)
+        out[name] = (mesh, pad, u0, FALLBACK_DT, kind)
+    return out
+
+
+def fallback_hierarchy(dm, kind: str):
+    """The aggregation fallback's hierarchy of a structured DeviceMesh:
+    ``"aggregation"`` builds it (on a grid that still has the structured
+    multigrid), ``"auto"`` is what ``build_hierarchy_for_mesh`` returns (the
+    aggregation AMG, or None, on a grid too small for the structured one)."""
+    from cfd2_tpu_torch.ops.amg import StructuredAmgHierarchy, build_hierarchy
+    if kind == "aggregation":
+        return build_hierarchy(*[dm.amg_host[k] for k in
+                                 ("ck_neighbor", "ck_mask", "c_valid")],
+                               device=dm.device)
+    hier = build_hierarchy_for_mesh(dm)
+    assert not isinstance(hier, StructuredAmgHierarchy)
+    return hier
+
+
+def fallback_step(host_mesh, device, pad_rows_to, u0, dt, kind, group=None):
+    """One ``precond_type=1`` step on the aggregation fallback
+    (:func:`fallback_hierarchy`) on ``device``, in one process (``group``
+    False) or on this rank's rows: u, the counts, the collectives and the
+    kernels' launches."""
+    one = group is False
+    dm = encode_mesh(host_mesh, device=device if one else "cpu",
+                     pad_rows_to=pad_rows_to)
+    amg = fallback_hierarchy(dm, kind)
+    state, mesh = initial_state(dm, u0=u0), dm
+    if not one:
+        ny, nx = dm.grid_shape
+        decomp = sp.RowDecomposition(ny, nx, transport="gloo", device=device,
+                                     group=group)
+        mesh, state = sp.shard_mesh(dm, decomp), sp.shard_state(dm, state,
+                                                                 decomp)
+        amg = sp.shard_cellwise(amg, dm.num_cells, decomp)
+    params = SolverParams.default(dt=dt, device=device)
+    sp.reset_counts()
+    sk.reset_launches()
+    bk.reset_launches()
+    out = step(mesh, state, params, SolverConfig(precond_type=1), amg)
+    lin = int(out.linear_iters_total)
+    return dict(u=out.u.cpu().numpy(), outer=int(out.outer_iters), lin=lin,
+                levels=None if amg is None else [lv.n for lv in amg.levels],
+                counts=_counts(lin),
+                launches={**sk.LAUNCHES, **bk.LAUNCHES})
+
+
+def fallback_steps_over(rank, world, device, worlds, cases):
+    """:func:`fallback_step` of every case (name -> (host_mesh,
+    pad_rows_to, u0, dt, kind)) for each world size in ``worlds``."""
+    return _over(rank, world, worlds, lambda g: {
+        name: fallback_step(case[0], device, *case[1:], group=g)
+        for name, case in cases.items()})
 
 
 # The coupled system's planes in the order of coupled_spmv's operands.
