@@ -13,7 +13,15 @@
 //     dinv = 1/diag where |diag| > 1e-30, else 0,
 // with a cell's colour (row + col + parity) % 2 == 0, parity 0 then 1.  At the
 // global grid edges a neighbour read takes the cell's own value (the
-// edge-clamped shifts of _GridOps.shifts2).
+// edge-clamped shifts of _GridOps.shifts2).  The arithmetic is XLA's for the
+// JAX package's _GridOps on the main path's grids (it contracts the
+// multiply-adds): sigma = fma(oS, xS, fma(oN, xN, fma(oE, xE, oW*xW))),
+// x <- dinv * (b - sigma), r = b - fma(diag, x, sigma).  It is pinned with
+// explicit intrinsics (stencil_sigma, relaxed, residual below): left to
+// nvcc, the contraction differed from cell to cell (the second residual of a
+// pair came out as b - (diag*x + sigma), rounded twice).  The plain versions
+// (ops/stencil_kernels.py smoother_sigma) compute the same, and the kernels
+// equal them bit for bit.
 //
 // rbgs_leg at sweeps = 1 (the V-cycle's only value).  What bounds it on this
 // card: bytes.  A leg reads 7 planes (x, diag, 4 off, b) and writes 1 or 2,
@@ -46,8 +54,8 @@
 //   * two fused forms save the V-cycle a pass over a plane each and its eager
 //     launches: MODE_RESTRICT returns the 2x2 block sums of the residual (the
 //     next level's right-hand side; tile origins are even, so a block of four
-//     lies in one warp: the pair sums its two rows, a shuffle adds the
-//     neighbouring column) and never writes r; MODE_PROLONG adds the
+//     lies in one warp: the pair sums its two rows and two shuffles add the
+//     neighbouring column's cells, in restrict2's order) and never writes r; MODE_PROLONG adds the
 //     piecewise-constant prolongation of the coarse x while x is staged.
 // For sweeps > 1 the kernel of the first port stays (rbgs_leg_staged_kernel):
 // all 7 planes staged with a halo of 2*sweeps+1 around a 32x32 tile.
@@ -89,6 +97,25 @@ __device__ __forceinline__ float safe_inv(float d) {
     return fabsf(d) > 1e-30f ? 1.0f / d : 0.0f;
 }
 
+// oE*xE + oW*xW + oN*xN + oS*xS, in the order XLA contracts it.
+__device__ __forceinline__ float stencil_sigma(float oe, float xe, float ow,
+                                              float xw, float on, float xn,
+                                              float os, float xs) {
+    return __fmaf_rn(os, xs, __fmaf_rn(on, xn, __fmaf_rn(oe, xe,
+                                                          __fmul_rn(ow, xw))));
+}
+
+// A relaxed cell: dinv * (b - sigma).
+__device__ __forceinline__ float relaxed(float d, float b, float sigma) {
+    return __fmul_rn(safe_inv(d), __fsub_rn(b, sigma));
+}
+
+// The residual b - (diag*x + sigma), the multiply-add fused.
+__device__ __forceinline__ float residual(float b, float d, float x,
+                                          float sigma) {
+    return __fsub_rn(b, __fmaf_rn(d, x, sigma));
+}
+
 // ---------------------------------------------------------------------
 // rbgs_leg, sweeps = 1.
 
@@ -128,14 +155,14 @@ __device__ __forceinline__ float sigma_at(const float* s_x, int k, int gr,
     const float xw = gc == 0 ? xc : s_x[k - 1];
     const float xn = gr == ny - 1 ? xc : s_x[k + SX];
     const float xs = gr == 0 ? xc : s_x[k - SX];
-    return c.e * xe + c.w * xw + c.n * xn + c.s * xs;
+    return stencil_sigma(c.e, xe, c.w, xw, c.n, xn, c.s, xs);
 }
 
 template <int SX>
 __device__ __forceinline__ void relax_at(float* s_x, int k, int gr, int gc,
                                          int ny, int nx, const Coef& c) {
     const float sigma = sigma_at<SX>(s_x, k, gr, gc, ny, nx, c, s_x[k]);
-    s_x[k] = safe_inv(c.d) * (c.b - sigma);
+    s_x[k] = relaxed(c.d, c.b, sigma);
 }
 
 // One block smooths a tile of TY = 2*PR*NP rows by TX columns with TX*PR
@@ -289,19 +316,21 @@ rbgs_leg_kernel(const float* __restrict__ x, const float* __restrict__ diag,
             const Coef cb = odd ? c0v[p] : c1v[p];
             float res_a = 0.0f, res_b = 0.0f;
             if (in_a)
-                res_a = ca.b - (ca.d * xa + sigma_at<SX>(s_x, ka, ra, gc, ny,
-                                                         nx, ca, xa));
+                res_a = residual(ca.b, ca.d, xa, sigma_at<SX>(
+                    s_x, ka, ra, gc, ny, nx, ca, xa));
             if (in_b)
-                res_b = cb.b - (cb.d * xb + sigma_at<SX>(s_x, ka + SX, ra + 1,
-                                                         gc, ny, nx, cb, xb));
+                res_b = residual(cb.b, cb.d, xb, sigma_at<SX>(
+                    s_x, ka + SX, ra + 1, gc, ny, nx, cb, xb));
             if (MODE == MODE_RESIDUAL) {
                 if (in_a) r_out[g] = res_a;
                 if (in_b) r_out[g + nx] = res_b;
             } else {
                 // Cells outside the grid add zero, as the zero padding of
-                // restrict2 does: (r00 + r10) + (r01 + r11).
-                const float col = res_a + res_b;
-                const float sum = col + __shfl_xor_sync(0xffffffffu, col, 1);
+                // restrict2 does, in the order of XLA's reduce_window:
+                // ((r00 + r10) + r01) + r11.
+                const float r01 = __shfl_xor_sync(0xffffffffu, res_a, 1);
+                const float r11 = __shfl_xor_sync(0xffffffffu, res_b, 1);
+                const float sum = ((res_a + res_b) + r01) + r11;
                 if (!odd && in_a)
                     r_out[(long long)(ra >> 1) * nxc + (gc >> 1)] = sum;
             }
@@ -432,9 +461,9 @@ rbgs_leg_staged_kernel(const float* __restrict__ x,
             const float xw = w_edge ? xc : s_x[k - 1];
             const float xn = n_edge ? xc : s_x[k + sx];
             const float xs = s_edge ? xc : s_x[k - sx];
-            const float sigma = s_e[k] * xe + s_w[k] * xw + s_n[k] * xn
-                + s_s[k] * xs;
-            s_x[k] = safe_inv(s_d[k]) * (s_b[k] - sigma);
+            const float sigma = stencil_sigma(s_e[k], xe, s_w[k], xw,
+                                              s_n[k], xn, s_s[k], xs);
+            s_x[k] = relaxed(s_d[k], s_b[k], sigma);
         }
         __syncthreads();
     }
@@ -457,9 +486,9 @@ rbgs_leg_staged_kernel(const float* __restrict__ x,
             const float xw = gc == 0 ? xc : s_x[s - 1];
             const float xn = gr == ny - 1 ? xc : s_x[s + sx];
             const float xs = gr == 0 ? xc : s_x[s - sx];
-            const float sigma = s_e[s] * xe + s_w[s] * xw + s_n[s] * xn
-                + s_s[s] * xs;
-            r_out[g] = s_b[s] - (s_d[s] * xc + sigma);
+            const float sigma = stencil_sigma(s_e[s], xe, s_w[s], xw,
+                                              s_n[s], xn, s_s[s], xs);
+            r_out[g] = residual(s_b[s], s_d[s], xc, sigma);
         }
     }
 }
@@ -496,9 +525,10 @@ rbgs_half_sweep_kernel(const float* x, const float* __restrict__ diag,
     const float xw = gc == 0 ? xc : load_x<IN_PLACE>(x + g - 1);
     const float xn = gr == ny - 1 ? xc : load_x<IN_PLACE>(x + g + nx);
     const float xs = gr == 0 ? xc : load_x<IN_PLACE>(x + g - nx);
-    const float sigma = __ldg(off + g) * xe + __ldg(off + n_cells + g) * xw
-        + __ldg(off + 2 * n_cells + g) * xn + __ldg(off + 3 * n_cells + g) * xs;
-    x_out[g] = safe_inv(__ldg(diag + g)) * (__ldg(b + g) - sigma);
+    const float sigma = stencil_sigma(
+        __ldg(off + g), xe, __ldg(off + n_cells + g), xw,
+        __ldg(off + 2 * n_cells + g), xn, __ldg(off + 3 * n_cells + g), xs);
+    x_out[g] = relaxed(__ldg(diag + g), __ldg(b + g), sigma);
 }
 
 }  // namespace

@@ -544,7 +544,7 @@ class _GridOps:
                                device=device)
 
     def spmv2(self, diag2, off2, xg):
-        return diag2 * xg + sk._sigma2(off2, xg)
+        return sk.fma(diag2, xg, sk.smoother_sigma(off2, xg))
 
     def smooth_rbgs2(self, diag2, off2, xg, bg, sweeps=1):
         """Red-black Gauss-Seidel on 2D grids (plain stencils)."""
@@ -781,7 +781,8 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
         if level == 2:
             return sk.rbgs_leg(x, diag2, off2, b, restrict_to=coarse)
         x = smooth(x, diag2, off2, b)
-        return x, sk.restrict2(b - (diag2 * x + sk._sigma2(off2, x)), coarse)
+        return x, sk.restrict2(sk.smoother_residual(diag2, off2, x, b),
+                               coarse)
 
     def up_leg(x, diag2, off2, b, xc):
         if level == 2:

@@ -35,6 +35,7 @@ kernel calls per kernel; :func:`reset_launches` zeroes it.  One call of
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -113,28 +114,22 @@ def banded_prolong_add_ref(base, x, idx, alpha: float):
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once, as the card's fused multiply-add rounds
     it: float32 operands are taken through float64, where the product is
-    exact.  Rounding the float64 sum to float32 rounds the exact sum except
-    where the float64 sum lies on a float32 midpoint (the 29 bits under a
-    float32 mantissa: 1, then 0s) or under float32's normal range; there it
-    is rounded to odd first (TwoSum's error picks the odd neighbour), whose
-    float32 rounding is the correctly rounded one.  Other dtypes are
-    computed as they are."""
+    exact, and the float64 sum is rounded to odd (where it is inexact and
+    even, TwoSum's error moves it one step towards the exact sum), whose
+    float32 rounding is the correctly rounded one (float64 holds more than
+    float32's 24 bits plus 2).  Every step is elementwise over the whole
+    tensor, so on a CUDA tensor it never waits for the card.  Other dtypes
+    are computed as they are."""
     if a.dtype != torch.float32:
         return a * b + c
     p = a.double() * b.double()
     c = c.double()
     s = p + c
-    bits = s.view(torch.int64).reshape(-1)
-    near = ((bits & 0x1FFFFFFF == 0x10000000)
-            | (s.reshape(-1).abs() < 2.0 ** -126)).nonzero()[:, 0]
-    if near.numel():
-        pn, cn = p.reshape(-1)[near], c.reshape(-1)[near]
-        sn, bn = s.reshape(-1)[near], bits[near]
-        z = sn - pn
-        err = (pn - (sn - z)) + (cn - z)
-        step = torch.where((err > 0) == (sn > 0), 1, -1)
-        bits[near] = torch.where((err != 0) & (bn & 1 == 0), bn + step, bn)
-    return s.float()
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    even = s.view(torch.int64) & 1 == 0
+    return torch.where((err != 0) & even,
+                       torch.nextafter(s, err * math.inf), s).float()
 
 
 def banded_dot_ref(xs, offs, idx, prods):

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from . import _build
 from ._launch import float_ok, launch
+from .banded_kernels import fma
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"rbgs_leg": 0, "rbgs_half_sweep": 0, "coupled_spmv": 0,
@@ -108,8 +109,22 @@ def dot4(off: torch.Tensor, sh) -> torch.Tensor:
     return off[0] * sh[0] + off[1] * sh[1] + off[2] * sh[2] + off[3] * sh[3]
 
 
-def _sigma2(off2: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
-    return dot4(off2, edge_shifts(xg))
+def smoother_sigma(off2: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+    """oE*xE + oW*xW + oN*xN + oS*xS of the smoother's 5-point stencil as
+    fma(oS, xS, fma(oN, xN, fma(oE, xE, oW*xW))): the form XLA contracts
+    the JAX package's ``_GridOps._sigma2`` into on the main path's grids,
+    which the RB-GS kernels compute with explicit fused multiply-adds
+    (``stencil_sigma`` in csrc/rbgs.cu).  The coupled system's stencils
+    round every product apart (:func:`dot4`, pinned in csrc/stencil.cu)."""
+    e, w, n, s = edge_shifts(xg)
+    return fma(off2[3], s, fma(off2[2], n, fma(off2[0], e, off2[1] * w)))
+
+
+def smoother_residual(diag2, off2, xg, bg) -> torch.Tensor:
+    """b - (diag*x + sigma) with the multiply-add fused, as the leg
+    kernel's residual and XLA's ``b - spmv2(x)`` of the JAX package round
+    it."""
+    return bg - fma(diag2, xg, smoother_sigma(off2, xg))
 
 
 def _dinv(diag: torch.Tensor) -> torch.Tensor:
@@ -126,25 +141,29 @@ def rbgs_leg_ref(xg, diag2, off2, bg, sweeps: int = 1,
                  residual: bool = False):
     """Plain version of :func:`rbgs_leg`: ``_GridOps.smooth_rbgs2``
     (cfd2_tpu/ops/amg.py:719-727) followed, with ``residual``, by
-    ``b - spmv2(x)`` (amg.py:716)."""
+    ``b - spmv2(x)`` (amg.py:716), in the kernel's arithmetic (which is
+    XLA's: :func:`smoother_sigma`)."""
     color = _color2(*xg.shape, xg.device)
     dinv = _dinv(diag2)
     for _ in range(sweeps):
         for c in (0, 1):
-            xn = dinv * (bg - _sigma2(off2, xg))
+            xn = dinv * (bg - smoother_sigma(off2, xg))
             xg = torch.where(color == c, xn, xg)
     if residual:
-        return xg, bg - (diag2 * xg + _sigma2(off2, xg))
+        return xg, smoother_residual(diag2, off2, xg, bg)
     return xg
 
 
 def restrict2(rg: torch.Tensor, coarse_grid) -> torch.Tensor:
     """2x2 block sums of an (ny, nx) grid, zero-padded to an even grid:
-    ``_GridOps.restrict2`` (cfd2_tpu/ops/amg.py)."""
+    ``_GridOps.restrict2`` (cfd2_tpu/ops/amg.py), added in the order XLA's
+    ``reduce_window`` adds them, ((r00 + r10) + r01) + r11 (row, column
+    within the block), which the leg kernel's restriction keeps too."""
     nyc, nxc = coarse_grid
     ny, nx = rg.shape
     rg = F.pad(rg, (0, 2 * nxc - nx, 0, 2 * nyc - ny))
-    return rg.reshape(nyc, 2, nxc, 2).sum(dim=(1, 3))
+    return (((rg[0::2, 0::2] + rg[1::2, 0::2]) + rg[0::2, 1::2])
+            + rg[1::2, 1::2])
 
 
 def prolong2(xcg: torch.Tensor, fine_grid) -> torch.Tensor:
@@ -164,7 +183,7 @@ def rbgs_half_sweep_ref(xg, diag2, off2, bg, parity: int):
     """Plain version of :func:`rbgs_half_sweep`: one colour of
     ``_GridOps.smooth_rbgs`` (cfd2_tpu/ops/amg.py:639-646) — cells with
     ``(row + col + parity) % 2 == 0`` are relaxed, the rest copied."""
-    xn = _dinv(diag2) * (bg - _sigma2(off2, xg))
+    xn = _dinv(diag2) * (bg - smoother_sigma(off2, xg))
     upd = (_color2(*xg.shape, xg.device) + parity) % 2 == 0
     return torch.where(upd, xn, xg)
 

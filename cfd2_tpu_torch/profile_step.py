@@ -81,7 +81,7 @@ _GROUPS = (
 )
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
     low = name.lower()
     for frag, label in _GROUPS:
         if frag.lower() in low:
@@ -89,9 +89,15 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _busy_us(events) -> float:
+def busy_us(events) -> float:
     """Union length of [start, end) device intervals, in microseconds."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
+    return union_length((e.time_range.start, e.time_range.end)
+                        for e in events)
+
+
+def union_length(intervals) -> float:
+    """Union length of [start, end) intervals, in their unit."""
+    iv = sorted(intervals)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in iv:
         if cur_e is None or s > cur_e:
@@ -194,14 +200,14 @@ def main(argv=None) -> int:
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_us(kernels) * 1e-6
+    busy = busy_us(kernels) * 1e-6
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.end - e.time_range.start
         by_name[e.name][1] += 1
     by_group = defaultdict(lambda: [0.0, 0])
     for name, (us, cnt) in by_name.items():
-        g = by_group[_group(name)]
+        g = by_group[kernel_group(name)]
         g[0] += us
         g[1] += cnt
     n_lin = sum(r["linear_iters_total"] for r in rows)

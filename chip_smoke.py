@@ -49,8 +49,9 @@ Phases (any failure exits non-zero):
    FGMRES iteration, ``coupled_spmv`` once per matvec (the iterations' and
    the true residuals'), ``schur_rhs`` and ``pressure_gradient`` once and
    ``momentum_jacobi`` twice per FGMRES iteration, and the timed
-   steps' FGMRES iterations those recorded with the stencils as eager
-   PyTorch (90, 57, 28: bit-equal kernels keep them);
+   steps' FGMRES iterations those recorded since the RB-GS kernels took
+   the JAX package's rounding (90, 58, 23; 90, 57, 28 before, with the
+   stencils as eager PyTorch too: bit-equal kernels keep them);
 4. the half-sweep path (CFD2_PALLAS=1) at full width: phase 3's solver
    restarted from its state after healing for 2 steps, with the outer
    iterations of phase 3's first two timed steps and their FGMRES
@@ -99,7 +100,7 @@ Phases (any failure exits non-zero):
    above the JAX package's 12 MiB rule); then the first step again from
    rest with the momentum predict patched back to one dot per sweep: equal
    outer and FGMRES counts, max|du|/max|u| logged;
-   (b) block-Jacobi (precond_type=2, fgmres_max_restarts=5) for one step on
+   (b) block-Jacobi (precond_type=2, fgmres_max_restarts=1) for one step on
    phase 3's developed 1M state and on phase 6's Delaunay solver (whose
    gather must launch ``banded_gather``); (c) card against CPU, one step
    each: the multilevel 0.01/0.04 mesh (8,817 cells; it also launches
@@ -156,10 +157,12 @@ Phases (any failure exits non-zero):
    bf16 preconditioner, the mixed phase, the ADI predict, recycling across
    outers, Anderson mixing, two steps recycling across steps through
    ``step(..., krylov=)``, one step under ``CFD2_PALLAS=1`` and block-Jacobi
-   cut to 10 outers by ``n_outer_correctors=1``), each against the same run
-   in one process and beside a one-rank control (one process, the norms
+   cut to 10 outers by ``n_outer_correctors=1`` and to one restart cycle an
+   outer), each against the same run in one process (taken while the ranks
+   run) and beside a one-rank control (one process, the norms
    summed as the ranks sum them): equal counts on every rank; with one
-   process's outer and FGMRES counts u within 1e-4 * max|u|, and where a
+   process's outer and FGMRES counts u within 1e-4 * max|u| (the run
+   recycling across steps within ``RECYCLE_BOUND`` * max|u|), and where a
    solve or the outer loop ended on another iteration outers within 1,
    FGMRES iterations within 2 per outer and u within 5e-3 * max|u|;
    ``rbgs_leg`` launched on every rank of every run through the structured
@@ -232,18 +235,43 @@ Phases (any failure exits non-zero):
    and ``banded_jacobi_sweeps`` launched; (c) ``prof_precond`` at 1M (7
    variants) and ``prof_amg_variants`` at 403k (8 variants, with the
    V-cycle's contraction); (d) ``bf16_smoke`` at 0.005 (the four bf16
-   combinations, 5 timed steps each); (e) ``probe_cavity`` at its defaults
-   on the card and on the CPU: the Ghia error within 0.06 on the card and
-   within 1e-3 of the CPU's; (f) ``stiff_water_x64`` (the water step with
-   float64 norms, 50 steps): finite, max|u| within 1e-3 (relative) of
-   ``STIFF_X64.json``'s; (g) the row-sharded aggregation fallback
-   (``tests/torch_spatial_ranks.FALLBACK``: the 0.05 channel with the
-   aggregation hierarchy, the 0.25 channel with none) on 4 gloo ranks
-   sharing the card against one process on the card: equal counts, u
-   within 1e-5, the replicated V-cycle's all-gathers and banded kernels.
+   combinations, 2 timed steps each); (e) ``probe_cavity`` at its defaults
+   on the card and on the CPU (in a process of its own, at the same time):
+   the Ghia error within 0.06 on the card and within 1e-3 of the CPU's;
+   (f) ``stiff_water_x64`` (the water step with float64 norms, 50 steps):
+   finite, max|u| within 1e-3 (relative) of ``STIFF_X64.json``'s; (g) the
+   row-sharded aggregation fallback (``tests/torch_spatial_ranks.FALLBACK``:
+   the 0.05 channel with the aggregation hierarchy, the 0.25 channel with
+   none) on 4 gloo ranks sharing the card against one process on the card:
+   equal counts, u within 1e-5, the replicated V-cycle's all-gathers and
+   banded kernels.
+16. the profiling tools of ``cfd2_tpu_torch/tools/`` (the JAX package's
+   ``tools/prof_*.py`` and ``probe_bf16.py``), each in process with every
+   kernel's launch count zeroed just before and read just after, each
+   phase of a tool timed as host wall to a synchronisation beside the
+   device's busy time: (a) ``prof_developed`` on ``bench_developed_1m.npz``
+   at 0.0017 (its first three timed steps take phase 3's counts); (b)
+   ``prof_outer`` from rest at 0.0017; (c) ``prof_banded2`` and (d)
+   ``prof_banded`` on phase 6's 403,491-cell Delaunay mesh (the solve of
+   (c) converges); (e) ``prof_refined_developed`` on the developed 1M
+   Delaunay state (phase 13(b)'s); (f) ``prof_fgmres`` at 0.0017
+   (``fgmres30`` runs 30 iterations); (g) ``prof_fgmres_loop`` (exactly 30
+   and 50 iterations); (h) ``prof_trace`` (one traced host-mode step); (i)
+   ``prof_layout`` and (j) ``probe_bf16`` at 589x1765.  Every part whose
+   path runs a hand kernel launched it.
 
-Then the kernels' JSON line, the script's total wall and the result line are
-printed.
+The phases run in the order of ``RUN_ORDER``: 14 after 5, while phase 6's
+mesh is made in the background, and 13 after 15, by when its Voronoi mesh,
+the slowest, is made too.  Work that needs no other phase's result runs
+beside the card's: the CPU halves of 14(d) and 15(e) in spawned processes,
+phase 11's two app subprocesses together, 12(a)'s one-process references
+while the ranks run, and 12(e)'s groups all at once.  Their walls are logged,
+never compared.
+
+Then a ``# KNOWN OPEN:`` line for each step that a phase logs beside a JAX
+record without holding it there and that misses the record's bound (phase
+10(a)'s step 2), the kernels' JSON line, the script's total wall and the
+result line are printed.
 
 ``--phases 1,2`` runs only the listed phases (for bring-up: ``1,3,9`` runs
 phase 9 on the 1M state alone, leaving out its Delaunay run); the result
@@ -277,6 +305,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -296,7 +325,8 @@ BANDED_PALLAS = "cfd2_tpu/ops/banded_gather.py"
 # Phase 10: the refined quadtree mesh on the multilevel layout.
 MULTILEVEL_CELL, MULTILEVEL_CELLS = (0.0025, 0.005), 132_080
 MULTILEVEL_GRIDS = ((400, 1200), (200, 600))
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16}
+RUN_ORDER = (1, 2, 3, 4, 5, 14, 6, 7, 8, 9, 10, 11, 12, 15, 13, 16)
 # Phase 11: the app at full width (the main path's mesh, smoothed as the
 # app smooths it) and on a Delaunay mesh, as subprocesses of the CLI.
 APP_MAIN = ("--geometry", "channel", "--cell-size", "0.0017", "--precond",
@@ -325,7 +355,8 @@ SHARD_OPTION_RUNS = (
     ("anderson_depth=2", dict(anderson_depth=2), 1, None),
     ("fgmres_recycle=2", dict(fgmres_recycle=2), 2, None),
     ("CFD2_PALLAS=1", {}, 1, "1"),
-    ("precond_type=2", dict(precond_type=2, n_outer_correctors=1), 1, None),
+    ("precond_type=2", dict(precond_type=2, n_outer_correctors=1,
+                            fgmres_max_restarts=1), 1, None),
 )
 # Phase 9: one step of each SolverConfig option on the developed 1M state
 # and on the small meshes (the Delaunay ones take those that act on the
@@ -480,7 +511,23 @@ def _ptxas_summary(out, fragment):
     return rows
 
 
-def phase_build():
+def phase_build_native():
+    """The native mesh library, which the background meshes need."""
+    # The native mesh library: Poisson-disk sampling and the greedy
+    # aggregation scan.  Their pure-Python fallbacks would not finish the
+    # 400k-cell mesh in minutes, so a failed build fails here, at once.
+    from cfd2_tpu_torch.mesh import native
+    t0 = time.time()
+    # Always rebuilt: the library is compiled for the machine it is built on.
+    how = native.build(rebuild=True)   # raises with the compiler's output
+    check(native.available(), "native/libmeshkern.so built but did not load")
+    log(f"phase 1: native mesh library {how} in {time.time() - t0:.1f} s "
+        "(sampler: native meshkern_poisson_disk; aggregation: native "
+        "meshkern_amg_aggregate)")
+
+
+def phase_build_kernels():
+    """Every kernel library of cfd2_tpu_torch/csrc, built and loaded."""
     from cfd2_tpu_torch.ops import _build
     t0 = time.time()
     outs = _build.build_all(extra_flags=("-Xptxas", "-v"))
@@ -496,18 +543,6 @@ def phase_build():
         _build.load(name)
     log(f"phase 1: built {sorted(_build.SIGNATURES)} in "
         f"{time.time() - t0:.1f} s")
-
-    # The native mesh library: Poisson-disk sampling and the greedy
-    # aggregation scan.  Their pure-Python fallbacks would not finish the
-    # 400k-cell mesh in minutes, so a failed build fails here, at once.
-    from cfd2_tpu_torch.mesh import native
-    t0 = time.time()
-    # Always rebuilt: the library is compiled for the machine it is built on.
-    how = native.build(rebuild=True)   # raises with the compiler's output
-    check(native.available(), "native/libmeshkern.so built but did not load")
-    log(f"phase 1: native mesh library {how} in {time.time() - t0:.1f} s "
-        "(sampler: native meshkern_poisson_disk; aggregation: native "
-        "meshkern_amg_aggregate)")
 
 
 def _grid_system(ny, nx, seed, device):
@@ -958,6 +993,14 @@ def _leg_forms(sk):
     return fused, planar, forms
 
 
+def _leg_tol(sk):
+    """The RB-GS kernels' bound against their plain versions.  Both share
+    one arithmetic (nvcc's and XLA's contracted multiply-adds, restrict2's
+    order of the block sums): max-abs 0.  A --tree of an earlier round,
+    whose plain versions rounded every product apart, keeps TOL."""
+    return 0.0 if hasattr(sk, "smoother_sigma") else TOL
+
+
 def _hold_legs(phase, sk, cases):
     """rbgs_leg (sweeps 1 and 2, with and without residual), its fused
     forms and rbgs_half_sweep against their plain versions on random
@@ -966,6 +1009,7 @@ def _hold_legs(phase, sk, cases):
     the launches made here off the counts."""
     import torch
     _, planar, forms = _leg_forms(sk)
+    tol = _leg_tol(sk)
     err_leg = err_fused = err_half = 0.0
     for ci, (ny, nx) in enumerate(cases):
         diag2, off2, x, b = _grid_system(ny, nx, ci, "cuda")
@@ -995,12 +1039,12 @@ def _hold_legs(phase, sk, cases):
         + f"; max-abs error leg {err_leg:.3e} (sweeps 1 and 2, with and "
         f"without residual), fused legs {err_fused:.3e} (restricted "
         f"residual, prolongation added), half-sweep {err_half:.3e} "
-        f"(tolerance {TOL:g})")
-    check(err_leg <= TOL, f"rbgs_leg disagrees with its plain version: "
+        f"(tolerance {tol:g})")
+    check(err_leg <= tol, f"rbgs_leg disagrees with its plain version: "
           f"{err_leg:.3e}")
-    check(err_fused <= TOL, f"a fused form of rbgs_leg disagrees with the "
+    check(err_fused <= tol, f"a fused form of rbgs_leg disagrees with the "
           f"plain leg and grid transfer: {err_fused:.3e}")
-    check(err_half <= TOL, f"rbgs_half_sweep disagrees with its plain "
+    check(err_half <= tol, f"rbgs_half_sweep disagrees with its plain "
           f"version: {err_half:.3e}")
     return err_leg, err_fused, err_half
 
@@ -1075,6 +1119,18 @@ def phase_kernels(results):
     half_call, half_ref = _half_sweep_call(sk, x, diag2, off2, b, 0)
     half_ms, half_read = both_flushes_ms(half_call, 50)
     half_plain = cuda_time_ms(half_ref)
+    # The timing inputs themselves, held as _hold_legs holds its grids.
+    err_main = _maxerr(_leg(sk, down, x, diag2, off2, b, xc),
+                       _leg(sk, down, x, diag2, off2, b, xc, plain=True))
+    err_half_main = float((half_call() - half_ref()).abs().max())
+    torch.cuda.synchronize()
+    log(f"phase 2: on the {ny}x{nx} timing inputs max-abs error {down} leg "
+        f"{err_main:.3e}, half-sweep {err_half_main:.3e} (tolerance "
+        f"{_leg_tol(sk):g})")
+    check(err_main <= _leg_tol(sk) and err_half_main <= _leg_tol(sk),
+          f"on the timing inputs rbgs_leg errs {err_main:.3e} and "
+          f"rbgs_half_sweep {err_half_main:.3e}")
+    err_leg, err_half = max(err_leg, err_main), max(err_half, err_half_main)
     # Reads x, diag, off (4 planes), b; writes x.  Half the cells do 10
     # flops.
     half_bound, half_by = bound_ms(8 * 4 * n, 5 * n)
@@ -1128,9 +1184,12 @@ STENCIL_REPLACES = {
     "pressure_gradient": "cfd2_tpu/ops/stencil_system.py:345",
 }
 STENCIL_GRIDS = ((7, 19), (37, 53), (300, 128), MAIN_GRID)
-# Phase 3's timed steps' FGMRES iterations with the stencils as eager
-# PyTorch (every recorded run on an H100): bit-equal kernels keep them.
-EAGER_TIMED_LIN = (90, 57, 28)
+# Phase 3's timed steps' FGMRES iterations on an H100 since the RB-GS
+# kernels round as XLA rounds the JAX package's smoother (contracted
+# multiply-adds, restrict2's order of the block sums).  Before, in every
+# recorded run, with the stencils as eager PyTorch or as their bit-equal
+# kernels: 90, 57, 28.
+TIMED_LIN = (90, 58, 23)
 
 
 def _tests_module(name):
@@ -1489,11 +1548,10 @@ def phase_main(results, ctx):
     _check_stencil_rates(3, counts, lin_total, ms, False, matvecs[0])
     lins = tuple(lin for _, lin in timed)
     log(f"phase 3: timed steps' outers {[o for o, _ in timed]} and FGMRES "
-        f"iterations {list(lins)}; with the eager stencils, recorded: "
-        f"FGMRES iterations {list(EAGER_TIMED_LIN)}")
-    check(lins == EAGER_TIMED_LIN, f"timed FGMRES iterations {lins} != "
-          f"the eager stencils' {EAGER_TIMED_LIN}: the stencil kernels "
-          "changed the path's arithmetic")
+        f"iterations {list(lins)}; recorded: FGMRES iterations "
+        f"{list(TIMED_LIN)}")
+    check(lins == TIMED_LIN, f"timed FGMRES iterations {lins} != the "
+          f"recorded {TIMED_LIN}: a kernel changed the path's arithmetic")
 
 
 def _check_stencil_rates(phase, counts, lin, ms, sharded, matvecs=None):
@@ -1971,13 +2029,13 @@ def _step2_input(s, ctx):
 
 def phase_delaunay(results, ctx):
     import torch
-    from cfd2_tpu_torch import generate_delaunay_mesh
+    from cfd2_tpu_torch.tools import mesh_cache
 
     t0 = time.time()
-    mesh = generate_delaunay_mesh(_obstacle_geo(), DELAUNAY_MIN_CELL,
-                                  DELAUNAY_MIN_CELL, 1.2, (3.0, 1.0))
+    _wait_mesh(ctx, "phase 6")
+    mesh = mesh_cache.get_mesh("delaunay", DELAUNAY_MIN_CELL)
     log(f"phase 6: Delaunay mesh {mesh.num_cells} cells in "
-        f"{time.time() - t0:.1f} s")
+        f"{time.time() - t0:.1f} s (made in the background since phase 1)")
     check(mesh.num_cells == DELAUNAY_CELLS,
           f"mesh has {mesh.num_cells} cells, expected {DELAUNAY_CELLS}")
     t0 = time.time()
@@ -2024,13 +2082,13 @@ def phase_delaunay(results, ctx):
           f"{L} per FGMRES iteration and the assembly's")
 
 
-def phase_voronoi(results):
+def phase_voronoi(results, ctx):
     import torch
-    from cfd2_tpu_torch import generate_voronoi_mesh
+    from cfd2_tpu_torch.tools import mesh_cache
 
     t0 = time.time()
-    mesh = generate_voronoi_mesh(_obstacle_geo(), VORONOI_MIN_CELL,
-                                 VORONOI_MIN_CELL, 1.2, (3.0, 1.0))
+    _wait_mesh(ctx, "phase 7")
+    mesh = mesh_cache.get_mesh("voronoi", VORONOI_MIN_CELL)
     log(f"phase 7: Voronoi mesh {mesh.num_cells} cells in "
         f"{time.time() - t0:.1f} s")
     check(mesh.num_cells == VORONOI_CELLS,
@@ -2287,7 +2345,7 @@ def _refined(min_cell, max_cell):
                                   (3.0, 1.0))
 
 
-def phase_multilevel(results):
+def phase_multilevel(results, ctx):
     """10(a): the refined quadtree mesh on the multilevel layout."""
     import torch
     from cfd2_tpu_torch.ops.amg import MultilevelAmg
@@ -2326,9 +2384,17 @@ def phase_multilevel(results):
     counts = {k: counts[k] + counts2[k] for k in counts}
     _log_run("multilevel", rows, counts, phase="10a")
     # Steps 0-1 are held to the JAX record (the card met it in every run
-    # since PR 12); its step 2 is not recorded.
-    _beside_record("10a", "refined_132k_rest",
-                   [(o, sum(its)) for o, its, _, _ in rows], enforce=True)
+    # since PR 12); step 2 is logged beside it and a miss is reported as
+    # known open at the end of the run: card and CPU end it apart (ROADMAP
+    # Queue 3, open check 1).
+    steps = [(o, sum(its)) for o, its, _, _ in rows]
+    _beside_record("10a", "refined_132k_rest", steps[:2], enforce=True)
+    missed = _beside_record("10a", "refined_132k_rest", steps[2:], first=2)
+    if missed:
+        ctx.setdefault("known_open", []).append(
+            f"phase 10a: refined_132k_rest steps {missed} card "
+            f"{[steps[i] for i in missed]} (outers, FGMRES iterations) miss "
+            "the bound of the JAX record (ROADMAP Queue 3, open check 1)")
     lin_total = sum(sum(its) for _, its, _, _ in rows)
     per_apply = 2 * len(hier.fine.levels)
     for name in ("rbgs_leg", "banded_dot", "banded_gather"):
@@ -2440,7 +2506,10 @@ def phase_block(results, ctx):
     for label, s, state, params, kernels in runs:
         base = s.config
         s.state, s.params, s._krylov = state, params, None
-        s.config = replace(base, precond_type=2, fgmres_max_restarts=5,
+        # One restart cycle (50 iterations) an outer: neither step
+        # converges at full width within 5 either, and the launches are
+        # what is checked.
+        s.config = replace(base, precond_type=2, fgmres_max_restarts=1,
                            fgmres_basis_bf16=False, fgmres_recycle=0)
         try:
             rows, counts = _timed_steps(s, 1)
@@ -2569,7 +2638,7 @@ def phase_generic_cpu_match():
 
 
 def phase_generic(results, ctx):
-    for part, fn in (("a", lambda: phase_multilevel(results)),
+    for part, fn in (("a", lambda: phase_multilevel(results, ctx)),
                      ("b", lambda: phase_block(results, ctx)),
                      ("c", phase_generic_cpu_match)):
         t0 = time.time()
@@ -2581,23 +2650,42 @@ def phase_generic(results, ctx):
 # Phase 11: the application layer.
 
 
-def _run_app(label, args, timeout=600):
-    """``python -m cfd2_tpu_torch.app --device cuda ARGS`` as a
-    subprocess of this checkout (it reuses phase 1's kernel build); returns
-    its parsed output: the mesh and layout lines, one dict per step line,
-    the kernel launches, host reads, the final-state line and the
-    profiling report."""
-    import re
+def _start_app(args):
+    """``python -m cfd2_tpu_torch.app --device cuda ARGS`` started as a
+    subprocess of this checkout (it reuses phase 1's kernel build), its
+    output going to temporary files: (process, stdout, stderr, start)."""
+    import tempfile
     cmd = [sys.executable, "-m", "cfd2_tpu_torch.app", "--device", "cuda",
            *args]
-    t0 = time.time()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout)
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    return (subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err),
+            out, err, time.time())
+
+
+def _stop_app(app):
+    proc, out, err, _ = app
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    out.close()
+    err.close()
+
+
+def _run_app(label, app, timeout=600):
+    """The app ``app`` of :func:`_start_app` run to its end; returns its
+    parsed output: the mesh and layout lines, one dict per step line, the
+    kernel launches, host reads, the final-state line and the profiling
+    report."""
+    import re
+    proc, out, err, t0 = app
+    proc.wait(timeout=max(timeout - (time.time() - t0), 1))
     wall = time.time() - t0
-    check(out.returncode == 0,
-          f"{label}: the app exited {out.returncode}:\n"
-          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    text = out.stdout
+    out.seek(0)
+    err.seek(0)
+    text, stderr = out.read(), err.read()
+    check(proc.returncode == 0,
+          f"{label}: the app exited {proc.returncode}:\n"
+          f"{text[-3000:]}\n{stderr[-3000:]}")
     num = r"([-+0-9.eE]+|nan|inf)"
     steps = []
     for m in re.finditer(
@@ -2622,7 +2710,7 @@ def _run_app(label, args, timeout=600):
                 steps=steps, launches=json.loads(launches.group(1)),
                 reads=int(reads.group(1)), final=final.group(0),
                 finite=final.group(1) == "True", report=report, wall=wall,
-                stderr=out.stderr)
+                stderr=stderr)
 
 
 def _log_app(part, label, run):
@@ -2641,10 +2729,10 @@ def _log_app(part, label, run):
         + "\n  ".join(top))
 
 
-def phase_app_main(results):
+def phase_app_main(results, app):
     """11(a): the app at full width: the 996,558-cell channel smoothed as
     the app smooths it, from the app's inlet-column start, AMG."""
-    run = _run_app("app", APP_MAIN)
+    run = _run_app("app", app)
     _log_app("a", "the app at full width", run)
     grids, _ = level_grids(*MAIN_GRID)
     check(run["cells"] == MAIN_CELLS, f"app mesh has {run['cells']} cells")
@@ -2832,9 +2920,9 @@ def phase_app_sweep(ctx):
           "the two viscosities gave the same field")
 
 
-def phase_app_delaunay(results):
+def phase_app_delaunay(results, app):
     """11(e): the app on a Delaunay mesh: the three banded kernels."""
-    run = _run_app("app on a Delaunay mesh", APP_DELAUNAY)
+    run = _run_app("app on a Delaunay mesh", app)
     _log_app("e", "the app on a Delaunay mesh", run)
     check(run["layout"] == "generic (banded)",
           f"the Delaunay app mesh took the {run['layout']} layout")
@@ -2894,15 +2982,23 @@ def phase_app_live():
 
 
 def phase_app(results, ctx):
-    for part, fn in (("a", lambda: phase_app_main(results)),
-                     ("b", phase_app_trace),
-                     ("c", lambda: phase_app_forces(ctx)),
-                     ("d", lambda: phase_app_sweep(ctx)),
-                     ("e", lambda: phase_app_delaunay(results)),
-                     ("f", phase_app_live)):
-        t0 = time.time()
-        fn()
-        log(f"# phase 11{part} done in {time.time() - t0:.1f} s")
+    # The two app runs of (a) and (e) start together, beside the in-process
+    # parts: their walls are logged and compared with nothing.
+    apps = {"a": _start_app(APP_MAIN), "e": _start_app(APP_DELAUNAY)}
+    try:
+        for part, fn in (("a", lambda: phase_app_main(results, apps["a"])),
+                         ("b", phase_app_trace),
+                         ("c", lambda: phase_app_forces(ctx)),
+                         ("d", lambda: phase_app_sweep(ctx)),
+                         ("e", lambda: phase_app_delaunay(results,
+                                                          apps["e"])),
+                         ("f", phase_app_live)):
+            t0 = time.time()
+            fn()
+            log(f"# phase 11{part} done in {time.time() - t0:.1f} s")
+    finally:
+        for app in apps.values():
+            _stop_app(app)
 
 
 # ----------------------------------------------------------------------
@@ -3062,6 +3158,9 @@ def _p12_rank(rank, world, device, path):
     from cfd2_tpu_torch.runtime.checkpoint import (save_checkpoint,
                                                    save_checkpoint_dcp)
     from cfd2_tpu_torch.runtime.state import SolverState
+    # The ranks start while this script's own process may hold
+    # CFD2_PALLAS=1 for one of its references: each run sets its own.
+    os.environ.pop("CFD2_PALLAS", None)
     with open(path / "inputs.pkl", "rb") as f:
         inp = pickle.load(f)
     dm, amg, state0, params, config = (inp[k] for k in (
@@ -3220,19 +3319,16 @@ def _failure_summary(msg: str) -> str:
     return " | ".join(parts)
 
 
-def _gloo_cuda_probe() -> dict:
-    """Which gloo collectives take CUDA tensors here, each in a group of
-    its own (a rank that aborts takes only its own op down)."""
+def _gloo_cuda_probe(op: str) -> str:
+    """Whether the gloo collective ``op`` takes CUDA tensors here, in a
+    group of its own (a rank that aborts takes only its own op down)."""
     from cfd2_tpu_torch.parallel.launch import run_ranks
-    out = {}
-    for op in ("all_reduce", "broadcast", "all_gather", "isend/irecv"):
-        try:
-            got = run_ranks(_p12_gloo_probe, 2, device="cuda", timeout=90,
-                            args=(op,), collective_timeout=30)[0]
-            out[op] = f"ok, {got}"
-        except RuntimeError as e:
-            out[op] = f"fails: {_failure_summary(str(e))}"[:300]
-    return out
+    try:
+        got = run_ranks(_p12_gloo_probe, 2, device="cuda", timeout=150,
+                        args=(op,), collective_timeout=90)[0]
+        return f"ok, {got}"
+    except RuntimeError as e:
+        return f"fails: {_failure_summary(str(e))}"[:300]
 
 
 def _padded_developed(dm, path):
@@ -3330,45 +3426,6 @@ def phase_sharded_main(results, ctx, path):
         f"{int(state0.outer_iters)} outers, "
         f"{int(state0.linear_iters_total)} FGMRES iterations")
 
-    one, wall1, leg1, _, _, _ = _timed(
-        lambda: step(dm, state0, params, config, amg))
-    # Two adaptive runs: from the step's dt, where dt = 0.5 h / max|u|
-    # decides each step, and from dt 1e-4, where the 1.2x growth limit
-    # decides both, the regime of the JAX package's sharded test
-    # (tests/test_structured.py:162-209).
-    adaptive = {}
-    for kind, dt0 in (("adaptive", None), ("adaptive, dt capped", 1e-4)):
-        p0 = params if dt0 is None else replace(
-            params, dt=torch.full_like(params.dt, dt0))
-        (one2, _, m1), wall2, _, _, _, _ = _timed(
-            lambda: multi_step_adaptive(dm, state0, p0, config, 2, 0.5,
-                                        0.0017, amg))
-        adaptive[kind] = (one2, m1)
-    refs = [step(dm, state0, replace(params, viscosity=torch.tensor(
-        nu, dtype=torch.float32, device=dm.device)), config, amg)
-        for nu in SHARD_VISCOSITIES]
-    t0 = time.time()
-    opt_refs = {label: _timed_option(dm, state0, params, config, amg, opts,
-                                     steps, pallas)
-                for label, opts, steps, pallas in SHARD_OPTION_RUNS}
-    log(f"phase 12f: one process, every option in {time.time() - t0:.1f} s: "
-        + "; ".join(f"{k}: outers {r['outer']}, FGMRES iterations "
-                    f"{r['lin']}, wall {r['wall']:.3f} s"
-                    for k, r in opt_refs.items()))
-    # The control: each option in one process with a one-rank
-    # decomposition, which changes nothing but how the norms are summed.
-    ctl = [sp.shard_mesh(dm, one_rank), sp.shard_state(dm, state0, one_rank),
-           sp.shard_cellwise(params, dm.num_cells, one_rank), config,
-           sp.shard_cellwise(amg, dm.num_cells, one_rank)]
-    controls = {label: _timed_option(*ctl, opts, steps, pallas)
-                for label, opts, steps, pallas in SHARD_OPTION_RUNS}
-    ops_ref = _full_width_operators(dm, state0, params, config, amg)
-    log(f"phase 12a: one process: step outers {int(one.outer_iters)}, "
-        f"FGMRES iterations {int(one.linear_iters_total)}, wall "
-        f"{wall1:.3f} s, rbgs_leg {leg1}; " + "; ".join(
-            f"{k}: outers {m['outer_iters'].tolist()}, dt "
-            f"{m['dt'].tolist()}" for k, (_, m) in adaptive.items()))
-
     t0 = time.time()
     with open(path / "inputs.pkl", "wb") as f:
         pickle.dump(dict(mesh=_moved(dm, "cpu"), amg=_moved(amg, "cpu"),
@@ -3377,10 +3434,55 @@ def phase_sharded_main(results, ctx, path):
                     protocol=pickle.HIGHEST_PROTOCOL)
     log(f"phase 12a: rank inputs written in {time.time() - t0:.1f} s "
         f"({(path / 'inputs.pkl').stat().st_size / 2**20:.0f} MiB)")
-    t0 = time.time()
-    res = run_ranks(_p12_rank, SHARD_WORLD, device="cuda", timeout=900,
-                    args=(path,), collective_timeout=300)
-    log(f"phase 12a: {SHARD_WORLD} ranks in {time.time() - t0:.1f} s "
+    # The ranks run while this process takes the references they are held
+    # to; its walls, taken beside the ranks' work on the card, are logged
+    # and compared with nothing.
+    t_ranks = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_ranks, _p12_rank, SHARD_WORLD, device="cuda",
+                            timeout=900, args=(path,),
+                            collective_timeout=300)
+        one, wall1, leg1, _, _, _ = _timed(
+            lambda: step(dm, state0, params, config, amg))
+        # Two adaptive runs: from the step's dt, where dt = 0.5 h / max|u|
+        # decides each step, and from dt 1e-4, where the 1.2x growth limit
+        # decides both, the regime of the JAX package's sharded test
+        # (tests/test_structured.py:162-209).
+        adaptive = {}
+        for kind, dt0 in (("adaptive", None), ("adaptive, dt capped", 1e-4)):
+            p0 = params if dt0 is None else replace(
+                params, dt=torch.full_like(params.dt, dt0))
+            (one2, _, m1), wall2, _, _, _, _ = _timed(
+                lambda: multi_step_adaptive(dm, state0, p0, config, 2, 0.5,
+                                            0.0017, amg))
+            adaptive[kind] = (one2, m1)
+        refs = [step(dm, state0, replace(params, viscosity=torch.tensor(
+            nu, dtype=torch.float32, device=dm.device)), config, amg)
+            for nu in SHARD_VISCOSITIES]
+        t0 = time.time()
+        opt_refs = {label: _timed_option(dm, state0, params, config, amg, opts,
+                                         steps, pallas)
+                    for label, opts, steps, pallas in SHARD_OPTION_RUNS}
+        log(f"phase 12f: one process, every option in "
+            f"{time.time() - t0:.1f} s: " + "; ".join(
+                f"{k}: outers {r['outer']}, FGMRES iterations {r['lin']}, "
+                f"wall {r['wall']:.3f} s" for k, r in opt_refs.items()))
+        # The control: each option in one process with a one-rank
+        # decomposition, which changes nothing but how the norms are summed.
+        ctl = [sp.shard_mesh(dm, one_rank),
+               sp.shard_state(dm, state0, one_rank),
+               sp.shard_cellwise(params, dm.num_cells, one_rank), config,
+               sp.shard_cellwise(amg, dm.num_cells, one_rank)]
+        controls = {label: _timed_option(*ctl, opts, steps, pallas)
+                    for label, opts, steps, pallas in SHARD_OPTION_RUNS}
+        ops_ref = _full_width_operators(dm, state0, params, config, amg)
+        log(f"phase 12a: one process: step outers {int(one.outer_iters)}, "
+            f"FGMRES iterations {int(one.linear_iters_total)}, wall "
+            f"{wall1:.3f} s, rbgs_leg {leg1}; " + "; ".join(
+                f"{k}: outers {m['outer_iters'].tolist()}, dt "
+                f"{m['dt'].tolist()}" for k, (_, m) in adaptive.items()))
+        res = ranks.result()
+    log(f"phase 12a: {SHARD_WORLD} ranks in {time.time() - t_ranks:.1f} s "
         f"(spawn and set-up included); transport: {res[0]['transport']}; "
         f"V-cycle levels below {res[0]['split']} sharded")
 
@@ -3417,8 +3519,11 @@ def phase_sharded_main(results, ctx, path):
             f"{res[0][kind]['max_vel'].tolist()}, max diff {mverr:.3e}")
         if kind == "adaptive":
             # dt = 0.5 h / max|u|: the first from the same start state,
-            # each later one as far apart as the max|u| it reads.
-            check(dterr <= float((dt1 * mverr / mv1).max()) * 1.01 + 1e-12
+            # each later one as far apart as the max|u| it reads, and each
+            # of the two rounded to float32 (half a unit in the last place
+            # of dt each).
+            ulp = float(np.spacing(dt1.astype(np.float32)).max())
+            check(dterr <= float((dt1 * mverr / mv1).max()) * 1.01 + ulp
                   and all(r[kind]["dt"][0] == dt1[0] for r in res),
                   f"{kind}: dt differs by {dterr:.3e}, more than max|u| "
                   "explains")
@@ -3477,6 +3582,14 @@ def phase_sharded_main(results, ctx, path):
                            config)
 
 
+# 12(f)'s bound on u, relative to max|u|, for the run that recycles the
+# Krylov basis across two steps when it takes one process's counts.  Set
+# from the readings on the H100: the one-rank control 1.9e-4 and the 4
+# ranks 2.0e-4 of max|u| (6.0e-5 and 8.3e-5 before the RB-GS kernels took
+# the JAX package's rounding); below the 5e-3 of solves that end apart.
+RECYCLE_BOUND = 5e-4
+
+
 def _check_sharded_options(results, res, refs, controls, ops_ref, config):
     """12(f): the operators the options add, bit-equal to one process on
     the ranks' rows; each option's run on every rank against one process,
@@ -3487,8 +3600,13 @@ def _check_sharded_options(results, res, refs, controls, ops_ref, config):
     decides) is a different converged answer, held to the port's bound for
     two runs whose solves take different paths to the same tolerance
     (tests/torch_parity.py BF16: outers within 1 per step, FGMRES
-    iterations within 2 per outer, u within 5e-3 * max|u|).  Every option
-    is checked and logged before the failures are raised."""
+    iterations within 2 per outer, u within 5e-3 * max|u|).  A run that
+    recycles the Krylov basis across steps (``fgmres_recycle=2``) at equal
+    counts is held to RECYCLE_BOUND * max|u|: its second step starts from a
+    guess built from the first step's basis, whose bits the sums' order
+    decides, so its u lies further from one process's than a single
+    step's.  Every option is checked and logged before the failures are
+    raised."""
     from dataclasses import replace
     legs = halves = 0
     failures = []
@@ -3545,12 +3663,14 @@ def _check_sharded_options(results, res, refs, controls, ops_ref, config):
         outer = res[0]["options"][label]["outer"]
         wall = max(r["options"][label]["wall"] for r in res)
         same = outer == ref["outer"] and lins[0] == ref["lin"]
+        bound = ((RECYCLE_BOUND if replace(config, **opts).fgmres_recycle
+                  >= 2 else 1e-4) if same else 5e-3)
         log(f"phase 12f: {label}: outers {outer} on every rank, "
             f"{ref['outer']} in one process; FGMRES iterations {lins[0]} "
             f"(one process {ref['lin']}); wall {wall:.3f} s (one process "
             f"{ref['wall']:.3f} s); max|du| {err:.3e} (max|u| {scale:.4f}, "
-            f"{err / scale:.2e} of it; bound "
-            f"{'1e-4: the same solves' if same else '5e-3: solves end apart'})")
+            f"{err / scale:.2e} of it; bound {bound:g}: "
+            f"{'the same solves' if same else 'solves end apart'})")
         check(len({tuple(v) for v in lins}) == 1,
               f"{label}: the ranks took different FGMRES counts {lins}")
         if not same:
@@ -3560,8 +3680,7 @@ def _check_sharded_options(results, res, refs, controls, ops_ref, config):
                         zip(lins[0], ref["lin"], ref["outer"])),
                 f"{label}: outers {outer} / {ref['outer']}, FGMRES "
                 f"iterations {lins[0]} / {ref['lin']} apart")
-        check(np.isfinite(u).all()
-              and err <= (1e-4 if same else 5e-3) * scale,
+        check(np.isfinite(u).all() and err <= bound * scale,
               f"{label}: sharded u differs by {err:.3e}")
     _path_launches(results, "row-sharded options at full width, 4 ranks "
                    "(phase 12f)",
@@ -3634,19 +3753,25 @@ def phase_sharded_banded(results, ctx, path):
 
 def phase_sharded_small():
     """12(e): the 4,636-cell mesh over 4 ranks on the card and on the CPU;
-    then which gloo collectives take CUDA tensors (the reason the
-    decomposition stages them through host memory), logged."""
+    and, at the same time, which gloo collectives take CUDA tensors (the
+    reason the decomposition stages them through host memory), logged."""
     from cfd2_tpu_torch.parallel.launch import run_ranks
-    log("phase 12e: gloo with CUDA tensors, 2 ranks: " + "; ".join(
-        f"{k} {v}" for k, v in _gloo_cuda_probe().items()))
     mesh = _channel(SHARD_SMALL_CELL)
     check(mesh.num_cells == SHARD_SMALL_CELLS,
           f"mesh has {mesh.num_cells} cells")
     u0 = np.zeros((mesh.num_cells, 2))
     u0[mesh.cell_cx < SHARD_SMALL_CELL, 0] = 1.0
-    runs = {dev: run_ranks(_p12_small_rank, SHARD_WORLD, device=dev,
-                           timeout=300, args=(mesh, u0))
-            for dev in ("cuda", "cpu")}
+    # The probes' groups and the two groups of ranks run at once.
+    with ThreadPoolExecutor(6) as pool:
+        probes = {op: pool.submit(_gloo_cuda_probe, op) for op in
+                  ("all_reduce", "broadcast", "all_gather", "isend/irecv")}
+        runs = {dev: pool.submit(run_ranks, _p12_small_rank, SHARD_WORLD,
+                                 device=dev, timeout=300, args=(mesh, u0))
+                for dev in ("cuda", "cpu")}
+        probes = {op: f.result() for op, f in probes.items()}
+        runs = {dev: f.result() for dev, f in runs.items()}
+    log("phase 12e: gloo with CUDA tensors, 2 ranks: " + "; ".join(
+        f"{k} {v}" for k, v in probes.items()))
     outers = {dev: [r["outer"] for r in rs] for dev, rs in runs.items()}
     lins = {dev: [r["lin"] for r in rs] for dev, rs in runs.items()}
     err = float(np.abs(np.concatenate([r["u"] for r in runs["cuda"]])
@@ -3770,21 +3895,33 @@ def _beside_record(phase, case, rows, enforce=False, first=0, suffix="",
     return missed
 
 
-def _start_meshes(ctx):
-    """Phase 13's meshes, generated into ``.bench_cache`` by
-    ``tools/mesh_cache.py`` in one background process each (host work),
-    while the card runs the earlier phases."""
+# The meshes that background processes make while the card runs earlier
+# phases: phase 6's and 7's (the same generator and arguments as
+# mesh_cache.get_mesh's, so the same cells) and phase 13's.
+BACKGROUND_MESHES = {6: ("delaunay", DELAUNAY_MIN_CELL),
+                     7: ("voronoi", VORONOI_MIN_CELL)}
+
+
+def _start_meshes(ctx, phases):
+    """The meshes of the ``phases`` that need them (6, 7, 13), generated
+    into ``.bench_cache`` by ``tools/mesh_cache.py`` in one background
+    process each (host work), while the card runs the earlier phases:
+    started by phase 1 once the native library is built."""
     from cfd2_tpu_torch.tools import developed_cases as dc
     from cfd2_tpu_torch.tools import mesh_cache
+    wanted = {f"phase {num}": BACKGROUND_MESHES[num]
+              for num in phases & set(BACKGROUND_MESHES)}
+    if 13 in phases:
+        wanted.update({name: (dc.CASES[name].mesh_type,
+                              dc.CASES[name].min_cell)
+                       for name in DEVELOPED_CASES})
     procs = {}
-    for name in DEVELOPED_CASES:
-        c = dc.CASES[name]
-        if os.path.exists(mesh_cache.mesh_path(c.mesh_type, c.min_cell,
-                                               max_cell=c.max_cell)):
+    for name, (mesh_type, size) in wanted.items():
+        if os.path.exists(mesh_cache.mesh_path(mesh_type, size)):
             continue
         procs[name] = (subprocess.Popen(
             [sys.executable, "-m", "cfd2_tpu_torch.tools.mesh_cache",
-             c.mesh_type, str(c.min_cell)], cwd=ROOT,
+             mesh_type, str(size)], cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.time())
     ctx["mesh_procs"] = procs
@@ -3802,7 +3939,7 @@ def _wait_mesh(ctx, name):
     if proc is None:
         return
     out, _ = proc.communicate()
-    log(f"phase 13: {name} mesh generated in the background, "
+    log(f"{name} mesh generated in the background, "
         f"{time.time() - t0:.1f} s after it started: "
         + " | ".join(out.strip().splitlines()[-2:]))
     check(proc.returncode == 0, f"the {name} mesh failed: {out[-2000:]}")
@@ -3961,6 +4098,7 @@ def phase_developed(results, ctx):
     _p13_structured(results, ctx)
     torch.cuda.empty_cache()
     mesh = _p13_banded(results, ctx, "delaunay_1m_developed")
+    ctx["delaunay_1m_mesh"] = mesh    # phase 16(e)
     _p13_banded(results, ctx, "voronoi_893k_developed")
     t0 = time.time()
     try:
@@ -4188,37 +4326,58 @@ def _cavity_run(device, precond_type):
     return u, n, pc.centreline_error(mesh, u)[0], s
 
 
+def _cpu_pool(n):
+    """``n`` spawned processes for CPU references that run beside the
+    card's work (each imports this script by its path)."""
+    import multiprocessing
+    return ProcessPoolExecutor(n, multiprocessing.get_context("spawn"))
+
+
+def _cavity_cpu(precond_type):
+    """:func:`_cavity_run` on the CPU, less the solver."""
+    return _cavity_run("cpu", precond_type)[:3]
+
+
 def _p14_cavity(results):
     """(d) The cavity with the JAX test's configuration and with
-    precond_type=1, card against Ghia and against the CPU."""
+    precond_type=1, card against Ghia and against the CPU (the CPU's runs
+    in processes of their own, beside the card's)."""
     from cfd2_tpu_torch.ops import stencil_kernels as sk
     pc = _tests_module("torch_physics_cases")
-    for precond in (None, 1):
-        label = ("the JAX test's configuration" if precond is None
-                 else "precond_type=1")
-        sk.reset_launches()
-        t0 = time.perf_counter()
-        u_card, n_card, err_card, s = _cavity_run("cuda", precond)
-        wall = time.perf_counter() - t0
-        counts = {k: v for k, v in sk.LAUNCHES.items() if v}
-        u_cpu, n_cpu, err_cpu, _ = _cavity_run("cpu", precond)
-        scale = float(np.abs(u_cpu).max())
-        diff = float(np.abs(u_card - u_cpu).max())
-        log(f"phase 14: (d) cavity {pc.CAVITY_N}x{pc.CAVITY_N}, {label}: "
-            f"card {n_card} steps in {wall:.2f} s, Ghia error {err_card:.4f} "
-            f"(bound {pc.GHIA_BOUND}); CPU {n_cpu} steps, Ghia error "
-            f"{err_cpu:.4f}; max|u_card - u_cpu| {diff:.3e} (limit "
-            f"{1e-4 * scale:.3e}); launches {counts}")
-        check(np.isfinite(u_card).all(), "cavity fields are not finite")
-        check(err_card < pc.GHIA_BOUND,
-              f"cavity ({label}): centreline error {err_card:.4f} against "
-              f"Ghia >= {pc.GHIA_BOUND}")
-        check(n_card == n_cpu and diff <= 1e-4 * scale,
-              f"cavity ({label}): card and CPU disagree")
-        if precond == 1:
-            check(counts.get("rbgs_leg", 0) > 0,
-                  "cavity with precond_type=1: rbgs_leg never launched")
-        _path_launches(results, f"cavity, {label} (phase 14)", counts)
+    with _cpu_pool(2) as pool:
+        cpu = {p: pool.submit(_cavity_cpu, p) for p in (None, 1)}
+        for precond in (None, 1):
+            _p14_cavity_pair(results, pc, sk, precond, cpu[precond])
+
+
+def _p14_cavity_pair(results, pc, sk, precond, cpu):
+    """One configuration of (d) on the card, beside the future ``cpu`` of
+    :func:`_cavity_cpu`."""
+    label = ("the JAX test's configuration" if precond is None
+             else "precond_type=1")
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    u_card, n_card, err_card, s = _cavity_run("cuda", precond)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in sk.LAUNCHES.items() if v}
+    u_cpu, n_cpu, err_cpu = cpu.result()
+    scale = float(np.abs(u_cpu).max())
+    diff = float(np.abs(u_card - u_cpu).max())
+    log(f"phase 14: (d) cavity {pc.CAVITY_N}x{pc.CAVITY_N}, {label}: "
+        f"card {n_card} steps in {wall:.2f} s, Ghia error {err_card:.4f} "
+        f"(bound {pc.GHIA_BOUND}); CPU {n_cpu} steps, Ghia error "
+        f"{err_cpu:.4f}; max|u_card - u_cpu| {diff:.3e} (limit "
+        f"{1e-4 * scale:.3e}); launches {counts}")
+    check(np.isfinite(u_card).all(), "cavity fields are not finite")
+    check(err_card < pc.GHIA_BOUND,
+          f"cavity ({label}): centreline error {err_card:.4f} against "
+          f"Ghia >= {pc.GHIA_BOUND}")
+    check(n_card == n_cpu and diff <= 1e-4 * scale,
+          f"cavity ({label}): card and CPU disagree")
+    if precond == 1:
+        check(counts.get("rbgs_leg", 0) > 0,
+              "cavity with precond_type=1: rbgs_leg never launched")
+    _path_launches(results, f"cavity, {label} (phase 14)", counts)
 
 
 def _p14_strouhal():
@@ -4266,7 +4425,7 @@ TOOLS_BF16_CELL = 0.005
 LIVE_INLET = 1.2
 
 
-def _tool_run(results, part, path, need, fn):
+def _tool_run(results, part, path, need, fn, phase=15):
     """``fn()`` with every kernel's launch count at 0 just before and read
     just after: each kernel of ``need`` must have launched; the counts go
     beside the kernels' main-path counts.  Returns fn's result."""
@@ -4281,10 +4440,10 @@ def _tool_run(results, part, path, need, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in {**sk.LAUNCHES, **bk.LAUNCHES}.items() if v}
-    log(f"phase 15: ({part}) {path}: {wall:.1f} s, launches {counts}")
+    log(f"phase {phase}: ({part}) {path}: {wall:.1f} s, launches {counts}")
     for name in need:
         check(counts.get(name, 0) > 0, f"{path}: {name} never launched")
-    _path_launches(results, f"{path} (phase 15)", counts)
+    _path_launches(results, f"{path} (phase {phase})", counts)
     return out
 
 
@@ -4372,30 +4531,39 @@ def _p15_precond(results, ctx):
 
 
 def _p15_bf16(results):
-    """(d) bf16_smoke at 0.005: the four combinations' outers."""
+    """(d) bf16_smoke at 0.005: the four combinations' outers, 2 timed
+    steps each (the tool's default is 5)."""
     from cfd2_tpu_torch.tools import bf16_smoke
     os.environ.pop("SMOKE_VARIANTS", None)
     got = _tool_run(results, "d", "bf16_smoke", ("rbgs_leg",),
                     lambda: bf16_smoke.run(
-                        size=TOOLS_BF16_CELL,
+                        size=TOOLS_BF16_CELL, timed=2,
                         log=lambda m: log(f"phase 15: (d) {m}")))
     check(list(got) == [v[0] for v in bf16_smoke.VARIANTS]
-          and all(len(r["outers"]) == 5 for r in got.values()),
+          and all(len(r["outers"]) == 2 for r in got.values()),
           f"bf16_smoke: {got}")
+
+
+def _probe_cavity_cpu():
+    """probe_cavity at its defaults on the CPU, quietly."""
+    from cfd2_tpu_torch.tools import probe_cavity
+    return probe_cavity.run(device="cpu", log=lambda m: None)
 
 
 def _p15_cavity(results):
     """(e) probe_cavity at its defaults (h 1/48, dt 0.25, 80 steps; the
     default Chebyshev pressure block, so the stencil kernels but no leg) on
     the card and on the CPU: the Ghia error within the bound on the card
-    and within 1e-3 of the CPU's (the steady-state stop within a
-    step)."""
+    and within 1e-3 of the CPU's (the steady-state stop within a step),
+    the CPU's run in a process of its own beside the card's."""
     from cfd2_tpu_torch.tools import probe_cavity
-    card = _tool_run(results, "e", "probe_cavity",
-                     ("coupled_spmv", "momentum_jacobi"),
-                     lambda: probe_cavity.run(
-                         log=lambda m: log(f"phase 15: (e) {m}")))
-    cpu = probe_cavity.run(device="cpu", log=lambda m: None)
+    with _cpu_pool(1) as pool:
+        cpu = pool.submit(_probe_cavity_cpu)
+        card = _tool_run(results, "e", "probe_cavity",
+                         ("coupled_spmv", "momentum_jacobi"),
+                         lambda: probe_cavity.run(
+                             log=lambda m: log(f"phase 15: (e) {m}")))
+        cpu = cpu.result()
     d = abs(card["max_err"] - cpu["max_err"])
     log(f"phase 15: (e) cavity {card['cells']} cells, {card['steps']} steps: "
         f"Ghia max error card {card['max_err']:.6f}, CPU "
@@ -4503,10 +4671,190 @@ def phase_tools(results, ctx):
         raise PhaseError(" | ".join(failed))
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the profiling tools of cfd2_tpu_torch/tools.
+
+STRUCTURED_KERNELS = ("rbgs_leg", "coupled_spmv", "momentum_jacobi",
+                      "schur_rhs", "pressure_gradient")
+BANDED_KERNELS = ("banded_gather", "banded_dot", "banded_jacobi_sweeps")
+
+
+def _p16_log(part):
+    return lambda m: log(f"phase 16: ({part}) {m}")
+
+
+def _p16_main_mesh(ctx):
+    """Phase 3's 996,558-cell channel, or the same mesh made here once."""
+    if "main_mesh" not in ctx:
+        ctx["main_mesh"] = _channel(0.0017)
+    return ctx["main_mesh"]
+
+
+def _p16_developed(results, ctx):
+    """(a) prof_developed on bench_developed_1m.npz at 0.0017 (3 heal and
+    5 timed steps, a verbose host-mode step, the phases): its first three
+    timed steps take phase 3's three timed steps' counts."""
+    from cfd2_tpu_torch.tools import prof_developed
+    got = _tool_run(results, "a", "prof_developed", STRUCTURED_KERNELS,
+                    lambda: prof_developed.run(
+                        mesh=_p16_main_mesh(ctx), log=_p16_log("a")),
+                    phase=16)
+    lins = tuple(lin for _, lin, _ in got["steps"][:3])
+    outers = [o for o, _, _ in got["steps"][:3]]
+    want = [o for o, _ in ctx["main"]["timed"]] if "main" in ctx else None
+    log(f"phase 16: (a) timed steps {got['steps']}; phase 3's timed outers "
+        f"{want}, FGMRES iterations {list(TIMED_LIN)}; host-mode "
+        f"ladder {got['ladder']}")
+    check(lins == TIMED_LIN, f"prof_developed's first timed steps took "
+          f"{lins} FGMRES iterations, phase 3's {TIMED_LIN}")
+    check(want is None or outers == want, f"prof_developed's first timed "
+          f"outers {outers} != phase 3's {want}")
+    check(got["ladder"] and got["solves"], "prof_developed: no ladder or "
+          "solve")
+
+
+def _p16_outer(results, ctx):
+    """(b) prof_outer at 0.0017 from rest (2 fused steps)."""
+    from cfd2_tpu_torch.tools import prof_outer
+    for k in ("PROF_VCYCLES", "PROF_MOM", "PROF_BF16"):
+        os.environ.pop(k, None)
+    got = _tool_run(results, "b", "prof_outer", STRUCTURED_KERNELS,
+                    lambda: prof_outer.run(0.0017, 2,
+                                           mesh=_p16_main_mesh(ctx),
+                                           log=_p16_log("b")), phase=16)
+    check(all(np.isfinite(r) for _, _, r in got["solves"].values()),
+          f"prof_outer: {got['solves']}")
+
+
+def _p16_banded2(results, ctx):
+    """(c) prof_banded2 on the 403,491-cell Delaunay mesh, one fused step
+    (the tool's default is 3): its solve ends converged."""
+    from cfd2_tpu_torch.tools import prof_banded2
+    got = _tool_run(results, "c", "prof_banded2", BANDED_KERNELS,
+                    lambda: prof_banded2.run(
+                        DELAUNAY_MIN_CELL, "delaunay", steps=1,
+                        mesh=_delaunay_mesh(ctx), log=_p16_log("c")),
+                    phase=16)
+    log(f"phase 16: (c) solve {got['solve']}, step outers {got['outers']}")
+    check(got["solve"][1], f"prof_banded2's solve did not converge: "
+          f"{got['solve']}")
+
+
+def _p16_banded(results, ctx):
+    """(d) prof_banded (the block-ELL system) on the same mesh."""
+    from cfd2_tpu_torch.tools import prof_banded
+    got = _tool_run(results, "d", "prof_banded",
+                    ("banded_gather", "banded_dot"),
+                    lambda: prof_banded.run(
+                        DELAUNAY_MIN_CELL, "delaunay",
+                        mesh=_delaunay_mesh(ctx), log=_p16_log("d")),
+                    phase=16)
+    log(f"phase 16: (d) solves {got['solves']}")
+    check(all(it > 0 for it, _ in got["solves"].values()),
+          f"prof_banded: {got['solves']}")
+
+
+def _p16_refined_developed(results, ctx):
+    """(e) prof_refined_developed on the developed 1M Delaunay state
+    (delaunay 0.0019, phase 13(b)'s)."""
+    from cfd2_tpu_torch.tools import prof_refined_developed
+    got = _tool_run(results, "e", "prof_refined_developed", BANDED_KERNELS,
+                    lambda: prof_refined_developed.run(
+                        "delaunay", 0.0019, 0.0,
+                        mesh=ctx.get("delaunay_1m_mesh"),
+                        log=_p16_log("e")), phase=16)
+    log(f"phase 16: (e) {got['cells']} cells, outers {got['outers']}, "
+        f"solve {got['solve']}")
+    check(got["cells"] == 1_004_266 and got["solve"][1],
+          f"prof_refined_developed: {got['cells']} cells, solve "
+          f"{got['solve']}")
+
+
+def _p16_fgmres(results, ctx):
+    """(f) prof_fgmres at 0.0017: fgmres30 runs its 30 iterations."""
+    from cfd2_tpu_torch.tools import prof_fgmres
+    got = _tool_run(results, "f", "prof_fgmres", STRUCTURED_KERNELS,
+                    lambda: prof_fgmres.run(0.0017,
+                                            mesh=_p16_main_mesh(ctx),
+                                            log=_p16_log("f")), phase=16)
+    check(got["iterations"]["fgmres30"] == 30,
+          f"prof_fgmres: {got['iterations']}")
+
+
+def _p16_fgmres_loop(results):
+    """(g) the bare FGMRES loop: exactly 30 and 50 iterations."""
+    from cfd2_tpu_torch.tools import prof_fgmres_loop
+    got = _tool_run(results, "g", "prof_fgmres_loop", (),
+                    lambda: prof_fgmres_loop.run(log=_p16_log("g")),
+                    phase=16)
+    its = {m: r["iterations"] for m, r in got.items()}
+    check(its == {30: 30, 50: 50}, f"the bare loop ran {its} iterations")
+
+
+def _p16_trace(results, ctx):
+    """(h) prof_trace: 2 warm host-mode steps from rest, 1 traced."""
+    from cfd2_tpu_torch.tools import prof_trace
+    got = _tool_run(results, "h", "prof_trace", STRUCTURED_KERNELS,
+                    lambda: prof_trace.run(0.0017, 1,
+                                           mesh=_p16_main_mesh(ctx),
+                                           log=_p16_log("h")), phase=16)
+    check(got["busy_s"] and got["busy_s"] > 0 and any(
+        "rbgs_leg" in g for g in got["by_group"]),
+        "prof_trace saw no rbgs_leg kernel on the device")
+
+
+def _p16_layout(results):
+    """(i) prof_layout at 589x1765: the flat and tiled Gram-Schmidt forms
+    agree."""
+    import torch
+    from cfd2_tpu_torch.tools import prof_layout
+    got = _tool_run(results, "i", "prof_layout", (),
+                    lambda: prof_layout.run(log=_p16_log("i")), phase=16)
+    a, b = got["cgs_flat"][1], got["cgs_tiled"][1]
+    check(bool(torch.allclose(a, b, rtol=1e-3, atol=1e-2)),
+          f"cgs_flat and cgs_tiled differ by {float((a - b).abs().max())}")
+
+
+def _p16_bf16(results):
+    """(j) probe_bf16 at 589x1765: the float32 momentum solve is the
+    momentum_jacobi kernel."""
+    from cfd2_tpu_torch.tools import probe_bf16
+    _tool_run(results, "j", "probe_bf16", ("momentum_jacobi",),
+              lambda: probe_bf16.run(log=_p16_log("j")), phase=16)
+
+
+def phase_profiling(results, ctx):
+    """16: the profiling tools of cfd2_tpu_torch/tools on the card, each in
+    process at the size its part names, with each hand kernel on its path
+    launched."""
+    import torch
+    failed = []
+    for part, fn in (("a", lambda: _p16_developed(results, ctx)),
+                     ("b", lambda: _p16_outer(results, ctx)),
+                     ("c", lambda: _p16_banded2(results, ctx)),
+                     ("d", lambda: _p16_banded(results, ctx)),
+                     ("e", lambda: _p16_refined_developed(results, ctx)),
+                     ("f", lambda: _p16_fgmres(results, ctx)),
+                     ("g", lambda: _p16_fgmres_loop(results)),
+                     ("h", lambda: _p16_trace(results, ctx)),
+                     ("i", lambda: _p16_layout(results)),
+                     ("j", lambda: _p16_bf16(results))):
+        t0 = time.time()
+        try:
+            fn()
+        except PhaseError as e:     # the other parts still run
+            log(f"phase 16({part}) FAILED: {e}")
+            failed.append(f"16({part}): {e}")
+        torch.cuda.empty_cache()
+        log(f"# phase 16({part}) done in {time.time() - t0:.1f} s")
+    if failed:
+        raise PhaseError(" | ".join(failed))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
@@ -4540,35 +4888,45 @@ def main(argv=None) -> int:
     results, ctx = {}, {"export_forces": args.export_forces,
                         "save_step2_input": args.save_step2_input}
     t_all = time.time()
-    steps = [(1, phase_build), (2, lambda: phase_kernels(results)),
-             (3, lambda: phase_main(results, ctx)),
-             (4, lambda: phase_half_sweep(results, ctx)),
-             (5, phase_cpu_match),
-             (6, lambda: phase_delaunay(results, ctx)),
-             (7, lambda: phase_voronoi(results)),
-             (8, phase_delaunay_cpu_match),
-             (9, lambda: phase_options(ctx)),
-             (10, lambda: phase_generic(results, ctx)),
-             (11, lambda: phase_app(results, ctx)),
-             (12, lambda: phase_sharded(results, ctx)),
-             (13, lambda: phase_developed(results, ctx)),
-             (14, lambda: phase_validation(results, ctx)),
-             (15, lambda: phase_tools(results, ctx))]
+    def phase_build():
+        phase_build_native()
+        _start_meshes(ctx, phases)
+        phase_build_kernels()
+
+    # Run in RUN_ORDER: phase 14 needs no mesh of the background processes
+    # and runs while phase 6's is made; phase 13 runs after 15, by when
+    # its Voronoi mesh, the slowest of them, is made too.
+    steps = dict([(1, phase_build),
+                  (2, lambda: phase_kernels(results)),
+                  (3, lambda: phase_main(results, ctx)),
+                  (4, lambda: phase_half_sweep(results, ctx)),
+                  (5, phase_cpu_match),
+                  (6, lambda: phase_delaunay(results, ctx)),
+                  (7, lambda: phase_voronoi(results, ctx)),
+                  (8, phase_delaunay_cpu_match),
+                  (9, lambda: phase_options(ctx)),
+                  (10, lambda: phase_generic(results, ctx)),
+                  (11, lambda: phase_app(results, ctx)),
+                  (12, lambda: phase_sharded(results, ctx)),
+                  (13, lambda: phase_developed(results, ctx)),
+                  (14, lambda: phase_validation(results, ctx)),
+                  (15, lambda: phase_tools(results, ctx)),
+                  (16, lambda: phase_profiling(results, ctx))])
     try:
         if 13 in phases and 1 not in phases:
             # Phase 13's meshes need the native library, built for this
             # machine.
             from cfd2_tpu_torch.mesh import native
             native.build(rebuild=True)
-        for num, fn in steps:
+        for num in RUN_ORDER:
             if num in phases:
                 t0 = time.time()
-                fn()
+                steps[num]()
                 log(f"# phase {num} done in {time.time() - t0:.1f} s")
-            if num == 1 and 13 in phases:
-                _start_meshes(ctx)
     finally:
         _stop_meshes(ctx)
+    for item in ctx.get("known_open", []):
+        log(f"# KNOWN OPEN: {item}")
     if results:
         print(json.dumps({"kernels": list(results.values())}), flush=True)
     log(f"# all phases in {time.time() - t_all:.1f} s")

@@ -73,7 +73,17 @@ def test_package_imports_without_jax():
             "cfd2_tpu_torch.tools.stiff_water, "
             "cfd2_tpu_torch.tools.make_developed, "
             "cfd2_tpu_torch.tools.make_developed_2m, "
-            "cfd2_tpu_torch.tools.measure_strouhal; "
+            "cfd2_tpu_torch.tools.measure_strouhal, "
+            "cfd2_tpu_torch.tools.prof_developed, "
+            "cfd2_tpu_torch.tools.prof_outer, "
+            "cfd2_tpu_torch.tools.prof_banded2, "
+            "cfd2_tpu_torch.tools.prof_banded, "
+            "cfd2_tpu_torch.tools.prof_refined_developed, "
+            "cfd2_tpu_torch.tools.prof_fgmres, "
+            "cfd2_tpu_torch.tools.prof_fgmres_loop, "
+            "cfd2_tpu_torch.tools.prof_trace, "
+            "cfd2_tpu_torch.tools.prof_layout, "
+            "cfd2_tpu_torch.tools.probe_bf16; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

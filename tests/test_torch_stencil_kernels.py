@@ -3,8 +3,11 @@ against the JAX package's Pallas kernels in interpret mode, on the cases of
 tests/test_pallas.py.  Tolerance 1e-5 max-abs on O(1) random data, as there.
 
 The CUDA kernels themselves are held against these plain versions on the
-card by chip_smoke.py (and tests/test_torch_cuda.py where a GPU exists)."""
+card by chip_smoke.py (and tests/test_torch_cuda.py where a GPU exists), bit
+for bit: both take the arithmetic that XLA gives the JAX package's
+smoother on the main path's grids, which the last tests here measure."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -241,3 +244,46 @@ def test_half_sweep_launch_path_checks_before_it_builds(monkeypatch, case):
     err = RuntimeError if case == "planar" else (ValueError, TypeError)
     with pytest.raises(err):
         sk.rbgs_half_sweep(*args, 0)
+
+
+def _main_grid_system(ny, nx):
+    """A seeded system at the main path's finest grid: a diagonally
+    dominant 5-point operator with random off-diagonals, x and b."""
+    rng = np.random.default_rng(0)
+    off = rng.standard_normal((4, ny, nx)).astype(np.float32)
+    diag = (-np.abs(off).sum(0) * (1 + 0.1 * rng.random((ny, nx)))
+            ).astype(np.float32)
+    return (diag, off, rng.standard_normal((ny, nx)).astype(np.float32),
+            rng.standard_normal((ny, nx)).astype(np.float32))
+
+
+@pytest.mark.parametrize("ny,nx", [(589, 1765), (295, 883)])
+def test_plain_smoother_rounds_as_the_jax_package(ny, nx):
+    """At the main path's two finest grids the JAX package's smoother
+    (``_GridOps.smooth_rbgs2``, 1 and 2 sweeps), its residual ``b -
+    spmv2(x)`` and its ``restrict2`` under ``jax.jit`` on the CPU equal
+    ``rbgs_leg_ref``, ``smoother_residual`` and ``restrict2`` bit for bit:
+    XLA contracts the stencil's multiply-adds into fma(oS, xS, fma(oN, xN,
+    fma(oE, xE, oW*xW))) and adds a block as ((r00 + r10) + r01) + r11.
+    The stencil with every product rounded apart (``dot4``, the plain
+    version before) differs in a third of the cells."""
+    diag, off, x, b = _main_grid_system(ny, nx)
+    ops = JGridOps((ny, nx))
+    coarse = sk.coarse_grid_of((ny, nx))
+    td, to, tx, tb = T(diag), T(off), T(x), T(b)
+    for sweeps in (1, 2):
+        jx = jax.jit(lambda d, o, x, b: ops.smooth_rbgs2(
+            d, o, x, b, sweeps=sweeps))(diag, off, x, b)
+        np.testing.assert_array_equal(
+            sk.rbgs_leg_ref(tx, td, to, tb, sweeps).numpy(), np.asarray(jx))
+    jr = np.asarray(jax.jit(lambda d, o, x, b: b - ops.spmv2(d, o, x))(
+        diag, off, x, b))
+    np.testing.assert_array_equal(
+        sk.smoother_residual(td, to, tx, tb).numpy(), jr)
+    jq = jax.jit(lambda r: ops.restrict2(coarse, r))(jr)
+    np.testing.assert_array_equal(sk.restrict2(T(jr.copy()), coarse).numpy(),
+                                  np.asarray(jq))
+    js = np.asarray(jax.jit(ops._sigma2)(off, x))
+    apart = sk.dot4(to, sk.edge_shifts(tx)).numpy()
+    np.testing.assert_array_equal(sk.smoother_sigma(to, tx).numpy(), js)
+    assert (apart != js).mean() > 0.3

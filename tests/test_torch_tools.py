@@ -37,7 +37,11 @@ from cfd2_tpu.mesh import retag_lid_cavity as j_retag
 from cfd2_tpu.models.coupled import CoupledSolver as JSolver
 from cfd2_tpu.models.coupled import step_host as j_step_host
 from cfd2_tpu_torch.tools import (bf16_smoke, iters_1m, live_demo_1m,
-                                  probe_cavity, probes, prof_step_iters,
+                                  probe_bf16, probe_cavity, probes,
+                                  prof_banded, prof_banded2, prof_developed,
+                                  prof_fgmres, prof_fgmres_loop, prof_layout,
+                                  prof_outer, prof_refined_developed,
+                                  prof_step_iters, prof_trace,
                                   stiff_water_x64)
 
 torch.set_num_threads(2)
@@ -212,6 +216,35 @@ def test_tools_write_no_jax_tools_path():
     assert "live_1m_frame" not in src and '"docs"' not in src
 
 
+PROFILING_TOOLS = (prof_developed, prof_outer, prof_banded2, prof_banded,
+                   prof_refined_developed, prof_fgmres, prof_fgmres_loop,
+                   prof_trace, prof_layout, probe_bf16)
+
+
+@pytest.mark.parametrize("tool", PROFILING_TOOLS,
+                         ids=[t.__name__.rsplit(".", 1)[1]
+                              for t in PROFILING_TOOLS])
+def test_profiling_tools_write_no_jax_tools_path(tool):
+    """The profiling tools write no file but ``prof_trace``'s trace, which
+    goes to the port's own directory (``runtime/profiling.trace``'s
+    ``cfd2_tpu_torch_trace`` under the temporary directory, or where the
+    caller says), never the JAX tool's ``/tmp/cfd2_trace``."""
+    import inspect
+    import tempfile
+
+    from cfd2_tpu_torch.runtime import profiling
+    src = inspect.getsource(tool)
+    for call in ("np.save", "savez", "write_text", "write_bytes",
+                 "json.dump", "open("):
+        assert call not in src, (tool.__name__, call)
+    if tool is prof_trace:
+        assert inspect.signature(tool.run).parameters["logdir"].default \
+            is None
+        assert "cfd2_tpu_torch_trace" in inspect.getsource(
+            profiling.ProfilingStats.trace)
+        assert not str(tempfile.gettempdir()).endswith("cfd2_trace")
+
+
 @pytest.mark.parametrize("tool", [
     lambda: probe_cavity.run(0.25, 0.25, 1, log=quiet),
     lambda: iters_1m.run(cell=0.1, steps=1, log=quiet),
@@ -219,8 +252,21 @@ def test_tools_write_no_jax_tools_path():
     lambda: bf16_smoke.run(size=0.1, timed=1, log=quiet),
     lambda: stiff_water_x64.run(0.1, 1, out=None, log=quiet),
     lambda: live_demo_1m.run(cell=0.1, wait=1, log=quiet),
+    lambda: prof_developed.run(min_cell=0.1, log=quiet),
+    lambda: prof_outer.run(0.1, 0, log=quiet),
+    lambda: prof_banded2.run(0.1, log=quiet),
+    lambda: prof_banded.run(0.1, log=quiet),
+    lambda: prof_refined_developed.run("delaunay", 0.1, 0.0, log=quiet),
+    lambda: prof_fgmres.run(0.1, log=quiet),
+    lambda: prof_fgmres_loop.run(4, 6, log=quiet),
+    lambda: prof_trace.run(0.1, 1, log=quiet),
+    lambda: prof_layout.run(4, 6, log=quiet),
+    lambda: probe_bf16.run(4, 6, log=quiet),
 ], ids=["probe_cavity", "iters_1m", "prof_step_iters", "bf16_smoke",
-        "stiff_water_x64", "live_demo_1m"])
+        "stiff_water_x64", "live_demo_1m", "prof_developed", "prof_outer",
+        "prof_banded2", "prof_banded", "prof_refined_developed",
+        "prof_fgmres", "prof_fgmres_loop", "prof_trace", "prof_layout",
+        "probe_bf16"])
 def test_tools_need_the_card_unless_told_cpu(monkeypatch, tool):
     """Each tool runs on the card unless ``device="cpu"`` is given, and
     raises where there is no GPU rather than carry on on the CPU."""
