@@ -1,7 +1,7 @@
 // Red-black Gauss-Seidel smoothers of the 5-point stencil, for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernels in
-// cfd2_tpu/ops/pallas_stencil.py:
+// cfd2_tpu/ops/pallas_stencil.py (and adds rbgs_residual, see below):
 //   * rbgs_leg        <- _fused_rbgs_kernel via fused_rbgs2 (one V-cycle leg:
 //                        2*sweeps coloured half-sweeps, optionally followed by
 //                        the residual b - A x, in one launch);
@@ -84,6 +84,24 @@
 //     allocation per pair and half the store instructions, and no device
 //     bytes: the stores of alternate cells dirty every sector of x, which
 //     is written back whole, as a copy would write it.
+//
+// rbgs_residual replaces no TPU kernel: the JAX package leaves the V-cycle's
+// residual and restriction around its per-half-sweep kernels
+// (pallas_level() == 1) to XLA.  Its port took them as eager PyTorch, a chain
+// of elementwise launches per level; this kernel gives the half-sweep path
+// (CFD2_PALLAS=1, and the row-sharded down leg at that level) the fused leg
+// kernel's MODE_RESTRICT without the smoothing: restrict2(b - A x), the
+// residual never reaching device memory.  Bound by bytes: 7 planes read (x,
+// diag, 4 off, b) and a quarter plane written, 29 B per fine cell; at
+// 589x1765 that is 30 MB, 9.0 us at 3.35 TB/s.  What the design does: a
+// thread takes one fine column of a pair of rows, so a warp's loads cover 32
+// adjacent columns (the first form, a thread per coarse cell reading its
+// four cells, loaded every plane at a stride of two and ran at 38% of the
+// bound); the pair shares its x values, computes both residuals with the
+// leg kernel's pinned arithmetic (stencil_sigma, residual), and two
+// shuffles add the neighbouring column's in restrict2's order, ((r00 + r10)
+// + r01) + r11, cells beyond the fine grid adding zero as restrict2's zero
+// padding does.
 //
 // All functions have a plain C interface (loaded with ctypes), launch on the
 // caller's stream, allocate nothing, and return cudaGetLastError() after the
@@ -531,6 +549,69 @@ rbgs_half_sweep_kernel(const float* x, const float* __restrict__ diag,
     x_out[g] = relaxed(__ldg(diag + g), __ldg(b + g), sigma);
 }
 
+// ---------------------------------------------------------------------
+// rbgs_residual: the 2x2 block sums of b - A x.
+
+constexpr int RR_X = 64;   // fine columns per block (two warps)
+constexpr int RR_Y = 4;    // pairs of fine rows per block
+
+// b - A x at fine cell (gr, gc), xc its x, xn / xs its north and south x
+// (the caller's, which already holds them); zero beyond the fine grid.
+__device__ __forceinline__ float cell_residual(
+        const float* __restrict__ x, const float* __restrict__ diag,
+        const float* __restrict__ off, const float* __restrict__ b,
+        long long n_cells, long long g, int gc, int nx, float xc, float xn,
+        float xs) {
+    const float xe = gc == nx - 1 ? xc : __ldg(x + g + 1);
+    const float xw = gc == 0 ? xc : __ldg(x + g - 1);
+    const float sigma = stencil_sigma(
+        __ldg(off + g), xe, __ldg(off + n_cells + g), xw,
+        __ldg(off + 2 * n_cells + g), xn, __ldg(off + 3 * n_cells + g), xs);
+    return residual(__ldg(b + g), __ldg(diag + g), xc, sigma);
+}
+
+// Thread (tx, ty) takes fine column c0 + tx of the row pair 2 * (r0 + ty),
+// +1: a warp's loads cover 32 adjacent columns of one row.  The pair's sum
+// meets its neighbour column's through two shuffles (c0 is even, so lanes
+// 2k and 2k + 1 hold one coarse cell), as the leg kernel's MODE_RESTRICT.
+__global__ void __launch_bounds__(RR_X * RR_Y)
+rbgs_residual_kernel(const float* __restrict__ x,
+                     const float* __restrict__ diag,
+                     const float* __restrict__ off,
+                     const float* __restrict__ b, float* __restrict__ r_out,
+                     int ny, int nx, int nyc, int nxc) {
+    const int gc = blockIdx.x * RR_X + threadIdx.x;
+    const int cr = blockIdx.y * RR_Y + threadIdx.y;
+    const int ra = 2 * cr;
+    const long long n_cells = (long long)ny * nx;
+    const bool in_a = cr < nyc && ra < ny && gc < nx;
+    const bool in_b = cr < nyc && ra + 1 < ny && gc < nx;
+    const long long g = (long long)ra * nx + gc;
+    float res_a = 0.0f, res_b = 0.0f;
+    if (in_a) {
+        const float xa = __ldg(x + g);
+        const float xb = in_b ? __ldg(x + g + nx) : xa;
+        const float xs = ra == 0 ? xa : __ldg(x + g - nx);
+        // Row ra + 1 lies in the grid iff in_b; beyond it the north
+        // neighbour of row ra is itself (the clamped edge).
+        res_a = cell_residual(x, diag, off, b, n_cells, g, gc, nx, xa, xb,
+                              xs);
+        if (in_b) {
+            const float xn = ra + 2 >= ny ? xb : __ldg(x + g + 2 * nx);
+            res_b = cell_residual(x, diag, off, b, n_cells, g + nx, gc, nx,
+                                  xb, xn, xa);
+        }
+    }
+    // Cells outside the grid add zero, as restrict2's zero padding does, in
+    // the order of XLA's reduce_window: ((r00 + r10) + r01) + r11.
+    const float r01 = __shfl_xor_sync(0xffffffffu, res_a, 1);
+    const float r11 = __shfl_xor_sync(0xffffffffu, res_b, 1);
+    const int cc = gc >> 1;
+    if ((gc & 1) == 0 && cr < nyc && cc < nxc)
+        r_out[(long long)cr * nxc + cc] =
+            __fadd_rn(__fadd_rn(__fadd_rn(res_a, res_b), r01), r11);
+}
+
 }  // namespace
 
 extern "C" {
@@ -603,6 +684,23 @@ int rbgs_half_sweep(const float* x, const float* diag, const float* off,
     else
         rbgs_half_sweep_kernel<false><<<grid, block, 0, st>>>(
             x, diag, off, b, x_out, ny, nx, parity);
+    return (int)cudaGetLastError();
+}
+
+// x, diag, b: (ny, nx) float32; off: (4, ny, nx) float32 planes [E, W, N,
+// S]; r_out: (nyc, nxc) float32, the 2x2 block sums of b - A x over the fine
+// cells (2i + a, 2j + c) that lie in the grid (restrict2: nyc = (ny+1)/2
+// zero-pads an odd grid, a smaller nyc crops it).  Returns a cudaError_t.
+int rbgs_residual(const float* x, const float* diag, const float* off,
+                  const float* b, float* r_out, int ny, int nx, int nyc,
+                  int nxc, void* stream) {
+    if (ny < 1 || nx < 1 || nyc < 1 || nxc < 1 || nyc > (ny + 1) / 2
+        || nxc > (nx + 1) / 2)
+        return (int)cudaErrorInvalidValue;
+    const dim3 block(RR_X, RR_Y);
+    const dim3 grid((2 * nxc + RR_X - 1) / RR_X, (nyc + RR_Y - 1) / RR_Y);
+    rbgs_residual_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, diag, off, b, r_out, ny, nx, nyc, nxc);
     return (int)cudaGetLastError();
 }
 

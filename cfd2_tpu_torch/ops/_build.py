@@ -31,6 +31,8 @@ SIGNATURES = {
         "rbgs_leg": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         # x, diag, off, b, x_out, ny, nx, parity, stream
         "rbgs_half_sweep": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        # x, diag, off, b, r_out, ny, nx, nyc, nxc, stream
+        "rbgs_residual": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "rbgs_error_string": ([_I], ctypes.c_char_p),
     },
     "stencil": {

@@ -543,9 +543,6 @@ class _GridOps:
         return torch.as_tensor(np.stack([e, w, n, s], axis=1).astype(np.int32),
                                device=device)
 
-    def spmv2(self, diag2, off2, xg):
-        return sk.fma(diag2, xg, sk.smoother_sigma(off2, xg))
-
     def smooth_rbgs2(self, diag2, off2, xg, bg, sweeps=1):
         """Red-black Gauss-Seidel on 2D grids (plain stencils)."""
         return sk.rbgs_leg_ref(xg, diag2, off2, bg, sweeps=sweeps)
@@ -674,7 +671,8 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
     launch for the grid transfers; with ``sweeps > 1`` the legs are unfused
     and the transfers plain); at level 1 each half-sweep is one
     :func:`~.stencil_kernels.rbgs_half_sweep` launch on the level's own
-    (4, ny, nx) coefficient planes, with the residual and the transfers
+    (4, ny, nx) coefficient planes, the down leg's residual and restriction
+    one :func:`~.stencil_kernels.rbgs_residual` launch, the prolongation
     plain; level 0 (CPU only) runs the plain stencils."""
     L = len(hier.levels)
     grids = [hier.levels[0].fine_grid] + [lvl.grid for lvl in hier.levels]
@@ -703,10 +701,11 @@ def structured_v_cycle(hier: StructuredAmgHierarchy, level_values,
             if level == 2:
                 x, r = sk.rbgs_leg(xs[i], diag2, off2, bs[i], sweeps=sweeps,
                                    residual=True)
+                b_coarse = ops[i].restrict2(grids[i + 1], r)
             else:
                 x = smooth(i, xs[i], bs[i])
-                r = bs[i] - ops[i].spmv2(diag2, off2, x)
-            b_coarse = ops[i].restrict2(grids[i + 1], r)
+                b_coarse = sk.rbgs_residual(x, diag2, off2, bs[i],
+                                            grids[i + 1])
         xs[i] = x
         bs.append(b_coarse)
         xs.append(torch.zeros(grids[i + 1], dtype=x0.dtype, device=x0.device))
@@ -739,10 +738,12 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
     :func:`structured_v_cycle` at the smoother level of
     :func:`~.stencil_kernels.smoother_level`: at level 2 one fused
     :func:`~.stencil_kernels.rbgs_leg` launch per leg; at level 1 two
-    :func:`~.stencil_kernels.rbgs_half_sweep` launches per leg with the
-    residual and the transfers plain; at level 0 (CPU only) the plain
-    stencils.  The down leg takes ``decomp.ghost`` (4) rows on each inner
-    side, of which its two half-sweeps and the residual spoil three, so the
+    :func:`~.stencil_kernels.rbgs_half_sweep` launches per leg, the down
+    leg's residual and restriction one
+    :func:`~.stencil_kernels.rbgs_residual` launch and the prolongation
+    plain; at level 0 (CPU only) the plain stencils.  The down leg takes
+    ``decomp.ghost`` (4) rows on each inner side, of which its two
+    half-sweeps and the residual spoil three, so the
     restricted residual of the block's own rows is exact; the up leg takes
     2, which its two half-sweeps spoil, on the down leg's iterate (exact
     there) plus the prolongated coarse correction (the coarse block with one
@@ -781,8 +782,7 @@ def sharded_v_cycle(hier: StructuredAmgHierarchy, level_values,
         if level == 2:
             return sk.rbgs_leg(x, diag2, off2, b, restrict_to=coarse)
         x = smooth(x, diag2, off2, b)
-        return x, sk.restrict2(sk.smoother_residual(diag2, off2, x, b),
-                               coarse)
+        return x, sk.rbgs_residual(x, diag2, off2, b, coarse)
 
     def up_leg(x, diag2, off2, b, xc):
         if level == 2:

@@ -15,7 +15,10 @@ Counterparts of ``cfd2_tpu/ops/pallas_stencil.py``:
 * :func:`rbgs_half_sweep` <- ``rbgs_half_sweep``: one coloured half-sweep
   of an (ny, nx) grid with the (4, ny, nx) coefficient planes the levels keep
   (the TPU kernel's flat (n,) layout with ``off`` (n, 4) has no use on the
-  card: it cost the V-cycle a transpose per smooth).
+  card: it cost the V-cycle a transpose per smooth);
+* :func:`rbgs_residual` (no Pallas kernel: the JAX package leaves it to
+  XLA around its half-sweeps): ``restrict2(b - A x)``, the half-sweep
+  path's down-leg residual and restriction in one launch.
 
 The stencils of ``ops/stencil_system.py``, which the JAX package leaves to
 XLA's fusions (no Pallas kernel), each one launch where the eager version
@@ -54,7 +57,8 @@ from ._launch import float_ok, launch
 from .banded_kernels import fma
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"rbgs_leg": 0, "rbgs_half_sweep": 0, "coupled_spmv": 0,
+LAUNCHES = {"rbgs_leg": 0, "rbgs_half_sweep": 0, "rbgs_residual": 0,
+            "coupled_spmv": 0,
             "momentum_jacobi": 0, "schur_rhs": 0, "pressure_gradient": 0}
 
 
@@ -186,6 +190,12 @@ def rbgs_half_sweep_ref(xg, diag2, off2, bg, parity: int):
     xn = _dinv(diag2) * (bg - smoother_sigma(off2, xg))
     upd = (_color2(*xg.shape, xg.device) + parity) % 2 == 0
     return torch.where(upd, xn, xg)
+
+
+def rbgs_residual_ref(xg, diag2, off2, bg, restrict_to):
+    """Plain version of :func:`rbgs_residual`: :func:`smoother_residual`
+    then :func:`restrict2`."""
+    return restrict2(smoother_residual(diag2, off2, xg, bg), restrict_to)
 
 
 # ----------------------------------------------------------------------
@@ -326,6 +336,39 @@ def rbgs_half_sweep(xg, diag2, off2, bg, parity: int,
         _raise_on(lib.rbgs_error_string, err, "rbgs_half_sweep")
     LAUNCHES["rbgs_half_sweep"] += 1
     return x_out
+
+
+def rbgs_residual(xg, diag2, off2, bg, restrict_to):
+    """The 2x2 block sums of the residual ``b - A x`` on the coarse grid
+    ``restrict_to`` (``restrict2``'s: ``((ny+1)//2, (nx+1)//2)`` pads an odd
+    grid with zeros, a smaller one crops it), in one launch: the down leg's
+    residual and restriction after :func:`rbgs_half_sweep`'s smoothing.
+    ``xg``/``diag2``/``bg`` (ny, nx) float32, ``off2`` (4, ny, nx) float32
+    slots [E, W, N, S]."""
+    if not _cuda_or_cpu(xg):
+        return rbgs_residual_ref(xg, diag2, off2, bg, restrict_to)
+    shape = xg.shape
+    ny, nx = shape
+    nyc, nxc = (int(v) for v in restrict_to)
+    if not (0 < nyc <= (ny + 1) // 2 and 0 < nxc <= (nx + 1) // 2):
+        raise ValueError(f"restrict_to {tuple(restrict_to)} is not a coarse "
+                         f"grid of {(ny, nx)}")
+    dev = xg.device
+    if not (float_ok(xg, shape, dev) and float_ok(diag2, shape, dev)
+            and float_ok(off2, (4, ny, nx), dev) and float_ok(bg, shape, dev)):
+        _check("x", xg, (ny, nx), dev)
+        _check("diag", diag2, (ny, nx), dev)
+        _check("off", off2, (4, ny, nx), dev)
+        _check("b", bg, (ny, nx), dev)
+    lib = _build.load("rbgs")
+    r_out = xg.new_empty((nyc, nxc))
+    err = launch(lib.rbgs_residual, dev, xg.data_ptr(), diag2.data_ptr(),
+                 off2.data_ptr(), bg.data_ptr(), r_out.data_ptr(), ny, nx,
+                 nyc, nxc)
+    if err:
+        _raise_on(lib.rbgs_error_string, err, "rbgs_residual")
+    LAUNCHES["rbgs_residual"] += 1
+    return r_out
 
 
 def smooth_rbgs_half_sweeps(diag2, off2, xg, bg, sweeps: int = 1):

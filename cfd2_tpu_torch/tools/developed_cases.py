@@ -15,6 +15,11 @@ here.
 * ``structured_2m_developed``: the cut-cell channel at 0.0012 started from
   ``bench_developed_2m.npz`` as ``bench.py``'s developed leg starts it
   (3 uncounted heal steps; 12 momentum sweeps at this size).
+* ``refined_cutcell_130k_developed``: the refined cut-cell mesh 0.0015 /
+  0.006 of BENCH_SWEEP.jsonl's developed rows (the JAX tool
+  ``tools/prof_refined_developed.py``'s default), loaded from the committed
+  state that ``make_developed_unstructured cutcell 0.0015 200 0.006`` made
+  on the card, with the heal's configuration.
 * ``delaunay_403k_rest``, ``refined_132k_rest``: the from-rest Delaunay and
   refined quadtree cases as ``bench_sweep.py`` starts them.
 
@@ -62,6 +67,11 @@ CASES = {c.name: c for c in (
     Case("structured_2m_developed", "cutcell", 0.0012, "structured", 3,
          1_998_381, "BENCH_SWEEP.jsonl row 21; bench.py's developed leg",
          heal_steps=3, state="bench_developed_2m.npz"),
+    Case("refined_cutcell_130k_developed", "cutcell", 0.0015,
+         "unstructured", 3, 129_663,
+         "BENCH_SWEEP.jsonl rows 31, 33, 34, 40; "
+         "tools/prof_refined_developed.py:46", max_cell=0.006,
+         state="cfd2_tpu_torch/data/developed_cutcell_0.0015-0.006.npz"),
     Case("delaunay_403k_rest", "delaunay", 0.003, "rest", 3, 403_491,
          "BENCH_SWEEP.jsonl 'delaunay 403k from rest'; bench_sweep.py:19-62"),
     Case("refined_132k_rest", "cutcell", 0.0025, "rest", 3, 132_080,
@@ -151,6 +161,15 @@ def save_step_input(s, path, **meta):
                 params={f: float(getattr(s.params, f))
                         for f in PARAMS_FIELDS})
     np.savez_compressed(path, meta=json.dumps(meta), **arrs)
+
+
+def card_step2_path(case: str, root=None) -> Path:
+    """Where the card's state at the start of ``case``'s step 2 lies: the
+    committed one in ``cfd2_tpu_torch/data``, or under ``root`` (where
+    ``chip_smoke.py --save-step2-input`` writes it).  ``delaunay_403k_rest``
+    -> ``delaunay_403k_step2_card.npz``."""
+    name = f"{case.removesuffix('_rest')}_step2_card.npz"
+    return (Path(root) if root else ROOT / "cfd2_tpu_torch" / "data") / name
 
 
 def read_step_input(path) -> tuple[dict, dict]:

@@ -15,11 +15,12 @@ The developed state is the one ``make_developed_unstructured`` writes
 by ``convert.load_developed_unstructured`` as ``chip_smoke.py`` phase 13
 loads it: the state's time is the heal's end, so the inlet ramp carries on
 (the JAX tool started it again at 0).  The repository holds the Delaunay
-0.0019 and Voronoi 0.00143 states; the JAX tool's default, the refined
-cut-cell mesh 0.0015 / 0.006, has none yet (ROADMAP), and asking for it
-raises.  Each phase is timed by :func:`.probes.time_phase` (the host's wall
-to a ``torch.cuda.synchronize()`` beside the device's busy time, and the
-hand kernels' launches); nothing is subtracted.
+0.0019, Voronoi 0.00143 and refined cut-cell 0.0015 / 0.006 states (the
+last the JAX tool's default, 129,663 cells on the banded layout in both
+packages); another size raises until ``make_developed_unstructured`` has
+made its state.  Each phase is timed by :func:`.probes.time_phase` (the
+host's wall to a ``torch.cuda.synchronize()`` beside the device's busy
+time, and the hand kernels' launches); nothing is subtracted.
 
 Usage (on the GPU unless ``--device cpu``):
 

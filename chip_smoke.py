@@ -17,8 +17,11 @@ Phases (any failure exits non-zero):
    level grid of the 589x1765 multigrid hierarchy, the leg in its four
    unfused forms and, against the plain leg composed with the plain grid
    transfers, in its two fused forms, the half-sweep into a new tensor and
-   in place; the leg in every form and the half-sweep timed on every level
-   grid beside their byte bounds; the three banded kernels on square and
+   in place, and the half-sweep path's restricted residual
+   (``rbgs_residual``, also to a coarse grid a row short); the leg in every
+   form and the half-sweep timed on every level grid beside their byte
+   bounds, the restricted residual at 589x1765 beside its bound and its
+   plain version; the three banded kernels on square and
    rectangular index maps (K = 1, 3, 9, 17; the gather at C = 1, 2, 6 and
    the run-time C = 3, the fused prolongation at alpha 1 and 1.5; every
    product form of the solver and one that is not, a capped K = 9 map),
@@ -55,8 +58,9 @@ Phases (any failure exits non-zero):
 4. the half-sweep path (CFD2_PALLAS=1) at full width: phase 3's solver
    restarted from its state after healing for 2 steps, with the outer
    iterations of phase 3's first two timed steps and their FGMRES
-   iterations within 2 per outer; 28 half-sweeps per FGMRES iteration and
-   the stencil kernels at phase 3's rates;
+   iterations within 2 per outer; 28 half-sweeps and 7 restricted
+   residuals (one per level's down leg) per FGMRES iteration and the
+   stencil kernels at phase 3's rates;
 5. one step of a ~5k-cell mesh on the card (kernels) and on the CPU (plain
    versions): equal outer iterations, u within 1e-4 * max|u|;
 6. the unstructured main path: the 403,491-cell Delaunay channel-obstacle
@@ -167,15 +171,15 @@ Phases (any failure exits non-zero):
    FGMRES iterations within 2 per outer and u within 5e-3 * max|u|;
    ``rbgs_leg`` launched on every rank of every run through the structured
    multigrid with ``CFD2_PALLAS`` unset, and under ``CFD2_PALLAS=1``
-   ``rbgs_half_sweep`` on every rank at the one-process run's launches per
-   FGMRES iteration; and the ADI preconditioner and the V-cycle (unset and
-   ``CFD2_PALLAS=1``) applied once at full width, bit-equal to one process
-   on every rank's rows; (g) every option of (f) and one
-   ``simple_step`` on (e)'s mesh over 4 ranks on the card and on the CPU:
-   equal outer counts.  The mesh is built once here and the ranks get its
-   encoded arrays through a file; four CUDA contexts time-share the card
-   and every halo crosses the host, so the walls show correctness work,
-   not speed;
+   ``rbgs_half_sweep`` and ``rbgs_residual`` on every rank at the
+   one-process run's launches per FGMRES iteration; and the ADI
+   preconditioner and the V-cycle (unset and ``CFD2_PALLAS=1``) applied
+   once at full width, bit-equal to one process on every rank's rows; (g)
+   every option of (f) and one ``simple_step`` on (e)'s mesh over 4 ranks on
+   the card and on the CPU: equal outer counts. The mesh is built once here
+   and the ranks get its encoded arrays through a file; four CUDA contexts
+   time-share the card and every halo crosses the host, so the walls show
+   correctness work, not speed;
 13. the developed full-size cases of ``cfd2_tpu_torch/tools/
    developed_cases.py``, set up from its table (their meshes generated by
    ``tools/mesh_cache.py`` in background processes from the end of phase 1,
@@ -191,13 +195,17 @@ Phases (any failure exits non-zero):
    states of ``cfd2_tpu_torch/data``: the banded kernels held on the solver's
    maps, then 3 and 2 counted steps, with ``banded_jacobi_sweeps`` twice per
    FGMRES iteration on (b) and none on (c), whose predict runs one momentum
-   dot per sweep (asserted); every field finite; each counted step held to
+   dot per sweep (asserted); (d) ``refined_cutcell_130k_developed`` (the
+   refined cut-cell mesh 0.0015 / 0.006, 129,663 cells on the banded
+   layout, uncapped) from its committed state, 3 counted steps as (b);
+   every field finite; each counted step held to
    the round's bound (equal outers, FGMRES iterations within 2 per outer)
    against ``cfd2_tpu_torch/data/fullsize_counts.json``'s JAX record where it
    has the step, and logged beside its port-CPU record (phases 6 and 10(a)
    hold theirs to the record's ``delaunay_403k_rest`` and
-   ``refined_132k_rest`` the same way); (d) ``make_developed_unstructured
-   itself for 3 heal steps on (b)'s mesh, into ``.phase13`` (removed after);
+   ``refined_132k_rest`` the same way); (e) ``make_developed_unstructured``
+   itself for 3 heal steps on (d)'s mesh, into ``.phase13`` (removed
+   after);
 14. the physics-validation path of ``cfd2_tpu_torch/tools/``: (a)
    Schäfer–Turek 2D-2 at D/h = 20 (35,804 cells on 82x440; parabolic inlet,
    BDF2, ``dt_old`` pinned) from rest through ``validate_turek``'s chunk
@@ -253,8 +261,9 @@ Phases (any failure exits non-zero):
    at 0.0017 (its first three timed steps take phase 3's counts); (b)
    ``prof_outer`` from rest at 0.0017; (c) ``prof_banded2`` and (d)
    ``prof_banded`` on phase 6's 403,491-cell Delaunay mesh (the solve of
-   (c) converges); (e) ``prof_refined_developed`` on the developed 1M
-   Delaunay state (phase 13(b)'s); (f) ``prof_fgmres`` at 0.0017
+   (c) converges); (e) ``prof_refined_developed`` at its default, the
+   developed refined cut-cell state (phase 13(d)'s mesh); (f)
+   ``prof_fgmres`` at 0.0017
    (``fgmres30`` runs 30 iterations); (g) ``prof_fgmres_loop`` (exactly 30
    and 50 iterations); (h) ``prof_trace`` (one traced host-mode step); (i)
    ``prof_layout`` and (j) ``probe_bf16`` at 589x1765.  Every part whose
@@ -1025,6 +1034,11 @@ def _hold_legs(phase, sk, cases):
             err_fused = max(err_fused, _maxerr(
                 _leg(sk, form, x, diag2, off2, b, xc),
                 _leg(sk, form, x, diag2, off2, b, xc, plain=True)))
+        if hasattr(sk, "rbgs_residual"):   # not in a --tree before it
+            for coarse in (coarse_of((ny, nx)), (ny // 2, (nx + 1) // 2)):
+                err_half = max(err_half, _maxerr(
+                    (sk.rbgs_residual(x, diag2, off2, b, coarse),),
+                    (sk.rbgs_residual_ref(x, diag2, off2, b, coarse),)))
         for parity in (0, 1):
             call, plain = _half_sweep_call(sk, x, diag2, off2, b, parity)
             ref = plain()
@@ -1038,14 +1052,14 @@ def _hold_legs(phase, sk, cases):
         + ", ".join(f"{ny}x{nx}" for ny, nx in cases)
         + f"; max-abs error leg {err_leg:.3e} (sweeps 1 and 2, with and "
         f"without residual), fused legs {err_fused:.3e} (restricted "
-        f"residual, prolongation added), half-sweep {err_half:.3e} "
-        f"(tolerance {tol:g})")
+        f"residual, prolongation added), half-sweep and its restricted "
+        f"residual {err_half:.3e} (tolerance {tol:g})")
     check(err_leg <= tol, f"rbgs_leg disagrees with its plain version: "
           f"{err_leg:.3e}")
     check(err_fused <= tol, f"a fused form of rbgs_leg disagrees with the "
           f"plain leg and grid transfer: {err_fused:.3e}")
-    check(err_half <= tol, f"rbgs_half_sweep disagrees with its plain "
-          f"version: {err_half:.3e}")
+    check(err_half <= tol, f"rbgs_half_sweep or rbgs_residual disagrees "
+          f"with its plain version: {err_half:.3e}")
     return err_leg, err_fused, err_half
 
 
@@ -1134,6 +1148,8 @@ def phase_kernels(results):
     # Reads x, diag, off (4 planes), b; writes x.  Half the cells do 10
     # flops.
     half_bound, half_by = bound_ms(8 * 4 * n, 5 * n)
+    if hasattr(sk, "rbgs_residual"):
+        _time_residual(results, sk, x, diag2, off2, b)
     # Host cost of one wrapper call at a size where the kernels take a few
     # microseconds.
     sd, so, sx, sb = _grid_system(37, 111, 97, "cuda")
@@ -1172,6 +1188,38 @@ def phase_kernels(results):
     if hasattr(sk, "coupled_spmv"):    # not in a --tree before the stencils
         phase_stencil_kernels(results)
     phase_banded_kernels(results)
+
+
+def _time_residual(results, sk, x, diag2, off2, b):
+    """rbgs_residual at the main path's finest grid: max-abs against its
+    plain version on the timing inputs, its time under both flushes beside
+    its byte bound (x, diag, 4 off and b read, a quarter plane written;
+    per cell 10 flops of residual and 3/4 of an add) and the plain
+    version's time.  The launches made here are taken off by the caller."""
+    import torch
+    ny, nx = x.shape
+    n = ny * nx
+    coarse = coarse_of((ny, nx))
+    call = lambda: sk.rbgs_residual(x, diag2, off2, b, coarse)
+    plain = lambda: sk.rbgs_residual_ref(x, diag2, off2, b, coarse)
+    err = _maxerr((call(),), (plain(),))
+    torch.cuda.synchronize()
+    check(err <= _leg_tol(sk), f"rbgs_residual on the timing inputs errs "
+          f"{err:.3e}")
+    ms, ms_read = both_flushes_ms(call, 50)
+    plain_ms = cuda_time_ms(plain)
+    bnd, by = bound_ms((7 + 0.25) * 4 * n, 10.75 * n)
+    results["rbgs_residual"] = dict(
+        name="rbgs_residual", route="cuda",
+        source="cfd2_tpu_torch/csrc/rbgs.cu",
+        replaces="none: the residual and restriction around "
+        "cfd2_tpu/ops/pallas_stencil.py:97 (XLA's in the JAX package)",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+        bound_by=by, library_ms=None, ms_read_flush=ms_read)
+    log(f"phase 2: rbgs_residual at {ny}x{nx} -> {coarse}: max-abs "
+        f"{err:.3e}; {ms:.4f} ms / {ms_read:.4f} ms under the read flush, "
+        f"bound {bnd:.4f} ms ({by}, {bnd / ms:.1%} of it), plain "
+        f"{plain_ms:.4f} ms")
 
 
 # The stencil kernels of csrc/stencil.cu: name -> the function the JAX
@@ -1498,6 +1546,11 @@ def _main_steps(s, ctx, n):
     return lin_total, timed
 
 
+# The kernels that only the half-sweep path (CFD2_PALLAS=1) launches; its
+# main-path run is phase 4.
+HALF_SWEEP_PATH = ("rbgs_half_sweep", "rbgs_residual")
+
+
 def phase_main(results, ctx):
     import torch
     from cfd2_tpu_torch.convert import load_developed_state
@@ -1532,11 +1585,13 @@ def phase_main(results, ctx):
     counts = dict(sk.LAUNCHES)
     leg = counts["rbgs_leg"]
     for name, cnt in counts.items():
-        if name in results and name != "rbgs_half_sweep":
+        if name in results and name not in HALF_SWEEP_PATH:
             results[name]["launches"] = cnt
     _path_launches(results, "structured (phase 3)",
                    {k: v for k, v in counts.items()
-                    if k != "rbgs_half_sweep"})
+                    if k not in HALF_SWEEP_PATH})
+    check(all(counts.get(k, 0) == 0 for k in HALF_SWEEP_PATH),
+          f"a half-sweep path kernel ran on the leg path: {counts}")
     check(leg > 0, "rbgs_leg was never launched on the main path")
     per_apply = 2 * len(grids)
     check(leg == per_apply * lin_total,
@@ -1658,8 +1713,9 @@ def phase_half_sweep(results, ctx):
             os.environ.pop("CFD2_PALLAS")
         else:
             os.environ["CFD2_PALLAS"] = old
-    if "rbgs_half_sweep" in results:
-        results["rbgs_half_sweep"]["launches"] = counts["rbgs_half_sweep"]
+    for name in HALF_SWEEP_PATH:
+        if name in results:
+            results[name]["launches"] = counts[name]
     _path_launches(results, "half-sweep (phase 4)",
                    {k: v for k, v in counts.items() if k != "rbgs_leg"})
     per_apply = 2 * 2 * len(grids)   # 2 half-sweeps x 2 smooths per level
@@ -1671,6 +1727,9 @@ def phase_half_sweep(results, ctx):
     check(counts["rbgs_half_sweep"] == per_apply * lin_total,
           f"rbgs_half_sweep launches {counts['rbgs_half_sweep']} != "
           f"{per_apply} per V-cycle x {lin_total} FGMRES iterations")
+    check(counts["rbgs_residual"] == len(grids) * lin_total,
+          f"rbgs_residual launches {counts['rbgs_residual']} != one per "
+          f"level's down leg ({len(grids)}) x {lin_total} FGMRES iterations")
     check(counts["rbgs_leg"] == 0, "rbgs_leg ran on the CFD2_PALLAS=1 path")
 
 
@@ -2002,29 +2061,26 @@ def _drive_unstructured(phase, s, n_cells, n_steps, before_step=None):
     return counts, lin_total, rows
 
 
-# The card's state at the start of the 403k Delaunay case's step 2 (the
-# input of the JAX package's from-state record in fullsize_counts.json).
-STEP2_INPUT = ROOT / "cfd2_tpu_torch" / "data" / "delaunay_403k_step2_card.npz"
-
-
-def _step2_input(s, ctx):
-    """Before phase 6's step 2: write the state the step reads where
-    ``--save-step2-input`` asks, and log how far it lies from the committed
-    one."""
+def _step2_input(s, ctx, case, phase):
+    """Before a case's step 2: write the state the step reads into the
+    directory ``--save-step2-input`` names, and log how far it lies from the
+    committed one."""
     from cfd2_tpu_torch.tools import developed_cases as dc
     if ctx.get("save_step2_input"):
-        dc.save_step_input(s, ctx["save_step2_input"],
-                           case="delaunay_403k_rest", step=2,
-                           card=card_line(), source="chip_smoke.py phase 6")
-        log(f"phase 6: step 2's input written to {ctx['save_step2_input']}")
-    if not STEP2_INPUT.exists():
+        out = dc.card_step2_path(case, ctx["save_step2_input"])
+        out.parent.mkdir(parents=True, exist_ok=True)
+        dc.save_step_input(s, out, case=case, step=2, card=card_line(),
+                           source=f"chip_smoke.py phase {phase}")
+        log(f"phase {phase}: step 2's input written to {out}")
+    ref_path = dc.card_step2_path(case)
+    if not ref_path.exists():
         return
-    ref, _ = dc.read_step_input(STEP2_INPUT)
+    ref, _ = dc.read_step_input(ref_path)
     diffs = {f: float(np.abs(s.mesh.to_host_order(getattr(s.state, f))
                              .cpu().numpy() - a).max())
              for f, a in ref.items()}
-    log(f"phase 6: step 2's input against the committed "
-        f"{STEP2_INPUT.name}: max-abs difference {diffs}")
+    log(f"phase {phase}: step 2's input against the committed "
+        f"{ref_path.name}: max-abs difference {diffs}")
 
 
 def phase_delaunay(results, ctx):
@@ -2054,7 +2110,8 @@ def phase_delaunay(results, ctx):
     _hold_on_solver_maps(6, s, results)
     counts, lin_total, rows = _drive_unstructured(
         6, s, mesh.num_cells, 3,
-        lambda i: _step2_input(s, ctx) if i == 2 else None)
+        lambda i: (_step2_input(s, ctx, "delaunay_403k_rest", 6) if i == 2
+                   else None))
     # Steps 0-1 against the from-rest record; step 2 against the JAX
     # package's step from the card's own step-2 state, which took the
     # card's 7 outers and 232 FGMRES iterations to its 242: the step's gap
@@ -2379,22 +2436,30 @@ def phase_multilevel(results, ctx):
     with _counting_mom_dots() as mom_dots:
         rows, counts = _timed_steps(s, 1)
         u_first = s.get_u()
-        more, counts2 = _timed_steps(s, 2)
-    rows += more
-    counts = {k: counts[k] + counts2[k] for k in counts}
+        runs = [_timed_steps(s, 1)]
+        _step2_input(s, ctx, "refined_132k_rest", "10a")
+        runs.append(_timed_steps(s, 1))
+    for more, more_counts in runs:
+        rows += more
+        counts = {k: counts[k] + more_counts[k] for k in counts}
     _log_run("multilevel", rows, counts, phase="10a")
-    # Steps 0-1 are held to the JAX record (the card met it in every run
-    # since PR 12); step 2 is logged beside it and a miss is reported as
-    # known open at the end of the run: card and CPU end it apart (ROADMAP
-    # Queue 3, open check 1).
+    # Steps 0-1 are held to the JAX record; step 2 is logged beside it and
+    # beside the JAX package's step from the card's own step-2 state, and a
+    # miss is reported as known open at the end of the run: its solves end
+    # at the float32 floor, and the card's slot sums round apart from the
+    # reference's (ROADMAP Queue 3, open check 1).
     steps = [(o, sum(its)) for o, its, _, _ in rows]
-    _beside_record("10a", "refined_132k_rest", steps[:2], enforce=True)
-    missed = _beside_record("10a", "refined_132k_rest", steps[2:], first=2)
-    if missed:
-        ctx.setdefault("known_open", []).append(
-            f"phase 10a: refined_132k_rest steps {missed} card "
-            f"{[steps[i] for i in missed]} (outers, FGMRES iterations) miss "
-            "the bound of the JAX record (ROADMAP Queue 3, open check 1)")
+    case = "refined_132k_rest"
+    _beside_record("10a", case, steps[:2], enforce=True)
+    for suffix in ("", "_from_card_step2"):
+        missed = _beside_record("10a", case, steps[2:], first=2,
+                                suffix=suffix)
+        if missed:
+            ctx.setdefault("known_open", []).append(
+                f"phase 10a: {case} steps {missed} card "
+                f"{[steps[i] for i in missed]} (outers, FGMRES iterations) "
+                f"miss the bound of the JAX record jax{suffix} (ROADMAP "
+                "Queue 3, open check 1)")
     lin_total = sum(sum(its) for _, its, _, _ in rows)
     per_apply = 2 * len(hier.fine.levels)
     for name in ("rbgs_leg", "banded_dot", "banded_gather"):
@@ -3139,7 +3204,8 @@ def _timed_option(mesh, state, params, config, amg, opts, steps, pallas):
         lambda: _option_steps(mesh, state, params, config, amg, opts, steps,
                               pallas))
     return dict(u=s.u.cpu().numpy(), outer=outer, lin=lin, wall=wall,
-                leg=leg, half=sk.LAUNCHES["rbgs_half_sweep"], counts=counts)
+                leg=leg, half=sk.LAUNCHES["rbgs_half_sweep"],
+                resid=sk.LAUNCHES["rbgs_residual"], counts=counts)
 
 
 def _p12_rank(rank, world, device, path):
@@ -3533,7 +3599,7 @@ def phase_sharded_main(results, ctx, path):
     launches = [r["step"]["launches"] for r in res]
     _path_launches(results, "row-sharded 1M step, 4 ranks (phase 12a)",
                    {k: sum(c[k] for c in launches) for k in launches[0]
-                    if k != "rbgs_half_sweep"})
+                    if k not in HALF_SWEEP_PATH})
     log(f"phase 12a: rbgs_leg per rank {legs} in the step (one process "
         f"{leg1})")
     ms = config.mom_sweeps(dm.total_cells)
@@ -3608,7 +3674,7 @@ def _check_sharded_options(results, res, refs, controls, ops_ref, config):
     step's.  Every option is checked and logged before the failures are
     raised."""
     from dataclasses import replace
-    legs = halves = 0
+    legs = halves = resids = 0
     failures = []
 
     def check(cond, msg):
@@ -3653,12 +3719,20 @@ def _check_sharded_options(results, res, refs, controls, ops_ref, config):
                       f"{label}: rank {k} rbgs_half_sweep {rr['half']} over "
                       f"{sum(rr['lin'])} iterations, one process "
                       f"{ref['half']} over {sum(ref['lin'])}")
+                check(rr["resid"] > 0 and rr["resid"] * sum(ref["lin"])
+                      == ref["resid"] * sum(rr["lin"]),
+                      f"{label}: rank {k} rbgs_residual {rr['resid']} over "
+                      f"{sum(rr['lin'])} iterations, one process "
+                      f"{ref['resid']} over {sum(ref['lin'])}")
                 log(f"phase 12f, {label}: rank {k}: rbgs_half_sweep "
                     f"{rr['half']} ({rr['half'] / max(sum(rr['lin']), 1):.2f}"
                     f" per iteration; one process {ref['half']}, "
-                    f"{ref['half'] / max(sum(ref['lin']), 1):.2f})")
+                    f"{ref['half'] / max(sum(ref['lin']), 1):.2f}), "
+                    f"rbgs_residual {rr['resid']} (one process "
+                    f"{ref['resid']})")
             legs += rr["leg"]
             halves += rr["half"]
+            resids += rr["resid"]
         lins = [r["options"][label]["lin"] for r in res]
         outer = res[0]["options"][label]["outer"]
         wall = max(r["options"][label]["wall"] for r in res)
@@ -3684,7 +3758,8 @@ def _check_sharded_options(results, res, refs, controls, ops_ref, config):
               f"{label}: sharded u differs by {err:.3e}")
     _path_launches(results, "row-sharded options at full width, 4 ranks "
                    "(phase 12f)",
-                   {"rbgs_leg": legs, "rbgs_half_sweep": halves})
+                   {"rbgs_leg": legs, "rbgs_half_sweep": halves,
+                    "rbgs_residual": resids})
     if failures:
         raise PhaseError("; ".join(failures))
 
@@ -4090,20 +4165,23 @@ def _p13_banded(results, ctx, name):
 
 
 def phase_developed(results, ctx):
-    """13: the three developed full-size cases on the card, set up from
-    the case table; then the heal tool itself for a few steps."""
+    """13: the four developed full-size cases on the card, set up from
+    the case table; then the heal tool itself for a few steps on the
+    refined cut-cell mesh."""
     import shutil
     import torch
     from cfd2_tpu_torch.tools import make_developed_unstructured as mdu
     _p13_structured(results, ctx)
     torch.cuda.empty_cache()
-    mesh = _p13_banded(results, ctx, "delaunay_1m_developed")
-    ctx["delaunay_1m_mesh"] = mesh    # phase 16(e)
+    _p13_banded(results, ctx, "delaunay_1m_developed")
     _p13_banded(results, ctx, "voronoi_893k_developed")
+    mesh = _p13_banded(results, ctx, "refined_cutcell_130k_developed")
+    ctx["refined_cutcell_mesh"] = mesh    # phase 16(e)
     t0 = time.time()
     try:
-        meta = mdu.make("delaunay", 0.0019, HEAL_STEPS_ON_CARD, mesh=mesh,
-                        out=HEAL_DIR / "developed_delaunay_0.0019.npz",
+        meta = mdu.make("cutcell", 0.0015, HEAL_STEPS_ON_CARD, 0.006,
+                        mesh=mesh,
+                        out=HEAL_DIR / "developed_cutcell_0.0015-0.006.npz",
                         log=lambda m: log(f"phase 13: heal tool: {m}"))
     finally:
         shutil.rmtree(HEAL_DIR, ignore_errors=True)
@@ -4755,17 +4833,16 @@ def _p16_banded(results, ctx):
 
 
 def _p16_refined_developed(results, ctx):
-    """(e) prof_refined_developed on the developed 1M Delaunay state
-    (delaunay 0.0019, phase 13(b)'s)."""
+    """(e) prof_refined_developed at its default, the JAX tool's: the
+    developed refined cut-cell state 0.0015 / 0.006 (phase 13's mesh)."""
     from cfd2_tpu_torch.tools import prof_refined_developed
     got = _tool_run(results, "e", "prof_refined_developed", BANDED_KERNELS,
                     lambda: prof_refined_developed.run(
-                        "delaunay", 0.0019, 0.0,
-                        mesh=ctx.get("delaunay_1m_mesh"),
+                        mesh=ctx.get("refined_cutcell_mesh"),
                         log=_p16_log("e")), phase=16)
     log(f"phase 16: (e) {got['cells']} cells, outers {got['outers']}, "
         f"solve {got['solve']}")
-    check(got["cells"] == 1_004_266 and got["solve"][1],
+    check(got["cells"] == 129_663 and got["solve"][1],
           f"prof_refined_developed: {got['cells']} cells, solve "
           f"{got['solve']}")
 
@@ -4859,9 +4936,10 @@ def main(argv=None) -> int:
     ap.add_argument("--export-forces", metavar="PATH",
                     help="phase 11(c) also writes what the force formula "
                     "reads of its state to PATH (.npz)")
-    ap.add_argument("--save-step2-input", metavar="PATH",
-                    help="phase 6 writes the state its step 2 starts from "
-                    "to PATH (.npz, host order)")
+    ap.add_argument("--save-step2-input", metavar="DIR",
+                    help="phases 6 and 10(a) write the state their case's "
+                    "step 2 starts from into DIR (<case>_step2_card.npz, "
+                    "host order)")
     ap.add_argument("--tree", metavar="PATH",
                     help="run phases 1 and 2 on the cfd2_tpu_torch of "
                     "another checkout, unpacked inside this one")

@@ -92,6 +92,25 @@ def test_fused_leg_refuses_bad_input(cuda):
                     add_prolong=torch.zeros(8, 12))   # on the CPU
 
 
+@pytest.mark.parametrize("ny,nx,crop", [(37, 53, 0), (16, 24, 0),
+                                        (19, 56, 0), (5, 3, 0), (74, 221, 0),
+                                        (295, 883, 0), (589, 1765, 0),
+                                        (21, 56, 1)])
+def test_residual_kernel_matches_plain(cuda, ny, nx, crop):
+    """The half-sweep path's restricted residual on odd and even grids (and
+    a coarse grid one row short, as a row-sharded block's extended rows
+    give it) against smoother_residual + restrict2, bit for bit."""
+    diag2, off2, x, b = _grid_system(ny, nx, 2, cuda)
+    coarse = ((ny + 1) // 2 - crop, (nx + 1) // 2)
+    before = sk.LAUNCHES["rbgs_residual"]
+    got = sk.rbgs_residual(x, diag2, off2, b, coarse)
+    ref = sk.rbgs_residual_ref(x, diag2, off2, b, coarse)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["rbgs_residual"] == before + 1
+    assert got.shape == coarse
+    assert float((got - ref).abs().max()) <= EXACT
+
+
 @pytest.mark.parametrize("ny,nx", [(37, 53), (16, 24), (19, 56), (10, 28),
                                    (5, 3), (589, 1765)])
 @pytest.mark.parametrize("parity", [0, 1])

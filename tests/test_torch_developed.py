@@ -347,3 +347,31 @@ def test_phase_6_holds_step_2_to_the_from_state_record(tmp_path, monkeypatch,
     with pytest.raises(cs.PhaseError, match="steps \\[2\\] miss"):
         cs._beside_record(6, "c", [(7, 85)], enforce=True, first=2,
                           suffix="_from_card_step2")
+
+
+def test_refined_cutcell_state_loads_alike_in_both_packages():
+    """The committed refined cut-cell state (129,663 cells, made on the card
+    by ``make_developed_unstructured cutcell 0.0015 200 0.006``) on the
+    full-size mesh of each package's generator: both take the banded
+    unstructured layout (129,664 device cells, 6 faces a cell), and the
+    port's loader and the JAX package's reading of the file
+    (``torch_fullsize_parity.jax_load_unstructured``) give the same u and p
+    in host order, time, viscosity and density, exactly."""
+    case = dc.CASES["refined_cutcell_130k_developed"]
+    jmesh = j_cutcell(_jax_channel(), case.min_cell, case.max_cell, 1.2,
+                      (3.0, 1.0))
+    tmesh = mesh_cache.GENERATORS["cutcell"](
+        mesh_cache.channel(), case.min_cell, case.max_cell, 1.2, (3.0, 1.0))
+    assert tmesh.num_cells == jmesh.num_cells == case.cells
+    t, meta = dc.make_solver(case, device="cpu", mesh=tmesh)
+    j = fp.jax_solver(case, jmesh)
+    assert meta["cells"] == case.cells and meta["heal_steps"] == 200
+    for m in (t.mesh, j.mesh):
+        assert m.banded and not m.multilevel and not m.structured
+        assert (int(m.num_cells), int(m.max_faces)) == (129_664, 6)
+    assert np.array_equal(t.get_u(), j.get_u())
+    assert np.array_equal(t.get_p(), j.get_p())
+    assert float(t.state.time) == float(j.state.time) \
+        == np.float32(meta["solver_time"])
+    for f in ("viscosity", "density", "dt"):
+        assert float(getattr(t.params, f)) == float(getattr(j.params, f)), f

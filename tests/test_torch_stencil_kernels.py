@@ -191,6 +191,50 @@ def test_wrappers_on_cpu_run_plain_version_without_build(monkeypatch):
     assert sk.LAUNCHES == before
 
 
+def test_residual_on_cpu_runs_plain_version_without_build(monkeypatch):
+    """The restricted residual of a CPU tensor is smoother_residual then
+    restrict2 (zero-padded on an odd grid, cropped to a smaller coarse
+    grid), never reaching the build or the launch counter."""
+    def no_build(name):
+        raise AssertionError("the CUDA build was touched for CPU tensors")
+    monkeypatch.setattr(_build, "load", no_build)
+    before = dict(sk.LAUNCHES)
+    diag2, off2, x, b = (T(a) for a in _grid_system(17, 24, 5))
+    r = sk.smoother_residual(diag2, off2, x, b)
+    for coarse in ((9, 12), (8, 12)):
+        got = sk.rbgs_residual(x, diag2, off2, b, coarse)
+        assert torch.equal(got, sk.restrict2(r, coarse))
+    assert sk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["coarse_too_big", "coarse_empty",
+                                  "off_short", "x_double", "fine"])
+def test_residual_launch_path_checks_before_it_builds(monkeypatch, case):
+    """On the launch path the restricted residual refuses a coarse grid it
+    cannot sum into and planes it cannot read as (ny, nx) float32 before it
+    builds anything; what it takes goes on to the build."""
+    monkeypatch.setattr(sk, "_cuda_or_cpu", lambda t: True)
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(sk, "rbgs_residual_ref", boom)
+    diag2, off2, x, b = (T(a) for a in _grid_system(7, 10, 4))
+    args, coarse = {
+        "coarse_too_big": ((x, diag2, off2, b), (5, 5)),
+        "coarse_empty": ((x, diag2, off2, b), (0, 5)),
+        "off_short": ((x, diag2, off2[:3], b), (4, 5)),
+        "x_double": ((x.double(), diag2, off2, b), (4, 5)),
+        "fine": ((x, diag2, off2, b), (4, 5))}[case]
+    err = RuntimeError if case == "fine" else (ValueError, TypeError)
+    with pytest.raises(err):
+        sk.rbgs_residual(*args, coarse)
+
+
 def test_wrapper_rejects_other_devices():
     x = torch.zeros((4, 4), device="meta")
     with pytest.raises(ValueError):
@@ -287,3 +331,22 @@ def test_plain_smoother_rounds_as_the_jax_package(ny, nx):
     apart = sk.dot4(to, sk.edge_shifts(tx)).numpy()
     np.testing.assert_array_equal(sk.smoother_sigma(to, tx).numpy(), js)
     assert (apart != js).mean() > 0.3
+
+
+@pytest.mark.parametrize("ny,nx", [(295, 883), (74, 221)])
+def test_residual_plain_path_rounds_as_the_jax_package(ny, nx):
+    """The half-sweep path's restricted residual (``rbgs_residual`` on CPU
+    tensors: ``smoother_residual`` then ``restrict2``) against the JAX
+    package's ``restrict2(b - spmv2(x))`` of ``_GridOps`` under one
+    ``jax.jit`` on the CPU, as its V-cycle computes it at level 1: bit for
+    bit at 295x883, the second grid of the main path, where the test above
+    finds XLA's rounding of the stencil, and at 74x221, a coarse level of
+    it (at 148x442 XLA's fusion rounds a fifth of the sums otherwise, within
+    1e-7 of the largest)."""
+    diag, off, x, b = _main_grid_system(ny, nx)
+    ops = JGridOps((ny, nx))
+    coarse = sk.coarse_grid_of((ny, nx))
+    jq = np.asarray(jax.jit(lambda d, o, x, b: ops.restrict2(
+        coarse, b - ops.spmv2(d, o, x)))(diag, off, x, b))
+    got = sk.rbgs_residual(T(x), T(diag), T(off), T(b), coarse).numpy()
+    np.testing.assert_array_equal(got, jq)

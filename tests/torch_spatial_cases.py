@@ -23,6 +23,19 @@ worker once aborted (SIGABRT, no message) while this fixture ran.  The
 runs go in and the results come back through pickle files in a temporary
 directory; a process that fails puts its exit code and the end of its
 stderr into the fixture's error.
+
+That process runs with ``PJRT_NPROC`` set to :data:`JAX_POOL_THREADS`.
+XLA:CPU runs every virtual device's thunks on one thread pool of
+max(cores, devices) threads, and a device may start two independent
+all-gathers of one program at once (the aborts' stacks hold one inside a
+conditional), each holding a thread while it waits for the other devices.
+With 8 threads for 8 devices the pool could fill with waiting collectives
+before the last device reached the first of them: the process then aborted
+after XLA's 40 s rendezvous limit (``rendezvous.cc``, "only 7 of them
+arrive"; 4 runs in 10 when pinned to two cores, and the test workers
+beside 8 gloo ranks made it happen).  With 4 threads per device a thread
+stays free for the last device while each of the others holds up to three
+waiting collectives (0 aborts in 10 runs pinned the same way).
 """
 
 import os
@@ -54,6 +67,10 @@ from cfd2_tpu_torch.runtime.device_mesh import encode_mesh as tencode
 WORLDS = (2, 4, 8)
 DT = 0.01
 PAD = 8
+JAX_DEVICES = max(WORLDS)
+# The JAX reference process's XLA:CPU thread pool (PJRT_NPROC): enough that
+# collectives waiting on every device cannot take the last free thread.
+JAX_POOL_THREADS = 4 * JAX_DEVICES
 
 
 def channel(h: float = 0.05):
@@ -105,7 +122,7 @@ def jax_runs(mesh, u0, runs: dict) -> dict:
     iterations per step (fgmres_recycle >= 2 carries the basis through
     ``step(..., krylov=)``)."""
     dm = jencode(mesh, pad_rows_to=PAD)
-    jm = JMesh(np.array(jax.devices("cpu")[:8]), axis_names=("y",))
+    jm = JMesh(np.array(jax.devices("cpu")[:JAX_DEVICES]), axis_names=("y",))
     smesh = jsp.shard_mesh(dm, jm)
     state0 = jsp.shard_state(dm, js.initial_state(dm, u0=u0), jm)
     params = js.SolverParams.default(dt=DT)
@@ -181,8 +198,9 @@ def start_jax_process(runs, tmp: str):
     flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
                      if "host_platform_device_count" not in f)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"{flags} --xla_force_host_platform_device_count=8"
-               .strip(),
+               PJRT_NPROC=str(JAX_POOL_THREADS),
+               XLA_FLAGS=(f"{flags} --xla_force_host_platform_device_count="
+                          f"{JAX_DEVICES}").strip(),
                PYTHONPATH=os.pathsep.join(
                    [str(TESTS), str(TESTS.parent)]
                    + [p for p in [os.environ.get("PYTHONPATH")] if p]))

@@ -1,15 +1,22 @@
-"""How close the 403k Delaunay case's step 2 solves end to their targets,
-and whether the two packages' operators agree on the same outer input.
+"""How close a full-size case's step 2 solves end to their targets, and
+whether the two packages' operators agree on the same outer input.
 
-    python3 tests/torch_step_margins.py card [--save-outers DIR]
-    python3 tests/torch_step_margins.py cpu-step [--save-outers DIR]
-    python3 tests/torch_step_margins.py replay DIR [--outer K] \
-        [--device cuda|cpu] [--save PATH]
-    JAX_PLATFORMS=cpu python tests/torch_step_margins.py cpu DIR [--outer K]
+    python3 tests/torch_step_margins.py [--case CASE] [--state PATH] \
+        card [--save-outers DIR]
+    python3 tests/torch_step_margins.py [...] cpu-step [--save-outers DIR]
+    python3 tests/torch_step_margins.py [...] replay DIR [--outer K] \
+        [--device cuda|cpu] [--save PATH] [--against PATH]
+    JAX_PLATFORMS=cpu python tests/torch_step_margins.py [...] cpu DIR \
+        [--outer K]
+
+``--case`` names a case of ``developed_cases.CASES`` (default
+``delaunay_403k_rest``); ``--state`` a step input that
+``developed_cases.save_step_input`` wrote for it (default the card's
+committed one, ``cfd2_tpu_torch/data/<case without _rest>_step2_card.npz``:
+``delaunay_403k_step2_card.npz``, ``refined_132k_step2_card.npz``).
 
 ``card`` (on a GPU; no JAX): the case's solver (``developed_cases``) started
-from the card's committed step-2 input (``cfd2_tpu_torch/data/
-delaunay_403k_step2_card.npz``) takes step 2 and prints, for every outer,
+from that step input takes the step and prints, for every outer,
 its FGMRES iterations and the true residual over the solve's target after
 each cycle (the solve ends below 1, at the restart cap or at the
 stagnation exit); ``--save-outers DIR`` writes the fields each outer's
@@ -22,9 +29,14 @@ solve reads (u, p, d_p, grad_p in host order) as ``outer<K>.npz``.
 with the port's operators on the card (or ``--device cpu``): its cycles'
 true residual over the target, and the residual's float32 evaluation error
 at x0 and at the solution (the distance from the float64 evaluation);
-``--save`` writes b, x0, b - A x0 and its preconditioned direction for a
-bit-for-bit comparison of two devices.  Replaying one input on both devices
-tells a difference of the devices' arithmetic from one of their inputs.
+``--save`` writes the outer's ``prepare`` and ``assemble_ell`` fields, b,
+x0, b - A x0 and its preconditioned direction for a bit-for-bit comparison
+of two devices.  Replaying one input on both devices tells a difference of
+the devices' arithmetic from one of their inputs; ``--against PATH``
+(another device's ``--save``) compares each of them with the file's, in
+the order the step computes them, and the preconditioner applied to the
+file's b - A x0 with the file's direction (the two devices'
+preconditioners on one input).
 
 ``cpu``: on the saved input of outer K (default 4) and the one before it
 (outer 0 reads no saved outer: its input is the step input itself, so
@@ -60,7 +72,6 @@ sys.path.insert(0, str(ROOT))
 from cfd2_tpu_torch.tools import developed_cases as dc  # noqa: E402
 
 CASE = "delaunay_403k_rest"
-STEP2 = ROOT / "cfd2_tpu_torch" / "data" / "delaunay_403k_step2_card.npz"
 _CYCLE = "        conv = bool(res_new < target)\n"
 _ITER = "            stop = resid < target\n"
 
@@ -110,12 +121,12 @@ def recording_fgmres(f64=False):
     return solve, cycles, estimates
 
 
-def card(save_outers=None, device=None) -> int:
+def card(save_outers=None, device=None, case=CASE, state=None) -> int:
     import torch
     from cfd2_tpu_torch.models import coupled
-    case = dc.CASES[CASE]
-    s, _ = dc.make_solver(case, device=device)
-    dc.load_step_input(s, STEP2)
+    state = Path(state or dc.card_step2_path(case))
+    s, _ = dc.make_solver(dc.CASES[case], device=device)
+    meta = dc.load_step_input(s, state)
     solve, cycles, estimates = recording_fgmres()
     orig_solve, orig_outer = coupled.fgmres_solve, coupled._assemble_and_solve
     its = []
@@ -139,7 +150,8 @@ def card(save_outers=None, device=None) -> int:
     finally:
         coupled.fgmres_solve = orig_solve
         coupled._assemble_and_solve = orig_outer
-    print(f"step 2 from {STEP2.name}: {int(s.state.outer_iters)} outers, "
+    print(f"{case} step {meta['step']} from {state.name}: "
+          f"{int(s.state.outer_iters)} outers, "
           f"FGMRES iterations {its}", flush=True)
     for i, (c, e) in enumerate(zip(cycles, estimates)):
         print(f"outer {i}: {its[i]} iterations in {len(c)} cycles; true "
@@ -165,14 +177,17 @@ def _port_outer(s, outers: Path, k: int) -> dict:
     import torch
     import cfd2_tpu_torch.models.assembly as ta
     import cfd2_tpu_torch.ops.ellsys as tel
-    from cfd2_tpu_torch.ops.amg import coarse_level_values, \
+    from cfd2_tpu_torch.ops.amg import AmgHierarchy, coarse_level_values, \
         make_pressure_solve
     tm = s.mesh
     entry = ta.prepare(tm, replace(s.state, u_old_old=s.state.u_old,
                                    u_old=s.state.u), s.params, s.config)
     amg = s._get_amg()
-    frozen = coarse_level_values(amg, *ta.assemble_pressure(tm, entry,
-                                                            s.params))
+    # The step freezes the aggregation hierarchy's coarse levels; the
+    # multilevel embedding rebuilds its own every outer (models/coupled.py).
+    frozen = (coarse_level_values(amg, *ta.assemble_pressure(tm, entry,
+                                                             s.params))
+              if isinstance(amg, AmgHierarchy) else None)
     if k == 0:
         # Outer 0 solves on the step entry's own prepare (upwind scheme: no
         # second prepare before the first solve), so no saved outer is read.
@@ -222,18 +237,28 @@ def residual_floor(o: dict, mesh, x) -> tuple:
                  (r32, r64, r32 - r64))
 
 
-def replay(outers: Path, k: int, device: str, save=None) -> int:
+def _differ(a, b) -> str:
+    """max-abs of a - b, over max|b|, and the share of entries that differ."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = float(np.abs(a - b).max())
+    return (f"max-abs {d:.3e} ({d / max(float(np.abs(b).max()), 1e-300):.3e}"
+            f" of max|.|), {float(np.mean(a != b)):.4f} of the entries differ")
+
+
+def replay(outers: Path, k: int, device: str, save=None, case=CASE,
+           state=None, against=None) -> int:
     """Outer ``k``'s saved input (written by ``card`` or ``cpu-step``) solved
     with the port's operators on ``device``, no JAX: its FGMRES iterations,
     the true residual over the target after each cycle, and the residual's
     float32 evaluation error at x0 and at the solution.  ``save``: an npz of
-    b, x0, r0 = b - A x0 and the preconditioned r0 / |r0| in device order,
-    for a bit-for-bit comparison of two devices' operators."""
+    the outer's prepare and assembly fields, b, x0, r0 = b - A x0 and the
+    preconditioned r0 / |r0| in device order, for a bit-for-bit comparison
+    of two devices' operators; ``against``: such a file of another device,
+    compared with this one's."""
     import torch
     import cfd2_tpu_torch.models.coupled as tc
-    case = dc.CASES[CASE]
-    s, _ = dc.make_solver(case, device=device)
-    dc.load_step_input(s, STEP2)
+    s, _ = dc.make_solver(dc.CASES[case], device=device)
+    dc.load_step_input(s, state or dc.card_step2_path(case))
     o = _port_outer(s, outers, k)
     solve, cycles, _ = recording_fgmres()
     r = solve(o["mv"], o["pc"], o["b"], o["x0"], tol=s.config.fgmres_tol,
@@ -251,15 +276,34 @@ def replay(outers: Path, k: int, device: str, save=None) -> int:
         print(f"  at {name}: true residual / target {r32 / target:.4f} in "
               f"float32, {r64 / target:.4f} in float64; the float32 "
               f"evaluation's error {err / target:.4f}", flush=True)
+    direction = lambda r0: o["pc"](r0 / torch.sqrt(torch.sum(r0 * r0)))
+    r0 = o["b"] - o["mv"](o["x0"])
+    z0 = direction(r0)
+    # The outer's prepare and assembly, in the order the step computes them,
+    # then what the solve starts from.
+    mine = {f"prepare {f}": getattr(o["tp"], f)
+            for f in ("fluxes", "d_p", "grad_p", "grad_u", "grad_v")}
+    mine.update({f"assemble_ell {f.name}": getattr(o["es"], f.name)
+                 for f in fields(o["es"])})
+    mine.update(b=o["b"], x0=o["x0"], r0=r0, z0=z0, x=r.x)
+    mine = {n: v.cpu().numpy() for n, v in mine.items()}
     if save is not None:
-        r0 = o["b"] - o["mv"](o["x0"])
-        z0 = o["pc"](r0 / torch.sqrt(torch.sum(r0 * r0)))
-        np.savez_compressed(save, **{n: v.cpu().numpy() for n, v in dict(
-            b=o["b"], x0=o["x0"], r0=r0, z0=z0, x=r.x).items()})
+        np.savez_compressed(save, **mine)
+    if against is not None:
+        with np.load(against) as f:
+            other = {n: f[n] for n in f.files}
+        label = {"r0": "b - A x0", "z0": "the direction"}
+        for n, v in mine.items():
+            if n in other and n != "x":
+                print(f"  {label.get(n, n)} against {Path(against).name}: "
+                      f"{_differ(v, other[n])}", flush=True)
+        z_other = direction(torch.from_numpy(other["r0"]).to(r0.device))
+        print(f"  the preconditioner on its b - A x0 against its direction: "
+              f"{_differ(z_other.cpu().numpy(), other['z0'])}", flush=True)
     return 0
 
 
-def cpu(outers: Path, k: int) -> int:
+def cpu(outers: Path, k: int, case=CASE, state=None) -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -268,16 +312,18 @@ def cpu(outers: Path, k: int) -> int:
     import torch_fullsize_parity as fp
     import cfd2_tpu.models.assembly as ja
     import cfd2_tpu.ops.ellsys as jel
+    from cfd2_tpu.ops.amg import AmgHierarchy as JAmgHierarchy
     from cfd2_tpu.ops.amg import coarse_level_values as j_levels
     from cfd2_tpu.ops.amg import make_pressure_solve as j_pressure
     import cfd2_tpu_torch.models.coupled as tc
 
     t0 = time.time()
-    case = dc.CASES[CASE]
+    state = state or dc.card_step2_path(case)
+    case = dc.CASES[case]
     j = fp.jax_solver(case, fp.jax_mesh(case))
-    fp.jax_load_step_input(j, STEP2)
+    fp.jax_load_step_input(j, state)
     s, _ = dc.make_solver(case, device="cpu")
-    dc.load_step_input(s, STEP2)
+    dc.load_step_input(s, state)
     tm, jm = s.mesh, j.mesh
     o = _port_outer(s, outers, k)
 
@@ -295,7 +341,8 @@ def cpu(outers: Path, k: int) -> int:
                                  u_old=j.state.u), j.params, j.config)
     cmp("entry prepare: d_p", host(tm, o["entry"].d_p), host(jm, js0.d_p))
     amg_j = j._get_amg()
-    fr_j = j_levels(amg_j, *ja.assemble_pressure(jm, js0, j.params))
+    fr_j = (j_levels(amg_j, *ja.assemble_pressure(jm, js0, j.params))
+            if isinstance(amg_j, JAmgHierarchy) else None)
     if k == 0:
         jp = js0
     else:
@@ -354,6 +401,10 @@ def cpu(outers: Path, k: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--case", choices=sorted(dc.CASES), default=CASE)
+    ap.add_argument("--state", type=Path, default=None,
+                    help="the step input (default: the card's committed "
+                         "step-2 state of the case)")
     sub = ap.add_subparsers(dest="mode", required=True)
     c = sub.add_parser("card")
     c.add_argument("--save-outers", default=None)
@@ -369,18 +420,21 @@ def main(argv=None) -> int:
     rp.add_argument("--device", default="cuda")
     rp.add_argument("--threads", type=int, default=2)
     rp.add_argument("--save", default=None)
+    rp.add_argument("--against", default=None)
     a = ap.parse_args(argv)
+    where = dict(case=a.case, state=a.state)
     if a.mode == "card":
-        return card(a.save_outers)
+        return card(a.save_outers, **where)
     if a.mode == "replay":
         import torch
         torch.set_num_threads(a.threads)
-        return replay(a.outers, a.outer, a.device, a.save)
+        return replay(a.outers, a.outer, a.device, a.save,
+                      against=a.against, **where)
     if a.mode == "cpu-step":
         import torch
         torch.set_num_threads(a.threads)
-        return card(a.save_outers, device="cpu")
-    return cpu(a.outers, a.outer)
+        return card(a.save_outers, device="cpu", **where)
+    return cpu(a.outers, a.outer, **where)
 
 
 if __name__ == "__main__":
